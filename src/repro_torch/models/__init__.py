@@ -1,0 +1,2 @@
+from .config import INPUT_SHAPES, InputShape, ModelConfig
+from .registry import ALIASES, ARCH_IDS, build_model, get_config

@@ -1,0 +1,239 @@
+"""HSTU generative-recommendation backbone in PyTorch (port of
+``repro.models.hstu``) — the GR model family served by RelayGR.
+
+    U, V, Q, K = split(SiLU(f1(norm(x))))
+    A          = SiLU(Q K^T / sqrt(d)) / n        (no softmax)
+    y          = x + f2(norm(A V) * U)
+
+The per-layer (K, V) of the user-behaviour prefix is psi(u), the object
+RelayGR pre-infers and relays.  Public tensors keep JAX's layouts: psi
+is a ``(K, V)`` pair of ``(L, B, P, H, D)`` tensors, parameters keep the
+shapes of ``repro``'s parameter tree (``models/convert.py`` moves one
+into the other).
+
+Attention goes through ``repro_torch.kernels.ops`` at all three call
+sites — causal prefill, rank with cache, rank with pages — which launch
+the CUDA kernels on CUDA tensors and run the plain versions on the CPU.
+The projections around attention stay ``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.kernels import ops, ref
+
+from .arch import _embed, _logits, embed_specs, stack_specs
+from .config import ModelConfig
+from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
+
+
+def hstu_block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, hd, dt = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.dtype
+    return {
+        "ln": ParamSpec((d,), ("embed",), init="ones"),
+        "uvqk": ParamSpec((d, 4, h, hd), ("embed", None, "heads", None),
+                          dtype=dt),
+        "ln_attn": ParamSpec((h * hd,), ("heads",), init="ones"),
+        "wo": ParamSpec((h, hd, d), ("heads", None, "embed"), dtype=dt),
+    }
+
+
+def rank_mask(n_prefix: int, n_incr: int, n_items: int, device=None):
+    """(1, 1, Sq, Sk) ranking mask: queries [incr | items], keys
+    [prefix | incr | items]; incr causal, items see prefix+incr+self."""
+    return ref.rank_mask_ref(n_prefix, n_incr, n_items,
+                             device=device)[None, None]
+
+
+class HSTUModel(nn.Module):
+    """The RelayGR prefix/rank protocol over an HSTU stack.
+
+    Parameters live on ``device`` from construction; ``init`` fills them
+    from a ``torch.Generator`` with the reference's init rule, and
+    ``convert.load_jax_params`` loads a ``repro`` parameter tree."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        # float32 products stay float32 on the card (no TF32 rounding)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        specs = self.param_specs()
+
+        def param(spec: ParamSpec) -> nn.Parameter:
+            return nn.Parameter(torch.empty(spec.shape,
+                                            dtype=DTYPES[spec.dtype],
+                                            device=self.device),
+                                requires_grad=False)
+
+        for name in ("tok", "final_norm", "unembed"):
+            setattr(self, name, param(specs[name]))
+        self.layers = nn.ParameterDict(
+            {k: param(s) for k, s in specs["layers"].items()})
+        if "task_tower" in specs:
+            self.task_tower = nn.ParameterDict(
+                {k: param(s) for k, s in specs["task_tower"].items()})
+
+    def param_specs(self):
+        cfg = self.cfg
+        specs = dict(embed_specs(cfg))
+        specs["layers"] = stack_specs(hstu_block_specs(cfg), cfg.n_layers)
+        if cfg.n_tasks:
+            d = cfg.d_model
+            specs["task_tower"] = {
+                "w1": ParamSpec((d, 4 * d), ("embed", "ff"), dtype=cfg.dtype),
+                "w2": ParamSpec((4 * d, cfg.n_tasks), ("ff", None),
+                                dtype=cfg.dtype),
+            }
+        return specs
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "HSTUModel":
+        """Draw every parameter on the CPU from ``generator`` (so the
+        weights do not depend on the device), in sorted-name order."""
+        params = dict(self.named_parameters())
+        specs = {}
+        for name, s in self.param_specs().items():
+            if isinstance(s, dict):
+                specs.update({f"{name}.{k}": v for k, v in s.items()})
+            else:
+                specs[name] = s
+        for name in sorted(specs):
+            params[name].copy_(specs[name].initialise(generator))
+        return self
+
+    # --- core block -------------------------------------------------------
+    def _block(self, l, x, rope, attend):
+        cfg = self.cfg
+        h, hd = cfg.n_heads, cfg.head_dim
+        B, S, d = x.shape
+        p = self.layers
+        xn = rms_norm(x, p["ln"][l])
+        uvqk = F.silu(xn @ p["uvqk"][l].reshape(d, 4 * h * hd))
+        uvqk = uvqk.view(B, S, 4, h, hd)
+        u, v, qk = uvqk[:, :, 0], uvqk[:, :, 1], uvqk[:, :, 2:]
+        if rope is not None:                 # q and k rotate in one pass
+            qk = rotate_pairs(qk, *rope)
+        q, k = qk.unbind(2)
+        av = attend(l, q, k, v)                          # (B, S, H, D)
+        av = rms_norm(av.reshape(B, S, h * hd), p["ln_attn"][l])
+        y = (av.view(B, S, h, hd) * u).reshape(B, S, h * hd) \
+            @ p["wo"][l].reshape(h * hd, d)
+        return x + y, (k, v)
+
+    def _run(self, x, positions, attend, keep_kv: bool = False):
+        """All layers over x (B, S, d) at ``positions`` (1, S).  The RoPE
+        tables are built once here, shaped to broadcast over the
+        (B, S, 2, H, D/2) pairs of q and k, and shared by every layer."""
+        rope = None
+        if self.cfg.rope_theta:
+            rope = tuple(t[..., None, None, :] for t in rope_tables(
+                positions, self.cfg.head_dim, self.cfg.rope_theta))
+        ks, vs = [], []
+        for l in range(self.cfg.n_layers):
+            x, (k, v) = self._block(l, x, rope, attend)
+            if keep_kv:
+                ks.append(k)
+                vs.append(v)
+        kv = (torch.stack(ks), torch.stack(vs)) if keep_kv else None
+        return x, kv
+
+    # --- RelayGR prefix / rank protocol -------------------------------------
+    @torch.no_grad()
+    def prefill(self, tokens):
+        """Pre-inference: tokens (B, S) -> (last-position logits,
+        psi = per-layer (K, V), each (L, B, S, H, D))."""
+        x = _embed(self.tok, tokens.long())
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        x, kv = self._run(
+            x, positions,
+            lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
+            keep_kv=True)
+        return _logits(self.final_norm, self.unembed, x[:, -1:]), kv
+
+    def _rank(self, incr_tokens, item_tokens, n_prefix: int, attend_for):
+        n_incr = incr_tokens.shape[1]
+        x = _embed(self.tok, torch.cat([incr_tokens, item_tokens],
+                                       dim=1).long())
+        Sq = x.shape[1]
+        positions = (n_prefix + torch.arange(Sq, device=x.device))[None, :]
+        x, _ = self._run(x, positions,
+                         attend_for(n_incr=n_incr, n_total=n_prefix + Sq))
+        items_h = x[:, n_incr:]
+        tw = self.task_tower
+        return F.silu(items_h @ tw["w1"]) @ tw["w2"]
+
+    @torch.no_grad()
+    def rank_with_cache(self, cache: Optional[Tuple], incr_tokens,
+                        item_tokens):
+        """Score candidate items reusing the cached prefix psi, a (K, V)
+        pair of (L, B, P, H, D) — or None for no prefix.  Returns scores
+        (B, n_items, n_tasks)."""
+        cfg = self.cfg
+        if cache is None:
+            B = incr_tokens.shape[0]
+            z = torch.zeros((cfg.n_layers, B, 0, cfg.n_heads, cfg.head_dim),
+                            dtype=DTYPES[cfg.dtype], device=self.device)
+            cache = (z, z)
+        pk, pv = cache
+
+        def attend_for(n_incr, n_total):
+            return lambda l, q, k, v: ops.rank_attention(
+                q, k, v, pk[l], pv[l], n_incr=n_incr, n_total=n_total)
+
+        return self._rank(incr_tokens, item_tokens, pk.shape[2], attend_for)
+
+    @torch.no_grad()
+    def rank_with_pages(self, pool, tables, prefix_lens, incr_tokens,
+                        item_tokens):
+        """Score candidates with psi read straight from the page pool.
+
+        pool:        (N + 1, page_tokens, H, D), last row the null page
+        tables:      (B, L, 2, n_pages) int32 — [:, l, 0] layer l's K
+                     pages, [:, l, 1] its V pages (null-page padded)
+        prefix_lens: (B,) int32 resident psi tokens per row
+
+        The prefix spans ``n_pages * page_tokens`` positions, exactly
+        the padded psi length the dense path ranks against."""
+        n_prefix = tables.shape[-1] * pool.shape[1]
+
+        def attend_for(n_incr, n_total):
+            return lambda l, q, k, v: ops.paged_rank_attention(
+                q, k, v, pool, tables[:, l, 0], tables[:, l, 1],
+                prefix_lens, n_incr=n_incr, n_total=n_total)
+
+        return self._rank(incr_tokens, item_tokens, n_prefix, attend_for)
+
+    @torch.no_grad()
+    def full_rank(self, prefix_tokens, incr_tokens, item_tokens):
+        """Baseline: full inference with the long prefix on the critical
+        path (no cache)."""
+        _, kv = self.prefill(prefix_tokens)
+        return self.rank_with_cache(kv, incr_tokens, item_tokens)
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """((K, V) (shape, dtype)), (K, V) logical axes) of psi."""
+        cfg = self.cfg
+        kv = ((cfg.n_layers, batch, seq_len, cfg.n_heads, cfg.head_dim),
+              DTYPES[cfg.dtype])
+        axes = ("layers", "batch", None, "heads", None)
+        return (kv, kv), (axes, axes)
+
+    def kv_bytes(self, seq_len: int) -> int:
+        """psi footprint per user — drives trigger admission control."""
+        specs, _ = self.cache_specs(1, seq_len)
+        total = 0
+        for shape, dtype in specs:
+            n = 1
+            for s in shape:
+                n *= s
+            total += n * torch.empty((), dtype=dtype).element_size()
+        return total

@@ -23,3 +23,10 @@ if settings is not None:
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card; skips without one "
+                   "(run on the card: python -m pytest -m cuda "
+                   "tests/test_torch_cuda.py)")
