@@ -23,7 +23,20 @@ Phases, each fatal on failure (nothing is caught):
      must include ``hbm_hit`` and the device pool must never re-ship;
   5. the relay-vs-full eps contract at full width, and full-width scores
      on the card against the same weights on the CPU;
-  6. print the ``kernels`` JSON line, then the final device line.
+  6. ``hybrid``: the Zamba2 serve path (``zamba2_1p2b`` at full width and
+     depth, bf16, random weights from a seed, LoRA live).  First the
+     decode and SSD kernels against their plain twins on the card, at the
+     path's shapes and at ragged ones (a ring no split divides, GQA with
+     KV in {1, 8, 32} at H 32, one chunk of Q = L < 128), timed beside
+     their bound and the one PyTorch call that computes the same
+     function; then 2 prompts x 8192 tokens through ``make_prefill_step``
+     and 32 greedy steps through ``make_serve_step``, counters zeroed
+     just before each and read just after (38 + 38 SSD launches per
+     prefill, 6 decode launches per step); a profile of one prefill and
+     one decode step; and card vs CPU logits for a float32 copy at full
+     width and 7 layers (one section + a 1-layer tail), prefill plus 4
+     decode steps, within 5e-4 of the largest |logit|;
+  7. print the ``kernels`` JSON line, then the final device line.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
 the full run takes no arguments.  Per-shape timings are also written to
@@ -44,6 +57,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 TOL = 3e-4          # f32 kernel vs plain: the repo's kernel tolerance
+TOL_BF16 = 6e-2     # bf16 kernel vs plain (tests/test_kernels.py)
 FP32_PEAK = 67e12   # H100 SXM FP32 outside the tensor cores, FLOP/s
 HBM_BW = 3.35e12    # H100 SXM device memory, B/s
 H, D = 4, 64
@@ -51,11 +65,25 @@ PSI, N_INCR, N_ITEMS = 2048, 16, 64
 PAGE = 64
 RAGGED = [2048, 1500, 933, 103, 2048, 640, 1, 1777]   # per-row psi tokens
 
+HYB_B, HYB_S, HYB_STEPS = 2, 8192, 32     # prompts, tokens each, decode steps
+HYB_CPU_S, HYB_CPU_STEPS = 256, 4         # card-vs-CPU check
+HYB_REL = 5e-4                            # card vs CPU, of the largest |logit|
+
 SOURCE = "src/repro_torch/csrc/hstu_rank_attn.cu"
+SOURCES = {
+    "hstu_attn": SOURCE, "prefix_rank_attn": SOURCE,
+    "paged_prefix_rank_attn": SOURCE,
+    "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
+    "ssd_chunk_intra": "src/repro_torch/csrc/ssd_chunk.cu",
+    "ssd_chunk_state": "src/repro_torch/csrc/ssd_chunk.cu",
+}
 REPLACES = {
     "hstu_attn": "src/repro/kernels/hstu_attn.py:63",
     "prefix_rank_attn": "src/repro/kernels/prefix_rank_attn.py:67",
     "paged_prefix_rank_attn": "src/repro/kernels/paged_prefix_attn.py:122",
+    "decode_attn": "src/repro/kernels/decode_attn.py:59",
+    "ssd_chunk_intra": "src/repro/kernels/ssd_chunk.py:51",
+    "ssd_chunk_state": "src/repro/kernels/ssd_chunk.py:106",
 }
 
 
@@ -290,22 +318,29 @@ def breakdown(torch, model, psi, incr, items, iters=5):
     """Where one full-width rank_with_cache (B=1, 1024-token psi, 16 incr
     + 64 items) spends its time: wall time by CUDA events, device time
     by kernel from torch.profiler, and the share the device sits idle."""
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         model.rank_with_cache(psi, incr, items)
+    return profile_fn(torch, "rank_with_cache",
+                      lambda: model.rank_with_cache(psi, incr, items), iters)
+
+
+def profile_fn(torch, label, fn, iters):
+    """Wall time of ``fn`` by CUDA events, its device time by kernel from
+    torch.profiler, and the share of the wall time the device is idle."""
+    from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(iters):
-        model.rank_with_cache(psi, incr, items)
+        fn()
     end.record()
     torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / iters
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            model.rank_with_cache(psi, incr, items)
+            fn()
         torch.cuda.synchronize()
     by_kernel, by_host = {}, {}
     for e in prof.key_averages():
@@ -317,21 +352,261 @@ def breakdown(torch, model, psi, incr, items, iters=5):
         elif e.self_cpu_time_total > 0:
             by_host[e.key] = e.self_cpu_time_total / 1e3 / iters
     busy = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(by_host.items(), key=lambda kv: -kv[1])[:6]
-    log(f"breakdown rank_with_cache: wall {wall_ms:.4f} ms, device busy "
-        f"{busy:.4f} ms, idle share "
-        f"{max(0.0, 1 - busy / wall_ms) if busy else float('nan'):.3f}")
+    idle = max(0.0, 1 - busy / wall_ms) if busy else float("nan")
+    log(f"breakdown {label}: wall {wall_ms:.4f} ms, device busy "
+        f"{busy:.4f} ms, idle share {idle:.3f}")
     for name, ms in top:
         log(f"  device {ms:.4f} ms  {name[:90]}")
     for name, ms in host:
         log(f"  host   {ms:.4f} ms  {name[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, top=top, host=host)
+    return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=idle, top=top,
+                host=host)
+
+
+# --- phase 6: the Zamba2 hybrid serve path -----------------------------------------
+
+
+def _ssd_inputs(torch, gen, B, nc, Q, H=64, P=64, N=64):
+    """The SSD stages' inputs as mamba2_forward hands them over from the
+    bf16 model: x, B, C cast to contiguous float32, dt = softplus(.),
+    cum the cumulative log-decay dt * A (A = -exp(A_log) < 0)."""
+    dev = torch.device("cuda")
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    xc = randn(B, nc, Q, H, P)
+    Bc, Cc = randn(B, nc, Q, N), randn(B, nc, Q, N)
+    dtc = torch.nn.functional.softplus(randn(B, nc, Q, H))
+    A = -torch.exp(0.5 * randn(H))
+    cum = torch.cumsum(dtc * A, dim=2)
+    return Cc, Bc, xc, cum, dtc
+
+
+def hybrid_kernel_checks(torch, results):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as dk
+    from repro_torch.kernels import ssd_chunk as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def check(name, got, want, tol=TOL):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        assert torch.isfinite(got).all(), f"{name}: non-finite output"
+        assert bool((err <= tol + tol * want.abs()).all()), (
+            f"{name}: |kernel - plain| {err.max().item():.3e} over "
+            f"{tol} + {tol}|plain|")
+        e = err.max().item()
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+        return e
+
+    def record(name, shape, e, fn, plain, flops, nbytes, library=None):
+        ms = _time_ms(torch, fn)
+        plain_ms = _time_ms(torch, plain, 5)
+        lib_ms = _time_ms(torch, library) if library is not None else None
+        bound_ms, by = _bound(flops, nbytes)
+        results[name]["shapes"].append(dict(
+            shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bound_ms, bound_by=by, max_abs_err=e))
+        log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms library {lib_ms} ms bound {bound_ms:.4f} ms "
+            f"({by})")
+
+    # SSD stages: the prefill's shape (64 chunks of 128, H = P = N = 64)
+    # and one ragged chunk (Q = L = 100 < 128)
+    for B, nc, Q in ((HYB_B, HYB_S // 128, 128), (HYB_B, 1, 100)):
+        Cc, Bc, xc, cum, dtc = _ssd_inputs(torch, gen, B, nc, Q)
+        H, P, N = xc.shape[3], xc.shape[4], Bc.shape[3]
+        main = (B, nc * Q) == (HYB_B, HYB_S)
+        e = check("ssd_chunk_intra", sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc),
+                  sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc))
+        # the work the function needs: C B^T once per chunk (it does not
+        # depend on the head), the causal half of M x per head, and ~4
+        # operations per kept entry of M; x, B, C, cum, dt in, y out
+        kept = Q * (Q + 1) // 2
+        flops = B * nc * (2 * Q * Q * N + H * kept * (2 * P + 4))
+        nbytes = 4 * (2 * B * nc * Q * N + 2 * B * nc * Q * H * P
+                      + 2 * B * nc * Q * H)
+        record("ssd_chunk_intra", dict(B=B, L=nc * Q, Q=Q, H=H, P=P, N=N,
+                                       main=main), e,
+               lambda: sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc),
+               lambda: sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc),
+               flops, nbytes)
+        e = check("ssd_chunk_state", sk.ssd_chunk_state(Bc, xc, cum, dtc),
+                  sk.ssd_chunk_state_ref(Bc, xc, cum, dtc))
+        w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+        flops = B * nc * H * (2 * Q * N * P + 3 * Q)
+        nbytes = 4 * (B * nc * Q * N + B * nc * Q * H * P + 2 * B * nc * Q * H
+                      + B * nc * H * N * P)
+        record("ssd_chunk_state", dict(B=B, L=nc * Q, Q=Q, H=H, P=P, N=N,
+                                       main=main), e,
+               lambda: sk.ssd_chunk_state(Bc, xc, cum, dtc),
+               lambda: sk.ssd_chunk_state_ref(Bc, xc, cum, dtc),
+               flops, nbytes,
+               library=lambda: torch.einsum("bcqn,bcqh,bcqhp->bchnp",
+                                            Bc, w, xc))
+
+    # decode: the path's ring (S = 8192 after prefill, KV = H = 32, bf16,
+    # one section of the stacked cache), rings no 128-key split divides,
+    # and GQA with 8 and 1 kv heads; float32 at the path's shape too
+    H, D = 32, 64
+    for S, KV, dtype in ((HYB_S, 32, torch.bfloat16), (HYB_S, 32, torch.float32),
+                         (HYB_S + 37, 32, torch.bfloat16), (1000, 8, torch.bfloat16),
+                         (777, 1, torch.float32), (HYB_S, 8, torch.bfloat16)):
+        q = torch.randn((HYB_B, H, D), generator=gen, device="cuda").to(dtype)
+        kc = torch.randn((6, HYB_B, S, KV, D), generator=gen,
+                         device="cuda").to(dtype)
+        vc = torch.randn((6, HYB_B, S, KV, D), generator=gen,
+                         device="cuda").to(dtype)
+        k, v = kc[2], vc[2]
+        tol = TOL if dtype == torch.float32 else TOL_BF16
+        e = check("decode_attn", dk.decode_attn(q, k, v),
+                  dk.decode_attn_plain(q, k, v), tol)
+        esz = k.element_size()
+        flops = 4 * HYB_B * H * S * D + 5 * HYB_B * H * S
+        nbytes = esz * (2 * HYB_B * S * KV * D + 2 * HYB_B * H * D)
+        main = (S, KV, dtype) == (HYB_S, 32, torch.bfloat16)
+        record("decode_attn", dict(B=HYB_B, S=S, H=H, KV=KV, D=D,
+                                   dtype=str(dtype), main=main), e,
+               lambda: dk.decode_attn(q, k, v),
+               lambda: dk.decode_attn_plain(q, k, v), flops, nbytes,
+               library=lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                   enable_gqa=True))
+    log("hybrid kernels agree with their plain twins")
+
+
+def hybrid_phase(torch, results):
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import decode_attn as dk
+    from repro_torch.kernels import ssd_chunk as sk
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, get_config
+
+    hybrid_kernel_checks(torch, results)
+
+    def live_lora(model, seed):
+        g = torch.Generator().manual_seed(seed)
+        lb = model.shared_attn.lora_b
+        with torch.no_grad():
+            lb.copy_(torch.randn(lb.shape, generator=g)
+                     / math.sqrt(lb.shape[1]))
+        return model
+
+    cfg = get_config("zamba2_1p2b")
+    t0 = time.perf_counter()
+    model = live_lora(build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0)), 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"zamba2_1p2b: {n_params / 1e9:.3f} B parameters ({cfg.dtype}), "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    prefill, serve_step = make_prefill_step(model), make_serve_step(model)
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (HYB_B, HYB_S)),
+                              device="cuda")
+    prefill({"tokens": prompts[:, :256]})          # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    counters = lambda: {"ssd_chunk_intra": sk.launches_intra,
+                        "ssd_chunk_state": sk.launches_state,
+                        "decode_attn": dk.launches}
+
+    def zero():
+        sk.launches_intra = sk.launches_state = dk.launches = 0
+
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    c_pre = counters()
+    log(f"prefill {HYB_B} x {HYB_S}: {prefill_ms:.1f} ms, launches {c_pre}, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    assert c_pre == {"ssd_chunk_intra": cfg.n_layers,
+                     "ssd_chunk_state": cfg.n_layers, "decode_attn": 0}, c_pre
+    assert logits.shape == (HYB_B, 1, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "prefill: non-finite logits"
+    assert tuple(cache["a"][0].shape) == (model.n_sections, HYB_B, HYB_S,
+                                          cfg.n_kv_heads, cfg.head_dim)
+
+    zero()
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    pos = torch.full((HYB_B,), HYB_S, device="cuda")
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(HYB_STEPS):
+        before = dk.launches
+        logits, cache = serve_step(cache, {"token": tok, "pos": pos + i})
+        assert dk.launches - before == model.n_sections, (i, dk.launches)
+        tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / HYB_STEPS
+    c_dec = counters()
+    log(f"decode {HYB_STEPS} steps: {decode_ms:.2f} ms/step, "
+        f"{HYB_B * 1e3 / decode_ms:.1f} tokens/s, launches {c_dec}")
+    assert c_dec == {"ssd_chunk_intra": 0, "ssd_chunk_state": 0,
+                     "decode_attn": model.n_sections * HYB_STEPS}, c_dec
+    assert torch.isfinite(logits).all(), "decode: non-finite logits"
+    gen_toks = torch.cat(out, 1)
+    assert ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()
+    for name in c_pre:
+        results[name]["launches"] += c_pre[name] + c_dec[name]
+
+    prof_pre = profile_fn(torch, f"prefill {HYB_B}x{HYB_S}",
+                          lambda: prefill({"tokens": prompts}), 1)
+    probe = {"m": cache["m"], "a": tuple(t.clone() for t in cache["a"])}
+    prof_dec = profile_fn(
+        torch, "decode step",
+        lambda: serve_step(probe, {"token": tok, "pos": pos + HYB_STEPS}), 5)
+    results["_hybrid"] = dict(
+        config="zamba2_1p2b", params=n_params, batch=HYB_B, prompt=HYB_S,
+        steps=HYB_STEPS, prefill_ms=prefill_ms,
+        prefill_tok_s=HYB_B * HYB_S * 1e3 / prefill_ms,
+        decode_ms_per_step=decode_ms, decode_tok_s=HYB_B * 1e3 / decode_ms,
+        launches_prefill=c_pre, launches_decode=c_dec,
+        profile_prefill=prof_pre, profile_decode=prof_dec,
+        generated=gen_toks.tolist())
+
+    # card vs CPU: float32, full width, 7 layers (one section + 1 tail)
+    cfg32 = dataclasses.replace(cfg, n_layers=7, dtype="float32")
+    cpu = live_lora(build_model(cfg32, device="cpu").init(
+        torch.Generator().manual_seed(2)), 3)
+    gpu = build_model(cfg32, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (HYB_B, HYB_CPU_S)))
+    worst = 0.0
+
+    def close(step, a, b):
+        nonlocal worst
+        scale = max(b.abs().max().item(), 1.0)
+        d = (a.cpu() - b).abs().max().item() / scale
+        worst = max(worst, d)
+        assert d <= HYB_REL, f"card vs CPU at {step}: {d:.2e} of max |logit|"
+
+    lg, cg = make_prefill_step(gpu)({"tokens": toks.cuda()})
+    lc, cc = make_prefill_step(cpu)({"tokens": toks})
+    close("prefill", lg, lc)
+    sg, sc = make_serve_step(gpu), make_serve_step(cpu)
+    for i in range(HYB_CPU_STEPS):
+        tok = lc[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+        pos = torch.full((HYB_B,), HYB_CPU_S + i)
+        lg, cg = sg(cg, {"token": tok.cuda(), "pos": pos.cuda()})
+        lc, cc = sc(cc, {"token": tok, "pos": pos})
+        close(f"decode {i}", lg, lc)
+    log(f"card vs CPU (float32, 7 layers, {HYB_B}x{HYB_CPU_S} + "
+        f"{HYB_CPU_STEPS} steps): max diff {worst:.2e} of max |logit| "
+        f"(limit {HYB_REL})")
+    results["_hybrid"]["card_vs_cpu_rel"] = worst
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,relay")
+    ap.add_argument("--phases", default="kernels,serve,relay,hybrid")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -347,9 +622,12 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
 
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain twins in full f32
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     cuda_lib.library()
-    log(f"built/loaded {SOURCE} in {time.perf_counter() - t0:.1f} s")
+    log(f"built/loaded {sorted(set(SOURCES.values()))} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in cuda_lib.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"ptxas: {line.strip()}")
@@ -363,21 +641,26 @@ def main(argv=None):
         serve_phase(torch, results, args.requests)
     if "relay" in phases:
         relay_phase(torch, results)
+    if "hybrid" in phases:
+        hybrid_phase(torch, results)
 
     kernels = []
     for name, path in REPLACES.items():
         r = results[name]
-        main_shape = r["shapes"][1] if len(r["shapes"]) > 1 else \
-            (r["shapes"][0] if r["shapes"] else {})
+        mains = [sh for sh in r["shapes"] if sh.get("main")]
+        main_shape = mains[0] if mains else r["shapes"][1] \
+            if len(r["shapes"]) > 1 else (r["shapes"][0] if r["shapes"] else {})
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": path, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"],
             "ms": main_shape.get("ms"), "plain_ms": main_shape.get("plain_ms"),
             "bound_ms": main_shape.get("bound_ms"),
-            "bound_by": main_shape.get("bound_by"), "library_ms": None,
-            "shape": {k: main_shape[k] for k in ("B", "S", "P", "n_incr",
-                                                 "n_items") if k in main_shape},
+            "bound_by": main_shape.get("bound_by"),
+            "library_ms": main_shape.get("library_ms"),
+            "shape": {k: main_shape[k] for k in (
+                "B", "S", "P", "n_incr", "n_items", "L", "Q", "H", "N", "KV",
+                "D", "dtype") if k in main_shape},
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,12 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels (``repro_torch/csrc``).
 
-Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the sources and flags, so
-a fresh checkout builds once and later processes reuse the library.
-Nothing here runs at import time: CPU-only machines import every module
-and never call into CUDA.
+Route: each source is compiled by its own ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -c`` (all started together), and the
+objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  The build runs at first use into
+``build/kernels/`` at the repository root (listed in ``.gitignore``),
+named by a hash of the sources and flags, so a fresh checkout builds
+once and later processes reuse the library.  Nothing here runs at import
+time: CPU-only machines import every module and never call into CUDA.
 
 A missing ``nvcc``, a failed build or a nonzero ``cudaGetLastError()``
 from a launch raises; there is no fallback.
@@ -24,10 +25,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "hstu_rank_attn.cu",)
+SOURCES = (CSRC / "hstu_rank_attn.cu", CSRC / "ssd_chunk.cu",
+           CSRC / "decode_attn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIB = None
 BUILD_LOG = ""        # nvcc's output (ptxas registers / shared memory / spills)
@@ -43,6 +46,15 @@ def _nvcc() -> str:
                        "repro_torch are built from source at first use")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; return (rc, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]    # drains each pipe fully
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compile the sources (once per content hash) and return the
     library's path."""
@@ -50,24 +62,28 @@ def build() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
-    lib = BUILD_DIR / f"hstu_rank_attn-{h.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"repro_kernels-{h.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     nvcc = _nvcc()                  # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BUILD_LOG}")
-    log.write_text(BUILD_LOG)
-    os.replace(tmp, lib)      # atomic: concurrent builders never see half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                for src, o in zip(SOURCES, objs)]
+        so = os.path.join(tmp, "lib.so")
+        results = _run_all(cmds)
+        if all(rc == 0 for rc, _ in results):
+            cmds.append([nvcc, *ARCH, "-shared", "-o", so, *objs])
+            results += _run_all(cmds[-1:])
+        BUILD_LOG = "".join(f"$ {' '.join(c)}\n{out}"
+                            for c, (_, out) in zip(cmds, results))
+        if any(rc != 0 for rc, _ in results):
+            raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
+        log.write_text(BUILD_LOG)
+        os.replace(so, lib)   # atomic: another process never sees half a file
     return lib
 
 
@@ -93,24 +109,80 @@ class RankAttnParams(ctypes.Structure):
     ]
 
 
+class SsdParams(ctypes.Structure):
+    """Mirror of ``struct SsdParams`` in ``csrc/ssd_chunk.cu``."""
+    _S3 = ctypes.c_longlong * 3
+    _S4 = ctypes.c_longlong * 4
+    _fields_ = [
+        ("C", ctypes.c_void_p), ("c_stride", _S3),
+        ("Bm", ctypes.c_void_p), ("b_stride", _S3),
+        ("x", ctypes.c_void_p), ("x_stride", _S4),
+        ("cum", ctypes.c_void_p), ("cum_stride", _S4),
+        ("dt", ctypes.c_void_p), ("dt_stride", _S4),
+        ("out", ctypes.c_void_p), ("o_stride", _S4),
+        ("B", ctypes.c_int), ("nc", ctypes.c_int), ("Q", ctypes.c_int),
+        ("H", ctypes.c_int), ("N", ctypes.c_int), ("P", ctypes.c_int),
+        ("heads_per_block", ctypes.c_int),
+    ]
+
+
+class DecodeParams(ctypes.Structure):
+    """Mirror of ``struct DecodeParams`` in ``csrc/decode_attn.cu``."""
+    _S2 = ctypes.c_longlong * 2
+    _S3 = ctypes.c_longlong * 3
+    _fields_ = [
+        ("q", ctypes.c_void_p), ("q_stride", _S2),
+        ("k", ctypes.c_void_p), ("k_stride", _S3),
+        ("v", ctypes.c_void_p), ("v_stride", _S3),
+        ("out", ctypes.c_void_p), ("o_stride", _S2),
+        ("part", ctypes.c_void_p),
+        ("B", ctypes.c_int), ("H", ctypes.c_int), ("KV", ctypes.c_int),
+        ("S", ctypes.c_int), ("D", ctypes.c_int), ("n_split", ctypes.c_int),
+        ("dtype", ctypes.c_int), ("scale", ctypes.c_float),
+    ]
+
+
+# (C launcher, params struct, name of its sizeof export)
+_LAUNCHERS = {
+    "hstu_rank_attn_f32": (RankAttnParams, "hstu_rank_attn_struct_size"),
+    "ssd_chunk_intra_f32": (SsdParams, "ssd_chunk_struct_size"),
+    "ssd_chunk_state_f32": (SsdParams, "ssd_chunk_struct_size"),
+    "decode_attn": (DecodeParams, "decode_attn_struct_size"),
+}
+
+
 def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        lib.hstu_rank_attn_f32.argtypes = [ctypes.POINTER(RankAttnParams),
-                                           ctypes.c_void_p]
-        lib.hstu_rank_attn_f32.restype = ctypes.c_int
+        for fn, (struct, size_fn) in _LAUNCHERS.items():
+            getattr(lib, fn).argtypes = [ctypes.POINTER(struct),
+                                         ctypes.c_void_p]
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, size_fn).restype = ctypes.c_int
+            if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} layout differs "
+                                   f"between Python and the CUDA source")
         lib.hstu_rank_attn_error.argtypes = [ctypes.c_int]
         lib.hstu_rank_attn_error.restype = ctypes.c_char_p
-        lib.hstu_rank_attn_struct_size.restype = ctypes.c_int
-        if lib.hstu_rank_attn_struct_size() != ctypes.sizeof(RankAttnParams):
-            raise RuntimeError("RankAttnParams layout differs between "
-                               "Python and the CUDA source")
+        lib.decode_attn_keys_per_split.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-# --- launch -------------------------------------------------------------------
+def _launch(fn: str, params, device):
+    """Call C launcher ``fn`` on ``device``'s current stream; raise on a
+    nonzero CUDA error (a refused launch never runs)."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(ctypes.byref(params), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{fn} launch failed: "
+                           f"{lib.hstu_rank_attn_error(err).decode()}")
+
+
+# --- HSTU rank attention -------------------------------------------------------
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -206,11 +278,125 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
         p.v_table, p.vt_stride = v_table.data_ptr(), v_table.stride(0)
         p.prefix_lens = plens.data_ptr()
         p.n_prefix, p.page_tokens, p.paged = k_table.shape[1] * pt, pt, 1
-    lib = library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = lib.hstu_rank_attn_f32(ctypes.byref(p), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"hstu_rank_attn launch failed: "
-                           f"{lib.hstu_rank_attn_error(err).decode()}")
+    _launch("hstu_rank_attn_f32", p, device)
+    return out
+
+
+# --- SSD chunk stages ----------------------------------------------------------
+
+SSD_HEAD_DIMS = (32, 64, 128)
+SSD_MAX_CHUNK = 128
+SSD_HEADS_PER_BLOCK = 16
+
+
+def _f32_view(t: torch.Tensor, name: str, dims: int, device) -> torch.Tensor:
+    """A float32 ``dims``-d tensor on ``device`` with a unit last stride
+    and 16-byte aligned rows; anything else is refused, never copied."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the SSD kernels compute in float32 only, "
+                        f"got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dim() != dims or t.stride(-1) != 1 or t.data_ptr() % 16 \
+            or any(s % 4 for s in t.stride()[:-1]):
+        raise ValueError(f"{name}: need a {dims}-d view with unit last "
+                         f"stride and 16-byte aligned rows, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    return t
+
+
+def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
+    """Launch ``ssd_chunk_intra`` (kind "intra", returns (B, nc, Q, H, P))
+    or ``ssd_chunk_state`` (kind "state", ``Cc`` unused, returns
+    (B, nc, H, N, P)) on xc's CUDA device and stream.  Inputs as in
+    ``kernels/ssd_chunk.py``, float32.  The caller counts the launch."""
+    device = xc.device
+    if device.type != "cuda":
+        raise ValueError(f"ssd_chunk launches on CUDA tensors, got {device}")
+    xc = _f32_view(xc, "xc", 5, device)
+    B, nc, Q, H, P = xc.shape
+    Bc = _f32_view(Bc, "Bc", 4, device)
+    N = Bc.shape[3]
+    if P not in SSD_HEAD_DIMS:
+        raise ValueError(f"head dim P={P} not compiled (have {SSD_HEAD_DIMS})")
+    if not (1 <= Q <= SSD_MAX_CHUNK) or N % 16 or not 16 <= N <= 128:
+        raise ValueError(f"need chunk Q <= {SSD_MAX_CHUNK} and state width N "
+                         f"a multiple of 16 in [16, 128], got Q={Q} N={N}")
+    if tuple(Bc.shape) != (B, nc, Q, N):
+        raise ValueError(f"Bc shape {tuple(Bc.shape)} != {(B, nc, Q, N)}")
+    for name, t in (("cum", cum), ("dtc", dtc)):
+        if t.dtype != torch.float32 or t.device != device \
+                or tuple(t.shape) != (B, nc, Q, H):
+            raise ValueError(f"{name}: need float32 {(B, nc, Q, H)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    p = SsdParams(Bm=Bc.data_ptr(), b_stride=SsdParams._S3(*Bc.stride()[:3]),
+                  x=xc.data_ptr(), x_stride=SsdParams._S4(*xc.stride()[:4]),
+                  cum=cum.data_ptr(), cum_stride=SsdParams._S4(*cum.stride()),
+                  dt=dtc.data_ptr(), dt_stride=SsdParams._S4(*dtc.stride()),
+                  B=B, nc=nc, Q=Q, H=H, N=N, P=P,
+                  heads_per_block=min(H, SSD_HEADS_PER_BLOCK))
+    if kind == "intra":
+        Cc = _f32_view(Cc, "Cc", 4, device)
+        if Cc.shape != Bc.shape:
+            raise ValueError(f"Cc shape {tuple(Cc.shape)} != Bc's")
+        p.C, p.c_stride = Cc.data_ptr(), SsdParams._S3(*Cc.stride()[:3])
+        out = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=device)
+    elif kind == "state":
+        out = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=device)
+    else:
+        raise ValueError(f"kind must be 'intra' or 'state', got {kind!r}")
+    p.out, p.o_stride = out.data_ptr(), SsdParams._S4(*out.stride()[:4])
+    _launch(f"ssd_chunk_{kind}_f32", p, device)
+    return out
+
+
+# --- flash decode -------------------------------------------------------------
+
+DECODE_HEAD_DIMS = (32, 64, 128)
+_DECODE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attn(q, k, v) -> torch.Tensor:
+    """Launch the flash-decode kernel: q (B, H, D), cache k, v in the
+    model layout (B, S, KV, D), read through strides.  float32 or
+    bfloat16 (all three alike); returns (B, H, D) in q's type.  The
+    caller counts the launch."""
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"decode_attn launches on CUDA tensors, got {device}")
+    if q.dtype not in _DECODE_TYPES:
+        raise TypeError(f"decode_attn takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"need q (B, H, D) and k, v (B, S, KV, D), got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    B, H, D = q.shape
+    _, S, KV, _ = k.shape
+    if D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not compiled (have {DECODE_HEAD_DIMS})")
+    if k.shape[0] != B or k.shape[3] != D or S < 1 or H % KV:
+        raise ValueError(f"cache {tuple(k.shape)} does not fit q "
+                         f"{tuple(q.shape)} (need H % KV == 0)")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype or t.device != device:
+            raise ValueError(f"{name}: need {q.dtype} on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.stride(-1) != 1 or t.data_ptr() % 16 \
+                or any(s % vec for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: need a unit last stride and 16-byte "
+                             f"aligned rows, got strides {t.stride()}")
+    n_split = -(-S // library().decode_attn_keys_per_split())
+    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
+                       device=device)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=device)
+    p = DecodeParams(
+        q=q.data_ptr(), q_stride=DecodeParams._S2(*q.stride()[:2]),
+        k=k.data_ptr(), k_stride=DecodeParams._S3(*k.stride()[:3]),
+        v=v.data_ptr(), v_stride=DecodeParams._S3(*v.stride()[:3]),
+        out=out.data_ptr(), o_stride=DecodeParams._S2(*out.stride()[:2]),
+        part=part.data_ptr(), B=B, H=H, KV=KV, S=S, D=D, n_split=n_split,
+        dtype=_DECODE_TYPES[q.dtype], scale=1.0 / float(D) ** 0.5)
+    _launch("decode_attn", p, device)
     return out

@@ -10,6 +10,7 @@ ragged edges and takes every shape.
 
 from __future__ import annotations
 
+from .decode_attn import decode_attn
 from .hstu_attn import hstu_attn
 from .paged_prefix_attn import paged_prefix_rank_attn
 from .prefix_rank_attn import prefix_rank_attn_split
@@ -44,3 +45,10 @@ def paged_rank_attention(q, k_new, v_new, pool, k_table, v_table,
                                  prefix_lens, k_new, v_new, n_incr=n_incr,
                                  n_total=n_total)
     return _bsh_to_bhs(out)
+
+
+def cache_decode_attention(q, k, v):
+    """Flash-decode: q (B, 1, H, D); cache k, v (B, S, KV, D) in the
+    model layout, read as they are (no transpose, no fallback for an S
+    that a tile does not divide).  Returns (B, 1, H, D)."""
+    return decode_attn(q[:, 0], k, v)[:, None]

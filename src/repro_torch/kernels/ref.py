@@ -85,3 +85,19 @@ def paged_prefix_rank_attn_ref(q, k_pages, v_pages, k_table, v_table,
         q, torch.cat([kp, k_new], dim=2), torch.cat([vp, v_new], dim=2),
         n_prefix=n_prefix, n_incr=n_incr,
         n_total=n_total or n_prefix + q.shape[2])
+
+
+def decode_attn_ref(q, k, v):
+    """Softmax flash-decode oracle (GQA), reference signature.
+
+    q: (B, H, D) one query per sequence; k, v: (B, KV, S, D).  Computed
+    in float32 throughout — the softmax weights stay float32 before the
+    PV product, as in the Pallas kernel and the CUDA kernel — and
+    returned in q's type."""
+    B, H, D = q.shape
+    KV = k.shape[1]
+    kmap = torch.arange(H, device=k.device) * KV // H
+    ke, ve = k[:, kmap].float(), v[:, kmap].float()     # (B, H, S, D)
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), ke) / math.sqrt(D)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bhsd->bhd", w, ve).to(q.dtype)

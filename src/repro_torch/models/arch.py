@@ -1,7 +1,8 @@
-"""Shared architecture pieces, in PyTorch (port of ``repro.models.arch``).
+"""Architecture assembly, in PyTorch (port of ``repro.models.arch``).
 
-Only the embedding / unembedding and the layer stacking the HSTU model
-uses; the Transformer, SSM and hybrid families are still to port
+The embedding / unembedding and layer stacking shared by the families,
+and the Zamba2 hybrid (``HybridModel``).  The dense / MoE / VLM
+Transformer, the plain SSM stacks and enc-dec are still to port
 (ROADMAP Queue 1, item 9).
 """
 
@@ -10,15 +11,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+
+from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import ParamSpec, rms_norm
+from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
+                     ffn_specs, rms_norm)
 
 
-def stack_specs(specs: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
-    """Add a leading stacked-layer dim to every ParamSpec."""
-    return {k: dataclasses.replace(s, shape=(n,) + s.shape,
-                                   axes=("layers",) + s.axes)
-            for k, s in specs.items()}
+def stack_specs(specs, n: int):
+    """Add a leading stacked-layer dim to every ParamSpec of a tree."""
+    if isinstance(specs, ParamSpec):
+        return dataclasses.replace(specs, shape=(n,) + specs.shape,
+                                   axes=("layers",) + specs.axes)
+    return {k: stack_specs(s, n) for k, s in specs.items()}
 
 
 def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -36,3 +45,216 @@ def _embed(tok, tokens):
 
 def _logits(final_norm, unembed, x):
     return rms_norm(x, final_norm) @ unembed
+
+
+def flat_specs(specs, prefix: str = "") -> Dict[str, ParamSpec]:
+    """A spec tree flattened to ``state_dict`` names."""
+    out = {}
+    for k, s in specs.items():
+        if isinstance(s, ParamSpec):
+            out[prefix + k] = s
+        else:
+            out.update(flat_specs(s, f"{prefix}{k}."))
+    return out
+
+
+def add_params(module: nn.Module, specs, device):
+    """Lay ``specs`` out on ``module``: a leaf becomes a parameter, a
+    dict a ``ParamTree`` submodule, each named by its key — so
+    ``state_dict`` names are the reference tree's paths
+    (``sections.mixer.w_in``)."""
+    for k, s in specs.items():
+        if isinstance(s, ParamSpec):
+            module.register_parameter(k, nn.Parameter(
+                torch.empty(s.shape, dtype=DTYPES[s.dtype], device=device),
+                requires_grad=False))
+        else:
+            module.add_module(k, ParamTree(s, device))
+
+
+class ParamTree(nn.Module):
+    """A subtree of parameters (see ``add_params``)."""
+
+    def __init__(self, specs, device):
+        super().__init__()
+        add_params(self, specs, device)
+
+    def tree(self, *idx):
+        """The subtree as nested dicts of tensors, each indexed by
+        ``idx`` (a view: one layer of a stack)."""
+        out = {k: p[idx] if idx else p for k, p in self._parameters.items()}
+        out.update({k: m.tree(*idx) for k, m in self._modules.items()})
+        return out
+
+
+# ===========================================================================
+# Hybrid (Zamba2): mamba2 backbone + shared attention blocks
+# ===========================================================================
+
+
+class HybridModel(nn.Module):
+    """``n_layers`` Mamba2 blocks; a *shared-weight* GQA block (with a
+    per-invocation LoRA on the query path) after every ``attn_every``
+    of them — Zamba2's shared-attention pattern.
+
+    Parameters live on ``device`` from construction; ``init`` fills them
+    from a ``torch.Generator``, ``convert.load_jax_params`` loads a
+    ``repro`` tree.  Public layouts are the reference's:
+
+    * cache ``{"m": {"sections": (ssm (n_sec, every, B, H, N, P),
+      conv (n_sec, every, B, K-1, C)), "tail": (ssm (n_tail, ...), conv
+      (n_tail, ...))}, "a": (k, v)}`` with k, v (n_sec, B, S, KV, D);
+    * ``prefill({"tokens": (B, S)})`` and
+      ``decode_step(cache, {"token": (B, 1), "pos": (B,)})`` return
+      (logits (B, 1, vocab_padded), cache).
+
+    ``decode_step`` writes the new K/V into ``cache["a"]`` IN PLACE and
+    returns the same tensors (the reference returns a rewritten copy)."""
+
+    LORA_R = 32
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        # float32 products stay float32 on the card (no TF32 rounding)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_sections = cfg.n_layers // cfg.attn_every
+        self.n_tail = cfg.n_layers - self.n_sections * cfg.attn_every
+        add_params(self, self.param_specs(), self.device)
+
+    def param_specs(self):
+        cfg = self.cfg
+        d = cfg.d_model
+        mamba_block = {
+            "ln1": ParamSpec((d,), ("embed",), init="ones"),
+            "ln2": ParamSpec((d,), ("embed",), init="ones"),
+            "mixer": ssm_lib.mamba2_specs(cfg),
+            "ffn": ffn_specs(cfg),
+        }
+        specs = dict(embed_specs(cfg))
+        specs["sections"] = stack_specs(
+            stack_specs(mamba_block, cfg.attn_every), self.n_sections)
+        if self.n_tail:
+            specs["tail"] = stack_specs(mamba_block, self.n_tail)
+        specs["shared_attn"] = {
+            "ln": ParamSpec((d,), ("embed",), init="ones"),
+            "attn": attention_specs(cfg),
+            "lora_a": ParamSpec((self.n_sections, d, self.LORA_R),
+                                (None, "embed", None), dtype=cfg.dtype),
+            "lora_b": ParamSpec(
+                (self.n_sections, self.LORA_R, cfg.n_heads, cfg.head_dim),
+                (None, None, "heads", None), init="zeros", dtype=cfg.dtype),
+        }
+        return specs
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "HybridModel":
+        """Draw every parameter on the CPU from ``generator`` (so the
+        weights do not depend on the device), in sorted-name order."""
+        params = dict(self.named_parameters())
+        specs = flat_specs(self.param_specs())
+        for name in sorted(specs):
+            params[name].copy_(specs[name].initialise(generator))
+        return self
+
+    # --- blocks -------------------------------------------------------------
+    def _mamba_stack(self, stacked: ParamTree, idx, n, x, states, decode):
+        """n Mamba2 blocks of ``stacked`` (layer l at ``(*idx, l)``), each
+        with its state (ssm (n, ...), conv (n, ...))."""
+        cfg = self.cfg
+        fwd = ssm_lib.mamba2_decode if decode else ssm_lib.mamba2_forward
+        ssm, conv = [], []
+        for l in range(n):
+            pl = stacked.tree(*idx, l)
+            h, (s, c) = fwd(pl["mixer"], rms_norm(x, pl["ln1"]), cfg,
+                            (states[0][l], states[1][l]))
+            x = x + h
+            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+            ssm.append(s)
+            conv.append(c)
+        return x, (torch.stack(ssm), torch.stack(conv))
+
+    def _shared_attn(self, x, sec, positions, cache=None, cache_index=None):
+        cfg = self.cfg
+        p = self.shared_attn
+        B, S, d = x.shape
+        xn = rms_norm(x, p.ln)
+        # the per-section LoRA on the query path, through the shared wo
+        lora = (xn @ p.lora_a[sec]) @ p.lora_b[sec].reshape(self.LORA_R, -1)
+        h, kv = attention(p.attn.tree(), xn, cfg, positions=positions,
+                          cache=cache, cache_index=cache_index)
+        wo = p.attn.wo.reshape(cfg.n_heads * cfg.head_dim, d)
+        return x + h + lora @ wo, kv
+
+    def _run(self, x, mstates, astates, positions, decode, cache_index=None):
+        every = self.cfg.attn_every
+        new_m, new_a = [], []
+        for sec in range(self.n_sections):
+            st = tuple(t[sec] for t in mstates["sections"])
+            x, s2 = self._mamba_stack(self.sections, (sec,), every, x, st,
+                                      decode)
+            new_m.append(s2)
+            ac = tuple(t[sec] for t in astates) if astates is not None \
+                else None
+            x, kv = self._shared_attn(x, sec, positions, cache=ac,
+                                      cache_index=cache_index)
+            new_a.append(kv)
+        if self.n_tail:
+            x, s_tail = self._mamba_stack(self.tail, (), self.n_tail, x,
+                                          mstates["tail"], decode)
+        else:
+            s_tail = mstates["tail"]
+        mst = {"sections": tuple(torch.stack(t) for t in zip(*new_m)),
+               "tail": s_tail}
+        # decode wrote the ring caches in place: hand back the same tensors
+        ast = astates if astates is not None else \
+            tuple(torch.stack(t) for t in zip(*new_a))
+        return x, mst, ast
+
+    # --- public protocol ----------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, batch):
+        """{"tokens": (B, S)} -> (last-position logits, cache)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        zero = self.init_cache(x.shape[0], 0)["m"]
+        x, mst, ast = self._run(x, zero, None, positions, decode=False)
+        return _logits(self.final_norm, self.unembed, x[:, -1:]), \
+            {"m": mst, "a": ast}
+
+    @torch.no_grad()
+    def decode_step(self, cache, batch):
+        """One token per sequence: {"token": (B, 1), "pos": (B,)} against
+        ``cache`` -> (logits (B, 1, Vp), cache)."""
+        token = torch.as_tensor(batch["token"], device=self.device).long()
+        pos = torch.as_tensor(batch["pos"], device=self.device)
+        x = _embed(self.tok, token)
+        x, mst, ast = self._run(x, cache["m"], cache["a"], pos[:, None],
+                                decode=True, cache_index=pos)
+        return _logits(self.final_norm, self.unembed, x), {"m": mst, "a": ast}
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """The cache's (shape, dtype) tree (no sharding axes)."""
+        cfg = self.cfg
+        ssm, conv = ssm_lib.mamba2_state_specs(cfg, batch)
+
+        def stk(*lead):
+            return tuple((tuple(lead) + shape, dt) for shape, dt in (ssm, conv))
+
+        kv = ((self.n_sections, batch, max(seq_len, 1), cfg.n_kv_heads,
+               cfg.head_dim), DTYPES[cfg.dtype])
+        return {"m": {"sections": stk(self.n_sections, cfg.attn_every),
+                      "tail": stk(max(self.n_tail, 1))},
+                "a": (kv, kv)}
+
+    def init_cache(self, batch: int, seq_len: int):
+        def zeros(spec):
+            if isinstance(spec, dict):
+                return {k: zeros(v) for k, v in spec.items()}
+            if isinstance(spec[1], torch.dtype):
+                return torch.zeros(spec[0], dtype=spec[1], device=self.device)
+            return tuple(zeros(s) for s in spec)
+        return zeros(self.cache_specs(batch, seq_len))

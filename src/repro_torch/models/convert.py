@@ -10,8 +10,15 @@ tree arrives as numpy arrays — the port never imports JAX:
                 "ln_attn": (L, h * hd), "wo": (L, h, hd, d)},
      "task_tower": {"w1": (d, 4d), "w2": (4d, n_tasks)}}
 
+The hybrid's tree nests deeper (``sections`` stacked twice, as
+``(n_sections, attn_every, ...)``; ``shared_attn.attn.wq``); its module
+names mirror the keys, so the same flattening maps it one to one.
+
 Shapes and layouts are identical on both sides, so the bridge is a
 rename of nested keys to ``state_dict`` names plus a device copy.
+Leaves of a 16-bit float type (JAX's bfloat16 arrives as an
+``ml_dtypes`` numpy type that torch cannot read) go through float32,
+which holds every bfloat16 and float16 value exactly.
 """
 
 from __future__ import annotations
@@ -36,8 +43,8 @@ def state_from_tree(tree: Mapping[str, Any], prefix: str = ""
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
-    """Load a ``repro`` HSTU parameter tree (numpy leaves) into ``model``
-    in place; every key must match in name and shape."""
+    """Load a ``repro`` parameter tree (numpy leaves) into ``model`` in
+    place; every key must match in name and shape."""
     state = state_from_tree(tree)
     own = model.state_dict()
     if set(state) != set(own):
@@ -50,5 +57,7 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(dst.shape)}")
+            if arr.dtype.itemsize == 2 and arr.dtype.kind in "fV":
+                arr = arr.astype(np.float32)     # float16 / bfloat16
             dst.copy_(torch.tensor(arr, dtype=dst.dtype))
     return model

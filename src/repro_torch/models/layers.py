@@ -1,17 +1,22 @@
-"""Core layers of the HSTU path, in PyTorch (port of ``repro.models.layers``).
+"""Core layers, in PyTorch (port of ``repro.models.layers``).
 
-Only what the relay path needs so far: ``ParamSpec`` (the fan-in normal
-init rule), ``rms_norm`` and interleaved-pair RoPE.  Tensors keep the
-reference's layouts: (..., S, H, D) for heads.
+What the HSTU and hybrid paths need: ``ParamSpec`` (the fan-in normal
+init rule), ``rms_norm``, interleaved-pair RoPE, GQA softmax attention
+(prefill, q-chunked prefill and ring-cache decode) and the GLU FFN.
+Tensors keep the reference's layouts: (..., S, H, D) for heads.  Layers
+are functions of a parameter dict, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -81,3 +86,156 @@ def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     cos, sin = rope_tables(positions, x.shape[-1], theta)
     return rotate_pairs(x, cos[..., None, :], sin[..., None, :])
+
+
+def _act(name: str):
+    return {"silu": F.silu, "relu": F.relu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm, sliding window, ring KV cache)
+# ---------------------------------------------------------------------------
+
+
+def _unported(cfg):
+    """Options of the reference's attention whose families are not
+    ported yet."""
+    if cfg.head_pad > cfg.n_heads:
+        raise NotImplementedError("head_pad is not ported to repro_torch yet")
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
+                                  "ported to repro_torch yet")
+
+
+def attention_specs(cfg, d_in=None) -> Dict[str, ParamSpec]:
+    _unported(cfg)
+    d = d_in or cfg.d_model
+    h, kv, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype
+    specs = {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", None), dtype=dt),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", None), dtype=dt),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", None), dtype=dt),
+        "wo": ParamSpec((h, hd, d), ("heads", None, "embed"), dtype=dt),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        specs["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return specs
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  GQA: q head h reads kv
+    head h * KV // H.  Logits and softmax in float32, the weights cast to
+    v's type before the PV product, as in the reference."""
+    H, KV = q.shape[2], k.shape[2]
+    if H != KV:
+        kmap = torch.arange(H, device=k.device) * KV // H
+        k, v = k[:, :, kmap], v[:, :, kmap]
+    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", w, v)
+
+
+def _causal_mask(q0: int, nq: int, nk: int, device, prefix_len=0, window=0):
+    qi = q0 + torch.arange(nq, device=device)[:, None]
+    ki = torch.arange(nk, device=device)[None, :]
+    m = ki <= qi
+    if prefix_len:
+        m = m | (ki < prefix_len)
+    if window:
+        m = m & (ki > qi - window)
+    return m
+
+
+def _sdpa_q_chunked(q, k, v, scale, chunk, *, prefix_len=0, window=0):
+    """Causal attention with the query axis in chunks of ``chunk``: caps
+    the score tile at (B, H, chunk, keys).  Chunk i attends to the keys
+    up to its last query only (or the whole prefix, if longer): the keys
+    past them are masked, and a masked logit of -1e30 has a softmax
+    weight of exactly 0, so dropping them changes no value."""
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    for q0 in range(0, S, chunk):
+        nk = min(S, max(q0 + chunk, prefix_len))
+        m = _causal_mask(q0, chunk, nk, q.device, prefix_len, window)
+        out[:, q0:q0 + chunk] = _sdpa(q[:, q0:q0 + chunk], k[:, :nk],
+                                      v[:, :nk], m, scale)
+    return out
+
+
+def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
+              window: int = 0, causal: bool = True, prefix_len: int = 0):
+    """Attention, as ``repro.models.layers.attention``.
+
+    * prefill (``cache`` None): causal (or bidirectional) self-attention
+      over ``x`` (B, S, d); q-chunked when ``S >= 4 * attn_q_chunk``.
+      Returns (out, (k, v)) with k, v (B, S, KV, D).
+    * decode (``cache`` = (k, v), each (B, Sc, KV, D), ``cache_index``
+      (B,) int): the new K/V go to ring slot ``cache_index % Sc`` and
+      one query attends over the whole ring through the ``decode_attn``
+      kernel (no length mask: every slot is live).
+
+    Cross-attention (``kv_override``), int8 KV and ``head_pad`` belong
+    to families not ported yet and raise ``NotImplementedError``."""
+    _unported(cfg)
+    B, S, d = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    if cache is not None:
+        ck, cv = cache
+        if cache_index is not None:
+            # The reference rewrites the whole cache with a one-hot
+            # ``where``; here the new entry is written IN PLACE into the
+            # caller's cache (one row per sequence) — a deliberate
+            # difference that saves a full copy of the cache per step.
+            rows = torch.arange(B, device=x.device)
+            slot = (cache_index.to(x.device).long() % ck.shape[1])
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+        out = ops.cache_decode_attention(q, ck, cv)
+        new_cache = (ck, cv)
+    else:
+        qc = cfg.attn_q_chunk
+        if qc and S >= 4 * qc and S % qc == 0 and causal:
+            out = _sdpa_q_chunked(q, k, v, scale, qc, prefix_len=prefix_len,
+                                  window=window)
+        else:
+            mask = (_causal_mask(0, S, S, x.device, prefix_len, window)
+                    if causal else None)
+            out = _sdpa(q, k, v, mask, scale)
+        new_cache = (k, v)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward (GLU or plain)
+# ---------------------------------------------------------------------------
+
+
+def ffn_specs(cfg, d_ff=None) -> Dict[str, ParamSpec]:
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.dtype
+    specs = {"wi": ParamSpec((d, f), ("embed", "ff"), dtype=dt)}
+    if cfg.glu:
+        specs["wg"] = ParamSpec((d, f), ("embed", "ff"), dtype=dt)
+    specs["wo"] = ParamSpec((f, d), ("ff", "embed"), dtype=dt)
+    return specs
+
+
+def ffn(params, x, cfg):
+    act = _act(cfg.act)
+    h = x @ params["wi"]
+    h = act(x @ params["wg"]) * h if cfg.glu else act(h)
+    return h @ params["wo"]

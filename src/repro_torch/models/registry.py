@@ -1,23 +1,27 @@
 """Model registry: family name -> model class; config id -> ModelConfig.
 
-The port carries only the ``hstu`` family so far; every other family of
-``repro.models.registry`` is still to port (ROADMAP Queue 1, item 9).
+The port carries the ``hstu`` and ``hybrid`` families so far; every other
+family of ``repro.models.registry`` is still to port (ROADMAP Queue 1,
+item 9).
 """
 
 from __future__ import annotations
 
 import importlib
 
+from .arch import HybridModel
 from .config import ModelConfig
 from .hstu import HSTUModel
 
 _FAMILY = {
+    "hybrid": HybridModel,
     "hstu": HSTUModel,
 }
 
-ARCH_IDS = ["hstu_gr"]
+ARCH_IDS = ["zamba2_1p2b", "hstu_gr"]
 
 ALIASES = {
+    "zamba2-1.2b": "zamba2_1p2b",
     "hstu-gr": "hstu_gr",
 }
 

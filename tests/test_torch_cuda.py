@@ -7,19 +7,23 @@ Needs an NVIDIA card (marker ``cuda``; every test skips without one):
 This file imports torch only, so it also runs where JAX is absent.  It
 sweeps the edges that ``chip_smoke.py`` does not: ragged lengths around
 the 64-token tiles, every compiled head dim, short and empty prefixes,
-pages smaller than the key tile, and the refusals of the wrapper.
-Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
-tolerance.
+pages smaller than the key tile, and the refusals of the wrapper; for
+the hybrid's kernels, decode rings that no split divides, GQA with 1 to
+32 kv heads, strided cache views, chunks shorter than 128 and steep
+decays.  Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32
+kernel tolerance; 6e-2 for bfloat16 (``tests/test_kernels.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attn as dk
 from repro_torch.kernels import hstu_attn as hk
 from repro_torch.kernels import paged_prefix_attn as pk
 from repro_torch.kernels import prefix_rank_attn as rk
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +132,140 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         wide = _randn(dev, 1, 2, 8, 96)
         hk.hstu_attn(wide, wide, wide)
+
+
+# --- the hybrid's kernels -------------------------------------------------------
+
+
+@pytest.mark.parametrize("S", [1, 127, 129, 1000, 8192])
+@pytest.mark.parametrize("KV", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_kernel(dev, S, KV, dtype):
+    """H = 32 query heads over a ring of S slots in the model layout,
+    the cache one section of a stacked (n_sec, B, S, KV, D) buffer."""
+    B, H, D = 2, 32, 64
+    q = _randn(dev, B, H, D, seed=1).to(dtype)
+    k = _randn(dev, 3, B, S, KV, D, seed=2).to(dtype)[1]
+    v = _randn(dev, 3, B, S, KV, D, seed=3).to(dtype)[1]
+    before = dk.launches
+    got = dk.decode_attn(q, k, v)
+    assert dk.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, D)
+    tol = 3e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(got.float(), dk.decode_attn_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_decode_attn_head_dims_and_strided_cache(dev, D):
+    """Every compiled head dim; a cache whose batch and slot axes are
+    swapped views (no copy) is read through its strides."""
+    B, H, KV, S = 3, 8, 2, 300
+    q = _randn(dev, B, H, D, seed=4)
+    k = _randn(dev, S, B, KV, D, seed=5).transpose(0, 1)
+    v = _randn(dev, S, B, KV, D, seed=6).transpose(0, 1)
+    assert not k.is_contiguous()
+    _close(dk.decode_attn(q, k, v), dk.decode_attn_plain(q, k, v))
+
+
+def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False):
+    """x, B, C as slices of one (B, L, H*P + 2N) buffer, as the model's
+    float32 path hands them over; cum a negative cumulative log-decay."""
+    L = nc * Q
+    xBC = _randn(dev, B, L, H * P + 2 * N, seed=7)
+    xc = xBC[..., :H * P].reshape(B, nc, Q, H, P)
+    Bc = xBC[..., H * P:H * P + N].reshape(B, nc, Q, N)
+    Cc = xBC[..., H * P + N:].reshape(B, nc, Q, N)
+    dt = torch.nn.functional.softplus(_randn(dev, B, nc, Q, H, seed=8))
+    rate = 20.0 if steep else 0.5          # steep: exp(cum[q] - cum[t]) overflows for t > q
+    cum = torch.cumsum(-dt * rate, dim=2)
+    return Cc, Bc, xc, cum, dt
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 4, 128, 64, 64, 64), (2, 2, 128, 4, 64, 64), (2, 2, 128, 2, 128, 32),
+    (2, 2, 128, 8, 64, 16), (1, 1, 100, 8, 32, 16), (2, 1, 1, 17, 64, 64),
+    (1, 3, 64, 20, 64, 128)])
+def test_ssd_chunk_kernels(dev, B, nc, Q, H, P, N):
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, B, nc, Q, H, P, N)
+    before = (sk.launches_intra, sk.launches_state)
+    y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
+    s = sk.ssd_chunk_state(Bc, xc, cum, dt)
+    assert (sk.launches_intra, sk.launches_state) == (before[0] + 1, before[1] + 1)
+    _close(y, sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dt))
+    _close(s, sk.ssd_chunk_state_ref(Bc, xc, cum, dt))
+
+
+def test_ssd_chunk_intra_steep_decay_is_finite(dev):
+    """Masked entries have a huge positive cum[q] - cum[t]: the kernel
+    selects before the exp, so no inf * 0 = NaN reaches the output."""
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 2, 2, 128, 8, 64, 64, steep=True)
+    assert (cum[:, :, 0] - cum[:, :, -1]).max() > 100
+    y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
+    assert torch.isfinite(y).all()
+    _close(y, sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dt))
+
+
+def test_hybrid_on_card_matches_cpu(dev):
+    """The float32 Zamba2 smoke variant (2 sections + tail) on the card
+    against the same weights on the CPU: prefill of two 256-token
+    prompts, then 3 decode steps; every Mamba2 layer launches both SSD
+    kernels once per prefill, every section one decode launch per step.
+    Tolerance: 5e-4 of the largest |value| (float32 on both sides, sums
+    in other orders)."""
+    import dataclasses
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
+                              n_layers=5, attn_every=2, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.shared_attn.lora_b.normal_(generator=torch.Generator().manual_seed(1))
+    gpu = build_model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 256)))
+    counts = (sk.launches_intra, sk.launches_state, dk.launches)
+    lg, cg = make_prefill_step(gpu)({"tokens": toks.to(dev)})
+    assert (sk.launches_intra - counts[0], sk.launches_state - counts[1]) == \
+        (cfg.n_layers, cfg.n_layers)
+    lc, cc = make_prefill_step(cpu)({"tokens": toks})
+
+    def close(a, b):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=5e-4 * max(b.abs().max().item(), 1.0))
+    close(lg, lc)
+    close(cg["a"][0], cc["a"][0])
+    close(cg["m"]["sections"][0], cc["m"]["sections"][0])
+    step_g, step_c = make_serve_step(gpu), make_serve_step(cpu)
+    for i in range(3):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)))
+        pos = torch.full((2,), 256 + i)
+        before = dk.launches
+        lg, cg = step_g(cg, {"token": tok.to(dev), "pos": pos.to(dev)})
+        assert dk.launches == before + gpu.n_sections
+        lc, cc = step_c(cc, {"token": tok, "pos": pos})
+        close(lg, lc)
+
+
+def test_hybrid_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 1, 1, 128, 4, 64, 64)
+    with pytest.raises(TypeError, match="float32"):
+        sk.ssd_chunk_intra(Cc, Bc, xc.bfloat16(), cum, dt)
+    wide = torch.zeros(1, 1, 128, 4, 48, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        sk.ssd_chunk_state(Bc, wide, cum, dt)
+    long = torch.zeros(1, 1, 256, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="chunk"):
+        sk.ssd_chunk_state(torch.zeros(1, 1, 256, 64, device=dev), long,
+                           torch.zeros(1, 1, 256, 4, device=dev),
+                           torch.zeros(1, 1, 256, 4, device=dev))
+    q = _randn(dev, 1, 6, 64)
+    kv = _randn(dev, 1, 10, 4, 64)
+    with pytest.raises(ValueError, match="H % KV"):
+        dk.decode_attn(q, kv, kv)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dk.decode_attn(q.half(), kv.half(), kv.half())
+    odd = _randn(dev, 1, 10, 4, 66)[..., 1:65]
+    with pytest.raises(ValueError, match="aligned"):
+        dk.decode_attn(_randn(dev, 1, 4, 64), odd, odd)

@@ -4,10 +4,11 @@ Every kernel wrapper of ``repro_torch.kernels`` runs its plain-PyTorch
 version on CPU tensors.  Each is held, on the same numpy-made inputs,
 against the ``repro.kernels.ref`` oracle and against the Pallas kernel in
 interpret mode (as ``tests/test_kernels.py`` runs it), at that file's
-shapes.  Tolerance: the repo's f32 kernel tolerance, 3e-4 absolute and
-relative (``tests/test_kernels.py``) — the two frameworks sum the same
-products in different orders.  The CUDA kernels themselves run only on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+shapes.  Tolerance: the repo's kernel tolerances (``tests/test_kernels.py``):
+3e-4 absolute and relative in float32 — the two frameworks sum the same
+products in different orders — and 6e-2 in bfloat16, where the two round
+at different places.  The CUDA kernels themselves run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import re
@@ -19,19 +20,24 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.decode_attn import decode_attn as pallas_decode_attn
 from repro.kernels.hstu_attn import hstu_attn as pallas_hstu_attn
 from repro.kernels.paged_prefix_attn import (
     paged_prefix_rank_attn as pallas_paged_rank_attn)
 from repro.kernels.prefix_rank_attn import (
     prefix_rank_attn as pallas_prefix_rank_attn)
-from repro_torch.kernels import (cuda_lib, hstu_attn, ops, paged_prefix_attn,
-                                 prefix_rank_attn, ref)
+from repro.kernels.ssd_chunk import ssd_chunk_intra as pallas_ssd_intra
+from repro.kernels.ssd_chunk import ssd_chunk_state as pallas_ssd_state
+from repro_torch.kernels import (cuda_lib, decode_attn, hstu_attn, ops,
+                                 paged_prefix_attn, prefix_rank_attn, ref,
+                                 ssd_chunk)
 
 # the suite runs several worker processes on a few cores: one intra-op
 # thread each keeps torch from oversubscribing them
 torch.set_num_threads(1)
 
 TOL = dict(atol=3e-4, rtol=3e-4)
+TOL_BF16 = dict(atol=6e-2, rtol=6e-2)
 
 
 def _mk(rng, *shape):
@@ -241,3 +247,129 @@ def test_ctypes_params_mirror_the_cuda_struct():
         names += [re.sub(r"\[.*\]", "", n.strip().lstrip("*")).split()[-1]
                   for n in decl.split(",")]
     assert names == [f[0] for f in cuda_lib.RankAttnParams._fields_]
+
+
+# --- the hybrid's kernels: decode_attn and the SSD chunk stages ------------------
+
+
+def _jt(x, dtype):
+    """numpy float32 -> (jax array, torch tensor) of ``dtype``."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    return jnp.asarray(x, jdt), torch.from_numpy(x.copy()).to(tdt)
+
+
+@pytest.mark.parametrize("S,KV,H", [(1024, 2, 8), (2048, 4, 4),
+                                    (4096, 1, 8), (512, 8, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attn_matches_ref_and_pallas(S, KV, H, dtype):
+    """The twin against the Pallas kernel in interpret mode and the JAX
+    oracle, at ``tests/test_kernels.py``'s shapes.  The twin takes the
+    cache in the model layout (B, S, KV, D), the reference (B, KV, S, D)."""
+    rng = np.random.default_rng(S + KV + H)
+    B, D = 2, 64
+    q, k, v = _mk(rng, B, H, D), _mk(rng, B, KV, S, D), _mk(rng, B, KV, S, D)
+    (jq, tq), (jk, tk), (jv, tv) = (_jt(a, dtype) for a in (q, k, v))
+    got = decode_attn.decode_attn(tq, tk.transpose(1, 2), tv.transpose(1, 2))
+    assert got.dtype == tq.dtype
+    tol = TOL if dtype == "float32" else TOL_BF16
+    want = pallas_decode_attn(jq, jk, jv, bk=256, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    oracle = jref.decode_attn_ref(*(np.asarray(a, np.float32)
+                                    for a in (jq, jk, jv)))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(oracle), **tol)
+
+
+@pytest.mark.parametrize("S", [8192, 100])
+def test_cache_decode_attention_model_layout(S):
+    """ops.cache_decode_attention on a ring in the model layout equals the
+    reference wrapper (which transposes, and falls back to the oracle
+    when a block does not divide S)."""
+    from repro.kernels.ops import cache_decode_attention as jcache_decode
+    rng = np.random.default_rng(S)
+    q, k, v = _mk(rng, 2, 1, 4, 32), _mk(rng, 2, S, 2, 32), _mk(rng, 2, S, 2, 32)
+    got = ops.cache_decode_attention(_t(q), _t(k), _t(v))
+    assert got.shape == (2, 1, 4, 32)
+    _close(got, jcache_decode(*map(jnp.asarray, (q, k, v))))
+
+
+def _ssd_case(rng, B, nc, Q, H, P, N):
+    """``tests/test_kernels.py``'s SSD inputs: normal C, B, x; cum a
+    negative cumulative sum; dt positive."""
+    Cc, Bc = _mk(rng, B, nc, Q, N), _mk(rng, B, nc, Q, N)
+    xc = _mk(rng, B, nc, Q, H, P)
+    cum = (-np.abs(rng.normal(size=(B, nc, Q, H)))).cumsum(2).astype(np.float32)
+    dtc = np.abs(rng.normal(size=(B, nc, Q, H))).astype(np.float32)
+    return Cc, Bc, xc, cum, dtc
+
+
+@pytest.mark.parametrize("H,P,N", [(4, 64, 64), (2, 128, 32), (8, 64, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_intra_matches_ref_and_pallas(H, P, N, dtype):
+    rng = np.random.default_rng(H * P + N)
+    Cc, Bc, xc, cum, dtc = _ssd_case(rng, 2, 2, 128, H, P, N)
+    (jC, tC), (jB, tB), (jx, tx) = (_jt(a, dtype) for a in (Cc, Bc, xc))
+    got = ssd_chunk.ssd_chunk_intra(tC, tB, tx, _t(cum), _t(dtc))
+    assert got.dtype == tx.dtype
+    want = pallas_ssd_intra(jC, jB, jx, jnp.asarray(cum), jnp.asarray(dtc),
+                            interpret=True)
+    tol = TOL if dtype == "float32" else TOL_BF16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("H,P,N", [(4, 64, 64), (2, 128, 32)])
+def test_ssd_chunk_state_matches_ref_and_pallas(H, P, N):
+    from repro.kernels.ssd_chunk import ssd_chunk_state_ref as jstate_ref
+    rng = np.random.default_rng(H * P + N + 1)
+    _, Bc, xc, cum, dtc = _ssd_case(rng, 2, 2, 128, H, P, N)
+    got = ssd_chunk.ssd_chunk_state(_t(Bc), _t(xc), _t(cum), _t(dtc))
+    assert got.shape == (2, 2, H, N, P) and got.dtype == torch.float32
+    _close(got, pallas_ssd_state(*map(jnp.asarray, (Bc, xc, cum, dtc)),
+                                 interpret=True))
+    _close(got, jstate_ref(Bc, xc, cum, dtc))
+
+
+def test_hybrid_wrappers_count_no_cpu_launch_and_other_devices_raise():
+    """CPU tensors take the plain twins without counting a launch; a
+    tensor elsewhere goes to the launcher, which refuses what is not
+    CUDA — there is no silent fallback."""
+    before = (decode_attn.launches, ssd_chunk.launches_intra,
+              ssd_chunk.launches_state)
+    q, kv = torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32)
+    decode_attn.decode_attn(q, kv, kv)
+    c, x, h = torch.zeros(1, 1, 8, 16), torch.zeros(1, 1, 8, 2, 32), \
+        torch.zeros(1, 1, 8, 2)
+    ssd_chunk.ssd_chunk_intra(c, c, x, h, h)
+    ssd_chunk.ssd_chunk_state(c, x, h, h)
+    assert (decode_attn.launches, ssd_chunk.launches_intra,
+            ssd_chunk.launches_state) == before
+    m = lambda t: t.to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn.decode_attn(m(q), m(kv), m(kv))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk.ssd_chunk_intra(m(c), m(c), m(x), m(h), m(h))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk.ssd_chunk_state(m(c), m(x), m(h), m(h))
+
+
+def _struct_members(src: str, struct: str):
+    body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
+    names = []
+    for decl in re.sub(r"//.*", "", body).split(";"):
+        decl = decl.strip()
+        if decl:
+            names += [re.sub(r"\[.*\]", "", n.strip().lstrip("*")).split()[-1]
+                      for n in decl.split(",")]
+    return names
+
+
+@pytest.mark.parametrize("source,struct", [("ssd_chunk.cu", "SsdParams"),
+                                           ("decode_attn.cu", "DecodeParams")])
+def test_ctypes_params_mirror_the_new_cuda_structs(source, struct):
+    """Each ctypes Structure lists its C struct's members in order (the
+    library also checks sizeof at load time, on the card)."""
+    src = (cuda_lib.CSRC / source).read_text()
+    assert _struct_members(src, struct) == \
+        [f[0] for f in getattr(cuda_lib, struct)._fields_]

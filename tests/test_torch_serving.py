@@ -380,8 +380,13 @@ def test_sim_records_identical(cluster):
 
 @pytest.mark.parametrize("flags", [[], ["--batched"],
                                    ["--batched", "--page-tokens", "64"],
-                                   ["--batched", "--device-pool"]],
-                         ids=["live", "batched", "paged", "device-pool"])
+                                   ["--batched", "--device-pool"],
+                                   ["--segments", "--page-tokens", "64"],
+                                   ["--hosts", "2"], ["--prefill-hosts", "1"],
+                                   ["--tenants", "2"]],
+                         ids=["live", "batched", "paged", "device-pool",
+                              "segments", "hosts-2", "prefill-hosts-1",
+                              "tenants-2"])
 def test_serve_main_modes_on_cpu(flags, capsys):
     hits = serve.main(["--device", "cpu", "--requests", "12", *flags])
     assert hits.get("hbm_hit", 0) >= 1
