@@ -11,7 +11,10 @@ pages smaller than the key tile, and the refusals of the wrapper; for
 the hybrid's kernels, decode rings that no split divides, GQA with 1 to
 32 kv heads, strided cache views, chunks shorter than 128 and steep
 decays.  Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32
-kernel tolerance; 6e-2 for bfloat16 (``tests/test_kernels.py``).
+kernel tolerance.  The bfloat16 decode is held to 2**-6 of the largest
+|plain| output, about two bf16 ulps of it: the plain twin also computes
+in float32 and rounds once, and at S = 8192 the outputs are ~0.02, so
+the 6e-2 of ``tests/test_kernels.py`` would pass a kernel writing zeros.
 """
 
 import numpy as np
@@ -151,9 +154,12 @@ def test_decode_attn_kernel(dev, S, KV, dtype):
     got = dk.decode_attn(q, k, v)
     assert dk.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, H, D)
-    tol = 3e-4 if dtype == torch.float32 else 6e-2
-    torch.testing.assert_close(got.float(), dk.decode_attn_plain(q, k, v).float(),
-                               atol=tol, rtol=tol)
+    want = dk.decode_attn_plain(q, k, v).float()
+    if dtype == torch.float32:
+        _close(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=2 ** -6 * want.abs().max().item())
 
 
 @pytest.mark.parametrize("D", [32, 128])
