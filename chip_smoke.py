@@ -13,14 +13,22 @@ Phases, each fatal on failure (nothing is caught):
      the live shapes (B in {1, 8}, H=4, D=64, 2048-token psi, 16 incr +
      64 items), at the paper's ranking shape (64 incr + 512 items over
      2048 tokens) and, for the paged kernel, with 64-token pages and
-     ragged per-row lengths; assert the two bitwise properties (a row's
+     ragged per-row lengths; assert the bitwise properties (a row's
      result does not depend on its batch; paged == dense at equal padded
-     length); time kernel and plain version with CUDA events;
+     length; the segment kernel with one span == the paged kernel); the
+     segment kernel at B in {1, 8} over a 2048-token prefix span and
+     interior spans of 96 and 160 tokens, fresh tokens 8 | 8 | 64 (the
+     64 the items), and proof that its limit fails an all-zero output
+     and a kernel that ignores the span tables; time kernel and plain
+     version with CUDA events;
   4. serve 24 requests at full ``hstu-gr`` width through
-     ``repro_torch.launch.serve.main`` — live, ``--batched`` and
-     ``--batched --device-pool`` — with every launch counter zeroed just
-     before and read just after; each kernel must have launched, hits
-     must include ``hbm_hit`` and the device pool must never re-ship;
+     ``repro_torch.launch.serve.main`` — live, ``--batched``,
+     ``--batched --device-pool``, ``--segments --device-pool`` and
+     ``--batched --segments --device-pool`` — with every launch counter
+     zeroed just before and read just after; each kernel of the mode
+     must have launched (under ``--segments`` the segment kernel, and
+     never the paged one), hits must include ``hbm_hit``, and
+     ``serve.main`` asserts that the device pool never re-ships;
   5. the relay-vs-full eps contract at full width, and full-width scores
      on the card against the same weights on the CPU;
   6. ``hybrid``: the Zamba2 serve path (``zamba2_1p2b`` at full width and
@@ -66,6 +74,9 @@ H, D = 4, 64
 PSI, N_INCR, N_ITEMS = 2048, 16, 64
 PAGE = 64
 RAGGED = [2048, 1500, 933, 103, 2048, 640, 1, 1777]   # per-row psi tokens
+# per row: ('c', n) a cached span, ('f', n) fresh tokens (the last 64 items)
+SEG_PATTERN = [("c", PSI), ("f", 8), ("c", 96), ("f", 8), ("c", 160),
+               ("f", N_ITEMS)]
 
 HYB_B, HYB_S, HYB_STEPS = 2, 8192, 32     # prompts, tokens each, decode steps
 HYB_CPU_S, HYB_CPU_STEPS = 256, 4         # card-vs-CPU check
@@ -74,7 +85,7 @@ HYB_REL = 5e-4                            # card vs CPU, of the largest |logit|
 SOURCE = "src/repro_torch/csrc/hstu_rank_attn.cu"
 SOURCES = {
     "hstu_attn": SOURCE, "prefix_rank_attn": SOURCE,
-    "paged_prefix_rank_attn": SOURCE,
+    "paged_prefix_rank_attn": SOURCE, "segment_rank_attn": SOURCE,
     "decode_attn": "src/repro_torch/csrc/decode_attn.cu",
     "ssd_chunk_intra": "src/repro_torch/csrc/ssd_chunk.cu",
     "ssd_chunk_state": "src/repro_torch/csrc/ssd_chunk.cu",
@@ -83,6 +94,7 @@ REPLACES = {
     "hstu_attn": "src/repro/kernels/hstu_attn.py:63",
     "prefix_rank_attn": "src/repro/kernels/prefix_rank_attn.py:67",
     "paged_prefix_rank_attn": "src/repro/kernels/paged_prefix_attn.py:122",
+    "segment_rank_attn": "src/repro/kernels/paged_prefix_attn.py:240",
     "decode_attn": "src/repro/kernels/decode_attn.py:59",
     "ssd_chunk_intra": "src/repro/kernels/ssd_chunk.py:51",
     "ssd_chunk_state": "src/repro/kernels/ssd_chunk.py:106",
@@ -202,6 +214,18 @@ def kernel_phase(torch, results):
         # are the 64-token pages), and rows independent of the batch
         assert torch.equal(paged, dense), (
             f"paged != dense bitwise (max {(paged - dense).abs().max():.3e})")
+        # bitwise: one span at [0, prefix_len), fresh tokens after it,
+        # through the segment kernel == the paged kernel
+        ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * PAGE
+                ).expand(B, n_pages).contiguous()
+        pval = (plens[:, None] - ppos).clamp(0, PAGE).int()
+        qpos = (PSI + torch.arange(Sq, dtype=torch.int32, device=dev)
+                ).expand(B, Sq)
+        seg = pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval, qpos,
+                                   kn, vn, n_items=n_items)
+        assert torch.equal(seg, paged), (
+            f"segment (one span) != paged bitwise "
+            f"(max {(seg - paged).abs().max():.3e})")
         if B > 1:
             for b in range(B):
                 s = slice(b, b + 1)
@@ -244,7 +268,103 @@ def kernel_phase(torch, results):
             log(f"{name} B={B} P={PSI} Sq={Sq}: err {e:.2e} kernel "
                 f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({by})")
+    segment_checks(torch, results, gen, check)
     log("kernels agree with their plain versions; bitwise properties hold")
+
+
+def _segment_inputs(torch, gen, B):
+    """SEG_PATTERN in every row of B, at 64-token pages of one pool
+    whose K and V pages are distinct and shuffled (the null page last,
+    zero).  Values are SiLU-shaped, silu(2 N(0, 1)), as the model's own
+    q, k and v are (HSTU passes them through SiLU), so the cached spans
+    move the output well past the limit; the tail of a partly held page
+    is data too, which the kernel must not read."""
+    dev = torch.device("cuda")
+    act = lambda *shape: torch.nn.functional.silu(
+        2 * torch.randn(shape, generator=gen, device=dev))
+    spans, fresh, pos = [], [], 0
+    for kind, n in SEG_PATTERN:
+        if kind == "c":
+            spans.append((pos, n))
+        else:
+            fresh.extend(range(pos, pos + n))
+        pos += n
+    pp, pv = [], []
+    for start, n in spans:
+        for lo in range(0, n, PAGE):
+            pp.append(start + lo)
+            pv.append(min(PAGE, n - lo))
+    n_pages, Sq = len(pp), len(fresh)
+    n_pool = 2 * B * n_pages
+    pool = act(n_pool + 1, PAGE, H, D)
+    pool[n_pool] = 0
+    perm = torch.randperm(n_pool, generator=gen, device=dev).int()
+    rows = lambda a: torch.tensor([a] * B, dtype=torch.int32, device=dev)
+    return dict(q=act(B, H, Sq, D), k_pages=pool, v_pages=pool,
+                k_table=perm[:B * n_pages].view(B, n_pages),
+                v_table=perm[B * n_pages:].view(B, n_pages),
+                page_pos=rows(pp), page_valid=rows(pv), q_pos=rows(fresh),
+                k_new=act(B, H, Sq, D), v_new=act(B, H, Sq, D),
+                n_items=N_ITEMS)
+
+
+def segment_checks(torch, results, gen, check):
+    """segment_rank_attn at B in {1, 8}: against its plain twin, a row
+    against its batch, a limit that an all-zero output and a kernel
+    ignoring the span tables would fail, and times beside the bound."""
+    from repro_torch.kernels import paged_prefix_attn as pk
+    from repro_torch.kernels import ref
+
+    name = "segment_rank_attn"
+    for B in (1, 8):
+        a = _segment_inputs(torch, gen, B)
+        plain = lambda **kw: pk.segment_rank_attn_plain(**{**a, **kw})
+        got = pk.segment_rank_attn(**a)
+        want = plain()
+        e = check(name, got, want)
+        lim = TOL + TOL * want.abs()
+        zero = (want.abs() > lim).float().mean().item()
+        assert zero > 0.5, f"{name}: an all-zero output fails only {zero:.3f}"
+        full = torch.full_like(a["page_valid"], PAGE)
+        flat = torch.zeros_like(a["page_pos"])
+        margins = {k: ((plain(**kw) - want).abs() / lim).max().item()
+                   for k, kw in (("page_valid", dict(page_valid=full)),
+                                 ("page_pos", dict(page_pos=flat)),
+                                 ("all_visible", dict(page_valid=full,
+                                                      page_pos=flat)))}
+        assert margins["all_visible"] > 100, margins
+        assert min(margins.values()) > 10, margins
+        if B > 1:
+            for b in range(B):
+                one = pk.segment_rank_attn(**{
+                    k: v[b:b + 1] if torch.is_tensor(v) and v is not
+                    a["k_pages"] else v for k, v in a.items()})
+                assert torch.equal(one[0], got[b]), f"{name}: batch-dependent row"
+        # the work these inputs need: the (query, cached key) pairs the
+        # span mask keeps, the new-token pairs the rank mask keeps; the
+        # held cached keys, q/k/v/out, the four tables and q_pos moved once
+        kpos = ref.span_key_positions(a["page_pos"], a["page_valid"], PAGE)
+        Sq = a["q"].shape[2]
+        cached = (kpos[:, None, :] <= a["q_pos"][:, :, None]).sum().item()
+        held = (kpos != ref.HIDDEN).sum().item()
+        pairs = H * (cached + B * _visible_new(Sq, Sq - N_ITEMS))
+        flops = 4 * D * pairs
+        nbytes = 4 * (4 * B * H * Sq * D + 2 * held * H * D
+                      + 4 * a["k_table"].numel() + B * Sq)
+        bound_ms, by = _bound(flops, nbytes)
+        ms = _time_ms(torch, lambda: pk.segment_rank_attn(**a))
+        plain_ms = _time_ms(torch, plain, 5)
+        results[name]["shapes"].append(dict(
+            B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS,
+            spans=[n for kind, n in SEG_PATTERN if kind == "c"],
+            main=B == 8, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=by, max_abs_err=e, zero_fails=zero,
+            wrong_mask_margins=margins))
+        log(f"{name} B={B} spans {results[name]['shapes'][-1]['spans']} "
+            f"Sq={Sq}: err {e:.2e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({by}); all-zero fails {zero:.3f}, "
+            f"wrong-mask margins (x limit) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in margins.items()))
 
 
 # --- phase 4: the main path ------------------------------------------------------
@@ -256,30 +376,42 @@ def serve_phase(torch, results, requests):
     from repro_torch.kernels import prefix_rank_attn as rk
     from repro_torch.launch import serve
 
-    mods = {"hstu_attn": hk, "prefix_rank_attn": rk,
-            "paged_prefix_rank_attn": pk}
-    modes = (("live", [], ("hstu_attn", "prefix_rank_attn")),
-             ("batched", ["--batched"], ("hstu_attn", "prefix_rank_attn")),
+    counters = {"hstu_attn": (hk, "launches"),
+                "prefix_rank_attn": (rk, "launches"),
+                "paged_prefix_rank_attn": (pk, "launches"),
+                "segment_rank_attn": (pk, "launches_segment")}
+    seg_must = ("hstu_attn", "segment_rank_attn")
+    # (mode, flags, kernels that must launch, kernels that must not)
+    modes = (("live", [], ("hstu_attn", "prefix_rank_attn"), ()),
+             ("batched", ["--batched"], ("hstu_attn", "prefix_rank_attn"), ()),
              ("batched-device-pool", ["--batched", "--device-pool"],
-              ("hstu_attn", "paged_prefix_rank_attn")))
-    for mode, flags, must in modes:
-        for m in mods.values():
-            m.launches = 0
+              ("hstu_attn", "paged_prefix_rank_attn"), ("segment_rank_attn",)),
+             ("segments-device-pool", ["--segments", "--device-pool"],
+              seg_must, ("paged_prefix_rank_attn",)),
+             ("batched-segments-device-pool",
+              ["--batched", "--segments", "--device-pool"], seg_must,
+              ("paged_prefix_rank_attn",)))
+    for mode, flags, must, must_not in modes:
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
         t0 = time.perf_counter()
+        # serve.main asserts launch_reships == 0 under --device-pool
         hits = serve.main(["--no-smoke", "--device", "cuda", "--requests",
                            str(requests), *flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: m.launches for n, m in mods.items()}
+        counts = {n: getattr(m, attr) for n, (m, attr) in counters.items()}
         log(f"serve {mode}: {wall:.1f} s hits={hits} launches={counts}")
         assert hits.get("hbm_hit", 0) > 0, f"{mode}: no hbm_hit in {hits}"
         for n in must:
             assert counts[n] > 0, f"{mode}: {n} never launched"
+        for n in must_not:
+            assert counts[n] == 0, f"{mode}: {n} launched {counts[n]} times"
         for n, c in counts.items():
             results[n]["launches"] += c
         results["_serve"][mode] = dict(hits=hits, launches=counts,
                                        wall_s=wall, requests=requests)
-    for n in mods:
+    for n in counters:
         assert results[n]["launches"] > 0, f"{n} never launched on the main path"
 
 
@@ -644,7 +776,7 @@ def main(argv=None):
     log(f"built/loaded {sorted(set(SOURCES.values()))} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in cuda_lib.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(w in line for w in ("registers", "spill", "smem", "entry function")):
             log(f"ptxas: {line.strip()}")
 
     results = {n: dict(launches=0, max_abs_err=0.0, shapes=[])
@@ -672,12 +804,13 @@ def main(argv=None):
             "bound_by": main_shape.get("bound_by"),
             "library_ms": main_shape.get("library_ms"),
             "shape": {k: main_shape[k] for k in (
-                "B", "S", "P", "n_incr", "n_items", "L", "Q", "H", "N", "KV",
-                "D", "dtype") if k in main_shape},
+                "B", "S", "P", "spans", "n_incr", "n_items", "L", "Q", "H",
+                "N", "KV", "D", "dtype") if k in main_shape},
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "results": results}, f, indent=1)
+        json.dump({"card": smi, "build_log": cuda_lib.BUILD_LOG,
+                   "results": results}, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

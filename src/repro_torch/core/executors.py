@@ -57,7 +57,8 @@ from repro_torch.serving.batching import (BatchingConfig, PendingRank,
 
 from .cache import kv_nbytes
 from .costmodel import GRCostModel
-from .paging import DevicePagePool, PageLayout, PagedPsi, ceil_div
+from .paging import (DevicePagePool, PageLayout, PagedPsi, ceil_div,
+                     span_page_rows)
 from .types import UserMeta
 
 
@@ -100,13 +101,10 @@ def _pages_of(tokens: int, psi: PagedPsi) -> int:
     return page_bucket(tokens, psi.layout.page_tokens)
 
 
-def _page_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
-    """The paged kernel's launch arguments: the pool tensor, the
-    (B, L, 2, np_bucket) int32 page tables — per-member (slabs, n)
-    tables padded with the pool's null (all-zero) page — and the (B,)
-    int32 resident token counts (``PagedPsi.n_tokens``: keys between a
-    user's prefix_len and the 64-token grid are real K/V, which the
-    dense path attends to as well).
+def _pool_and_tables(psis: Sequence[PagedPsi], np_bucket: int, device):
+    """The pool tensor and the (B, L, 2, np_bucket) int32 page tables —
+    per-member (slabs, n) tables padded with the pool's null (all-zero)
+    page — that every paged launch reads.
 
     The pool: a ``DevicePagePool`` passes its device-resident tensor by
     REFERENCE (zero host->device traffic per launch); a host-buffer pool
@@ -135,10 +133,35 @@ def _page_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
         if pool is not None:
             pool.h2d["launch_reships"] += 1
             pool.h2d["reshipped_bytes"] += int(buf.nbytes)
-    tables = torch.from_numpy(np.stack(rows)).to(device)
+    return launch_buf, torch.from_numpy(np.stack(rows)).to(device)
+
+
+def _page_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
+    """The paged kernel's launch arguments: pool, tables and the (B,)
+    int32 resident token counts (``PagedPsi.n_tokens``: keys between a
+    user's prefix_len and the 64-token grid are real K/V, which the
+    dense path attends to as well)."""
+    buf, tables = _pool_and_tables(psis, np_bucket, device)
     prefix_lens = torch.tensor([psi.n_tokens for psi in psis],
                                dtype=torch.int32, device=device)
-    return launch_buf, tables, prefix_lens
+    return buf, tables, prefix_lens
+
+
+def _segment_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
+    """The segment kernel's launch arguments: pool and tables as
+    ``_page_launch_args``, plus each member's ``span_page_rows`` as the
+    (B, np_bucket) int32 ``page_pos`` / ``page_valid``, padded slots at
+    position 0 holding nothing.  Residency rides in ``page_valid``.  A
+    prefix-only member is one run ``(0, n_tokens)``, which gives the
+    paged launch's scores."""
+    buf, tables = _pool_and_tables(psis, np_bucket, device)
+    pos = np.zeros((len(psis), np_bucket), np.int32)
+    valid = np.zeros((len(psis), np_bucket), np.int32)
+    for i, psi in enumerate(psis):
+        p, v = span_page_rows(psi)
+        pos[i, :len(p)], valid[i, :len(v)] = p, v
+    return (buf, tables, torch.from_numpy(pos).to(device),
+            torch.from_numpy(valid).to(device))
 
 
 # --- registry ----------------------------------------------------------------
@@ -327,14 +350,27 @@ class LiveExecutor:
         items = self._tokens(self.store.candidates(meta.user_id)[None, :])
         t0 = time.perf_counter()
         if isinstance(psi, PagedPsi):
-            buf, tables, plens = _page_launch_args(
-                [psi], _pages_of(psi.n_tokens, psi), self.device)
-            scores = self.model.rank_with_pages(buf, tables, plens, incr,
-                                                items)
+            scores = self._rank_paged([psi], _pages_of(psi.n_tokens, psi),
+                                      incr, items)
         else:
             scores = self.model.rank_with_cache(self._psi(psi), incr, items)
         self._sync()
         return scores, (time.perf_counter() - t0) * 1e3
+
+    def _rank_paged(self, psis: Sequence[PagedPsi], np_bucket: int, incr,
+                    items):
+        """One paged launch per layer over ``psis`` at ``np_bucket``
+        pages: through the segment kernel when segments are on (every
+        paged rank, span-carrying or not, then reads the span tables),
+        else through the paged-prefix kernel.  The two give the same
+        scores on the live path, whose interior spans are zero K/V."""
+        if self.segments:
+            buf, tables, pos, valid = _segment_launch_args(psis, np_bucket,
+                                                           self.device)
+            return self.model.rank_with_segments(buf, tables, pos, valid,
+                                                 incr, items)
+        buf, tables, plens = _page_launch_args(psis, np_bucket, self.device)
+        return self.model.rank_with_pages(buf, tables, plens, incr, items)
 
     def rank_full(self, meta: UserMeta) -> Tuple[Any, float]:
         n = self._full_pad(meta.prefix_len)
@@ -467,10 +503,8 @@ class BatchedLiveExecutor(LiveExecutor):
             pt = group[0].psi.layout.page_tokens
             npb = max([page_bucket(bucket, pt)]
                       + [_pages_of(w.psi.n_tokens, w.psi) for w in rows])
-            buf, tables, plens = _page_launch_args([w.psi for w in rows],
-                                                   npb, self.device)
-            scores = self.model.rank_with_pages(buf, tables, plens, incr,
-                                                items)
+            scores = self._rank_paged([w.psi for w in rows], npb, incr,
+                                      items)
         elif group[0].psi is not None:        # homogeneous by aggregator key
             kv = stack_psi([self._psi(w.psi) for w in rows], bucket)
             scores = self.model.rank_with_cache(kv, incr, items)
@@ -524,8 +558,9 @@ class BatchedLiveExecutor(LiveExecutor):
         arrival stream); the ``batching.max_buckets_live`` *most
         frequent* buckets are warmed.  Returns the freshly warmed
         (bucket, batch, incr_len, n_items) keys (already-warm keys are
-        skipped).  With ``page_tokens`` set, ``rank_with_pages`` runs
-        too, over a zero pool of ``pool_pages`` pages."""
+        skipped).  With ``page_tokens`` set, the paged launch runs too
+        (``rank_with_segments`` when segments are on, else
+        ``rank_with_pages``), over a zero pool of ``pool_pages`` pages."""
         from collections import Counter
         cfg = self.model.cfg
         dtype = self.model.tok.dtype
@@ -559,10 +594,16 @@ class BatchedLiveExecutor(LiveExecutor):
                     tables = torch.zeros((nb, cfg.n_layers, 2, npb),
                                          dtype=torch.int32,
                                          device=self.device)
-                    plens = torch.zeros((nb,), dtype=torch.int32,
-                                        device=self.device)
-                    self.model.rank_with_pages(buf, tables, plens, incr,
-                                               items)
+                    if self.segments:
+                        rows = torch.zeros((nb, npb), dtype=torch.int32,
+                                           device=self.device)
+                        self.model.rank_with_segments(buf, tables, rows,
+                                                      rows, incr, items)
+                    else:
+                        plens = torch.zeros((nb,), dtype=torch.int32,
+                                            device=self.device)
+                        self.model.rank_with_pages(buf, tables, plens,
+                                                   incr, items)
                 self._sync()
                 self._warmed.add(key)
                 done.append(key)

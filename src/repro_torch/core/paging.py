@@ -285,6 +285,45 @@ class PagedPsi:
         return (k.copy(), v.copy())
 
 
+def span_page_rows(psi: PagedPsi) -> Tuple[np.ndarray, np.ndarray]:
+    """The segment kernel's ``(page_pos, page_valid)`` rows for a paged
+    psi: the global position of each table slot's first token, and the
+    tokens the slot holds, both ``(n_pages,)`` int32.
+
+    The rows follow what ``slice_into_pages`` wrote: the value's token
+    axis, page by page.  A span-carrying entry's value is the prefix as
+    prefilled (the executor's 64-token grid, which may overhang
+    ``spans[0]``: those keys are real K/V of the resized history, and
+    the prefix-only launch attends to them too) and then one whole-page
+    run per interior span.  So the prefix run is every slot the interior
+    runs leave, each page full, from position 0; interior span
+    ``(start, length)`` gives pages at ``start, start + pt, ...`` holding
+    ``length`` tokens in all.  An entry without spans is one run
+    ``(0, n_tokens)``.  Slots at or past ``n_tokens`` (not resident)
+    hold nothing.  Raises if the runs do not fit the table."""
+    pt = psi.layout.page_tokens
+    width = psi.table.shape[1]
+    spans = psi.spans or ((0, psi.n_tokens),)
+    has_prefix = int(spans[0][0]) == 0
+    interior = spans[1:] if has_prefix else spans
+    n_head = width - sum(ceil_div(int(ln), pt) for _, ln in interior)
+    if n_head < (ceil_div(int(spans[0][1]), pt) if has_prefix else 0):
+        raise ValueError(f"spans {spans} need more than the table's "
+                         f"{width} pages of {pt} tokens")
+    pos = np.zeros(width, np.int32)
+    valid = np.zeros(width, np.int32)
+    pos[:n_head] = np.arange(n_head) * pt
+    valid[:n_head] = pt
+    slot = n_head
+    for start, ln in interior:
+        for lo in range(0, int(ln), pt):
+            pos[slot] = int(start) + lo
+            valid[slot] = min(pt, int(ln) - lo)
+            slot += 1
+    resident = np.clip(psi.n_tokens - np.arange(width) * pt, 0, pt)
+    return pos, np.minimum(valid, resident).astype(np.int32)
+
+
 def slice_into_pages(buffer: np.ndarray, table: np.ndarray, value: Any,
                      page_tokens: int, t0: int = 0) -> None:
     """Write the dense psi pytree ``value`` — per-layer (K, V) arrays of

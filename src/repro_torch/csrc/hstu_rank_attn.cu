@@ -1,5 +1,5 @@
 // HSTU pointwise (SiLU) attention for Hopper (sm_90a), full float32 on the
-// CUDA cores.  One kernel serves the three TPU kernels of the relay path:
+// CUDA cores.  One kernel serves the four TPU kernels of the relay path:
 //
 //   * src/repro/kernels/hstu_attn.py::hstu_attn (_kernel): causal prefill,
 //     run here with no prefix and every query an "incr" token;
@@ -8,7 +8,11 @@
 //   * src/repro/kernels/paged_prefix_attn.py::paged_prefix_rank_attn
 //     (_prefix_pages_kernel + _new_tokens_kernel): the same scores with the
 //     prefix K/V read from a (N + 1, page_tokens, H, D) page pool through
-//     separate K and V page tables and a per-row resident length.
+//     separate K and V page tables and a per-row resident length;
+//   * src/repro/kernels/paged_prefix_attn.py::segment_rank_attn
+//     (_segment_pages_kernel + _new_tokens_kernel): beyond-prefix reuse,
+//     the table naming the pages of a row's cached SPANS in order, with
+//     per-page page_pos / page_valid and per-query q_pos (below).
 //
 // What it computes: out[q] = sum_k mask(q, k) * silu(q.k / sqrt(D)) / n_total
 // * v[k], keys = [prefix | new tokens].  Every query sees every resident
@@ -46,7 +50,25 @@
 // item tiles off the diagonal, pages past a row's resident length) are
 // never loaded or multiplied.  Dropping a tile is exact: its products
 // are all +-0 and adding them leaves the accumulator unchanged.
+//
+// The segment mode is a compile-time variant (SEG), so the three other
+// kernels run the code they ran before it existed.  Its cached keys are
+// the table's pages in order (key_row addresses them as key /
+// page_tokens); key j of slot p sits at global position page_pos[p] + j
+// and exists only where j < page_valid[p].  Per 64-key tile the block
+// first writes each key's position to shared memory (INT_MAX where the
+// page does not hold it), so the mask becomes one compare, key position
+// <= q_pos[q], and a key a page does not hold is never read (it enters
+// the products as zero, like a key past prefix_lens).  A tile is
+// skipped only when no key of it is visible to any query of the tile:
+// slots past the spans, pages whose position lies after the tile's last
+// query.  The fresh tokens are the new-token pass unchanged (local
+// causality equals global causality, since q_pos increases).  With one
+// span at [0, prefix_len) and q_pos after it, the visited tiles, the
+// loaded values and the mask bits are kernel 3's, so the two agree bit
+// for bit; the cluster split is the same function of the shape.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -75,6 +97,11 @@ struct RankAttnParams {
     int paged;                                     // 1: prefix from the pool
     float scale;                                   // 1 / sqrt(D)
     float n_total;                                 // the normalizer n
+    // segment mode, after the older members so their offsets stay put
+    const int* page_pos;   long long pp_stride;    // (B, n_pages) rows
+    const int* page_valid; long long pv_stride;    // (B, n_pages) rows
+    const int* q_pos;      long long qp_stride;    // (B, Sq) rows
+    int segment;                                   // 1: pool pages are spans (paged too)
 };
 
 }  // extern "C"
@@ -88,10 +115,11 @@ constexpr int PS = BK + 4;
 
 enum Source { kNew = 0, kDense = 1, kPaged = 2 };
 
-template <int D> struct Geometry {
+template <int D, bool SEG = false> struct Geometry {
     static constexpr int QS = D + 4;   // padded Q row: breaks bank aliasing, keeps 16 B alignment
     static constexpr int DC = D / 16;  // output columns per thread
-    static constexpr int floats = BQ * QS + D * BK + BK * D + BQ * PS;
+    // + the segment mode's key and query positions (32-bit ints)
+    static constexpr int floats = BQ * QS + D * BK + BK * D + BQ * PS + (SEG ? BK + BQ : 0);
 };
 
 __device__ __forceinline__ float lane(const float4& v, int e) {
@@ -120,14 +148,16 @@ __device__ __forceinline__ const float* key_row(const RankAttnParams& p, int src
 
 // Keys [k0, k0 + n_valid) into shared memory: K transposed (sKT[d][c]),
 // V row-major; keys past n_valid are zero so no garbage enters a product.
-template <int D>
+// SPAN: so are the keys whose position sKpos[c] is INT_MAX (not held).
+template <int D, bool SPAN = false>
 __device__ __forceinline__ void load_tile(float* sKT, float* sV, const RankAttnParams& p,
-                                          int src, int b, int h, int k0, int n_valid) {
+                                          int src, int b, int h, int k0, int n_valid,
+                                          const int* sKpos = nullptr) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int idx = threadIdx.x; idx < BK * (D / 4); idx += NT) {
         const int c = idx % BK, d = (idx / BK) * 4;   // consecutive threads: consecutive keys
         float4 k = zero;
-        if (c < n_valid)
+        if (c < n_valid && (!SPAN || sKpos[c] != INT_MAX))
             k = *reinterpret_cast<const float4*>(key_row<D>(p, src, false, b, h, k0 + c) + d);
         sKT[(d + 0) * BK + c] = k.x;
         sKT[(d + 1) * BK + c] = k.y;
@@ -137,18 +167,21 @@ __device__ __forceinline__ void load_tile(float* sKT, float* sV, const RankAttnP
     for (int idx = threadIdx.x; idx < BK * (D / 4); idx += NT) {
         const int c = idx / (D / 4), d = (idx % (D / 4)) * 4;
         float4 v = zero;
-        if (c < n_valid)
+        if (c < n_valid && (!SPAN || sKpos[c] != INT_MAX))
             v = *reinterpret_cast<const float4*>(key_row<D>(p, src, true, b, h, k0 + c) + d);
         *reinterpret_cast<float4*>(sV + c * D + d) = v;
     }
 }
 
 // sP = mask(silu(Q K^T * scale) / n_total) for one key tile.  Thread
-// (ty, tx) owns rows ty + 16 i and columns 4 tx + j.
-template <int D>
+// (ty, tx) owns rows ty + 16 i and columns 4 tx + j.  SPAN: the mask is
+// sKpos[c] <= sQpos[r] (the segment mode's cached keys).
+template <int D, bool SPAN = false>
 __device__ __forceinline__ void tile_scores(const float* sQ, const float* sKT, float* sP,
                                             const RankAttnParams& p, bool rank_mask,
-                                            int q0, int k0, int n_valid) {
+                                            int q0, int k0, int n_valid,
+                                            const int* sKpos = nullptr,
+                                            const int* sQpos = nullptr) {
     constexpr int QS = Geometry<D>::QS;
     const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
     float s[4][4];
@@ -182,6 +215,7 @@ __device__ __forceinline__ void tile_scores(const float* sQ, const float* sKT, f
         for (int j = 0; j < 4; ++j) {
             const int c = tx * 4 + j, ki = k0 + c;
             bool visible = c < n_valid;
+            if (SPAN) visible = visible && sKpos[c] <= sQpos[r];
             if (rank_mask)
                 visible = visible && ki <= qi &&
                           (qi < p.n_incr || ki < p.n_incr || ki == qi);
@@ -229,7 +263,7 @@ __device__ __forceinline__ void tile_accumulate(float (&acc)[4][D / 16], const f
     }
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT) hstu_rank_attn_kernel(const RankAttnParams p) {
     constexpr int QS = Geometry<D>::QS, DC = Geometry<D>::DC;
     extern __shared__ float4 smem4[];
@@ -261,18 +295,51 @@ __global__ void __launch_bounds__(NT) hstu_rank_attn_kernel(const RankAttnParams
 #pragma unroll
         for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
 
-    // 1) prefix: every query sees every resident key
-    const int src = p.paged ? kPaged : kDense;
-    const int plen = p.paged ? min(p.n_prefix, p.prefix_lens[b]) : p.n_prefix;
     const int n_pre_tiles = (p.n_prefix + BK - 1) / BK;   // padded: same split dense/paged
-    for (int k0 = rank * BK; k0 < plen; k0 += CL * BK) {
-        const int n_valid = min(BK, plen - k0);
+    if constexpr (SEG) {
+        // 1s) cached spans: key position <= query position, where held
+        int* sKpos = reinterpret_cast<int*>(sP + BQ * PS);
+        int* sQpos = sKpos + BK;
+        const int* qpos = p.q_pos + b * p.qp_stride;
+        if (threadIdx.x < BQ)
+            sQpos[threadIdx.x] = q0 + threadIdx.x < p.Sq ? qpos[q0 + threadIdx.x] : INT_MIN;
         __syncthreads();
-        load_tile<D>(sKT, sV, p, src, b, h, k0, n_valid);
-        __syncthreads();
-        tile_scores<D>(sQ, sKT, sP, p, false, q0, k0, n_valid);
-        __syncthreads();
-        tile_accumulate<D>(acc, sP, sV);
+        int qmax = INT_MIN;   // the tile's last visible position
+        for (int r = 0; r < BQ; ++r) qmax = max(qmax, sQpos[r]);
+        for (int k0 = rank * BK; k0 < p.n_prefix; k0 += CL * BK) {
+            const int n_valid = min(BK, p.n_prefix - k0);
+            __syncthreads();   // the last tile's reads of sKpos are done
+            if (threadIdx.x < BK) {
+                const int c = threadIdx.x, key = k0 + c;
+                int pos = INT_MAX;
+                if (c < n_valid) {
+                    const int slot = key / p.page_tokens, j = key % p.page_tokens;
+                    if (j < p.page_valid[b * p.pv_stride + slot])
+                        pos = p.page_pos[b * p.pp_stride + slot] + j;
+                }
+                sKpos[c] = pos;
+            }
+            // a block-uniform skip: no key of the tile is visible to any query
+            if (!__syncthreads_or(threadIdx.x < BK && sKpos[threadIdx.x] <= qmax)) continue;
+            load_tile<D, true>(sKT, sV, p, kPaged, b, h, k0, n_valid, sKpos);
+            __syncthreads();
+            tile_scores<D, true>(sQ, sKT, sP, p, false, q0, k0, n_valid, sKpos, sQpos);
+            __syncthreads();
+            tile_accumulate<D>(acc, sP, sV);
+        }
+    } else {
+        // 1) prefix: every query sees every resident key
+        const int src = p.paged ? kPaged : kDense;
+        const int plen = p.paged ? min(p.n_prefix, p.prefix_lens[b]) : p.n_prefix;
+        for (int k0 = rank * BK; k0 < plen; k0 += CL * BK) {
+            const int n_valid = min(BK, plen - k0);
+            __syncthreads();
+            load_tile<D>(sKT, sV, p, src, b, h, k0, n_valid);
+            __syncthreads();
+            tile_scores<D>(sQ, sKT, sP, p, false, q0, k0, n_valid);
+            __syncthreads();
+            tile_accumulate<D>(acc, sP, sV);
+        }
     }
 
     // 2) new tokens under the rank mask; tiles past the causal edge and
@@ -316,21 +383,22 @@ __global__ void __launch_bounds__(NT) hstu_rank_attn_kernel(const RankAttnParams
 // Blocks per (b, h, q-tile): enough that each takes ~4 key tiles, at most
 // the portable cluster size.  A function of the per-row shape only —
 // never of the batch — so a row's summation order ignores its batch, and
-// dense and paged launches at equal padded length split identically.
+// dense, paged and segment launches at equal padded length split
+// identically.
 int cluster_size(const RankAttnParams& p) {
     const int tiles = (p.n_prefix + BK - 1) / BK + (p.Sq + BK - 1) / BK;
     return min(8, max(1, (tiles + 3) / 4));
 }
 
-template <int D>
+template <int D, bool SEG>
 cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
-    const int smem = static_cast<int>(sizeof(float) * Geometry<D>::floats);
+    const int smem = static_cast<int>(sizeof(float) * Geometry<D, SEG>::floats);
     static unsigned configured = 0;   // one bit per device: the > 48 KB opt-in
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (!(configured & (1u << dev))) {
-        err = cudaFuncSetAttribute(hstu_rank_attn_kernel<D>,
+        err = cudaFuncSetAttribute(hstu_rank_attn_kernel<D, SEG>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
         configured |= 1u << dev;
@@ -348,7 +416,7 @@ cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, hstu_rank_attn_kernel<D>, p);
+    err = cudaLaunchKernelEx(&cfg, hstu_rank_attn_kernel<D, SEG>, p);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -357,10 +425,11 @@ cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
 
 extern "C" int hstu_rank_attn_f32(const RankAttnParams* p, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (p->segment && !p->paged) return static_cast<int>(cudaErrorInvalidValue);
     switch (p->D) {
-        case 32: return launch<32>(*p, s);
-        case 64: return launch<64>(*p, s);
-        case 128: return launch<128>(*p, s);
+        case 32: return p->segment ? launch<32, true>(*p, s) : launch<32, false>(*p, s);
+        case 64: return p->segment ? launch<64, true>(*p, s) : launch<64, false>(*p, s);
+        case 128: return p->segment ? launch<128, true>(*p, s) : launch<128, false>(*p, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -106,6 +106,10 @@ class RankAttnParams(ctypes.Structure):
         ("n_incr", ctypes.c_int), ("page_tokens", ctypes.c_int),
         ("paged", ctypes.c_int), ("scale", ctypes.c_float),
         ("n_total", ctypes.c_float),
+        ("page_pos", ctypes.c_void_p), ("pp_stride", ctypes.c_longlong),
+        ("page_valid", ctypes.c_void_p), ("pv_stride", ctypes.c_longlong),
+        ("q_pos", ctypes.c_void_p), ("qp_stride", ctypes.c_longlong),
+        ("segment", ctypes.c_int),
     ]
 
 
@@ -207,15 +211,32 @@ def _strides(t):
     return RankAttnParams._Strides(*t.stride()[:3])
 
 
+def _int_rows(t, name: str, shape, device):
+    """An int32 (rows, n) table on ``device`` with a unit column stride
+    (any row stride); anything else is refused."""
+    if t.dtype != torch.int32 or t.device != device:
+        raise ValueError(f"{name}: need int32 on {device}, got {t.dtype} "
+                         f"on {t.device}")
+    if tuple(t.shape) != tuple(shape) or t.stride(1) != 1:
+        raise ValueError(f"{name}: need shape {tuple(shape)} with a unit "
+                         f"column stride, got {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    return t
+
+
 def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
-              prefix=None, pages=None) -> torch.Tensor:
+              prefix=None, pages=None, spans=None) -> torch.Tensor:
     """Launch the HSTU rank kernel on q's CUDA device and stream.
 
     q, k_new, v_new: (B, H, Sq, D) float32 views.
     prefix: optional dense (k_pre, v_pre), each (B, H, P, D).
     pages:  optional (k_pool, v_pool, k_table, v_table, prefix_lens) with
             pools (N + 1, page_tokens, H, D), tables (B, n_pages) int32
-            (any row stride, unit column stride), prefix_lens (B,) int32.
+            (any row stride, unit column stride), prefix_lens (B,) int32,
+            or None with ``spans``.
+    spans:  with pages, the segment mode: (page_pos, page_valid, q_pos),
+            the first two (B, n_pages) int32, q_pos (B, Sq) int32, each
+            with a unit column stride.
     Returns out (B, H, Sq, D) float32, a view of a (B, Sq, H, D) tensor.
     The caller counts the launch."""
     device = q.device
@@ -240,6 +261,8 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
         B=B, H=H, Sq=Sq, D=D, n_incr=int(n_incr), n_prefix=0,
         page_tokens=1, paged=0, scale=1.0 / float(D) ** 0.5,
         n_total=float(n_total))
+    if spans is not None and pages is None:
+        raise ValueError("the segment mode reads its spans from pages")
     if prefix is not None:
         kp, vp = (_view(t, n, device) for t, n in zip(prefix, ("k_pre", "v_pre")))
         if kp.shape != vp.shape or tuple(kp.shape[:2]) != (B, H) \
@@ -251,6 +274,9 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
         p.n_prefix = kp.shape[2]
     elif pages is not None:
         k_pool, v_pool, k_table, v_table, plens = pages
+        if (plens is None) == (spans is None):
+            raise ValueError("a paged launch takes prefix_lens or spans, "
+                             "exactly one")
         for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
             if t.dtype != torch.float32 or t.device != device \
                     or not t.is_contiguous() or t.dim() != 4 \
@@ -260,24 +286,34 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
                                  f"{device}, got {tuple(t.shape)} {t.dtype}")
         if k_pool.shape[1] != v_pool.shape[1]:
             raise ValueError("K and V pools differ in page_tokens")
-        for name, t in (("k_table", k_table), ("v_table", v_table),
-                        ("prefix_lens", plens)):
-            if t.dtype != torch.int32 or t.device != device:
-                raise ValueError(f"{name}: need int32 on {device}, got "
-                                 f"{t.dtype} on {t.device}")
-        if k_table.shape != v_table.shape or k_table.dim() != 2 \
-                or k_table.shape[0] != B or k_table.stride(1) != 1 \
-                or v_table.stride(1) != 1 or tuple(plens.shape) != (B,) \
-                or not plens.is_contiguous():
-            raise ValueError(f"page tables {tuple(k_table.shape)} / "
-                             f"{tuple(v_table.shape)} and prefix_lens "
-                             f"{tuple(plens.shape)} do not fit batch {B}")
+        if k_table.dim() != 2 or k_table.shape[0] != B:
+            raise ValueError(f"page table {tuple(k_table.shape)} does not "
+                             f"fit batch {B}")
+        rows = tuple(k_table.shape)
+        for name, t in (("k_table", k_table), ("v_table", v_table)):
+            _int_rows(t, name, rows, device)
         pt = k_pool.shape[1]
         p.k_pool, p.v_pool = k_pool.data_ptr(), v_pool.data_ptr()
         p.k_table, p.kt_stride = k_table.data_ptr(), k_table.stride(0)
         p.v_table, p.vt_stride = v_table.data_ptr(), v_table.stride(0)
-        p.prefix_lens = plens.data_ptr()
         p.n_prefix, p.page_tokens, p.paged = k_table.shape[1] * pt, pt, 1
+        if spans is None:
+            if plens.dtype != torch.int32 or plens.device != device \
+                    or tuple(plens.shape) != (B,) or not plens.is_contiguous():
+                raise ValueError(f"prefix_lens: need a contiguous int32 "
+                                 f"({B},) on {device}, got {plens.dtype} "
+                                 f"{tuple(plens.shape)} on {plens.device}")
+            p.prefix_lens = plens.data_ptr()
+        else:
+            page_pos, page_valid, q_pos = spans
+            _int_rows(page_pos, "page_pos", rows, device)
+            _int_rows(page_valid, "page_valid", rows, device)
+            _int_rows(q_pos, "q_pos", (B, Sq), device)
+            p.page_pos, p.pp_stride = page_pos.data_ptr(), page_pos.stride(0)
+            p.page_valid, p.pv_stride = (page_valid.data_ptr(),
+                                         page_valid.stride(0))
+            p.q_pos, p.qp_stride = q_pos.data_ptr(), q_pos.stride(0)
+            p.segment = 1
     _launch("hstu_rank_attn_f32", p, device)
     return out
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from .decode_attn import decode_attn
 from .hstu_attn import hstu_attn
-from .paged_prefix_attn import paged_prefix_rank_attn
+from .paged_prefix_attn import paged_prefix_rank_attn, segment_rank_attn
 from .prefix_rank_attn import prefix_rank_attn_split
 
 
@@ -44,6 +44,19 @@ def paged_rank_attention(q, k_new, v_new, pool, k_table, v_table,
     out = paged_prefix_rank_attn(q, pool, pool, k_table, v_table,
                                  prefix_lens, k_new, v_new, n_incr=n_incr,
                                  n_total=n_total)
+    return _bsh_to_bhs(out)
+
+
+def segment_rank_attention(q, k_new, v_new, pool, k_table, v_table,
+                           page_pos, page_valid, q_pos, *, n_items,
+                           n_total=None):
+    """Ranking with psi read from cached spans in one (N + 1, pt, H, D)
+    pool: per-row K and V page tables, ``page_pos`` / ``page_valid``
+    (B, n_pages) and the fresh tokens' positions ``q_pos`` (B, Sq)."""
+    q, k_new, v_new = map(_bsh_to_bhs, (q, k_new, v_new))
+    out = segment_rank_attn(q, pool, pool, k_table, v_table, page_pos,
+                            page_valid, q_pos, k_new, v_new, n_items=n_items,
+                            n_total=n_total)
     return _bsh_to_bhs(out)
 
 

@@ -56,20 +56,51 @@ def prefix_rank_attn_ref(q, k, v, *, n_prefix: int, n_incr: int,
     return torch.einsum("bhqk,bhkd->bhqd", a.to(v.dtype), v)
 
 
-def gather_pages(pages, table, prefix_lens):
-    """Dense (B, H, n_pages * page_tokens, D) prefix gathered from a
-    (N + 1, page_tokens, H, D) pool through a (B, n_pages) page table,
-    with every key at or past the row's ``prefix_lens`` zeroed — a zero
-    key and value contribute silu(0) * 0 = 0, exactly what the kernel's
-    residency mask leaves out."""
+def segment_rank_attn_ref(q, k, v, *, q_pos, k_pos, n_items: int,
+                          n_total: float = None):
+    """Beyond-prefix (segment-reuse) ranking oracle.
+
+    ``k``, ``v``: (B, H, S, D), the full interleaved sequence — cached
+    spans and fresh tokens — at global positions ``k_pos`` (B, S).
+    Queries are the fresh tokens: ``q`` (B, H, Sq, D) at positions
+    ``q_pos`` (B, Sq), the last ``n_items`` of them candidate items.  A
+    fresh token sees every key at or before its own position; an item
+    sees the non-item context and itself only.  With one cached span at
+    [0, P) and fresh tokens at [P, P + Sq) this is
+    ``prefix_rank_attn_ref``."""
+    Sq = q.shape[2]
+    a = _silu_scores(q, k, n_total or k.shape[2])
+    qp = q_pos.to(q.device)[:, :, None]                 # (B, Sq, 1)
+    kp = k_pos.to(q.device)[:, None, :]                 # (B, 1, S)
+    mask = kp <= qp
+    if n_items:
+        is_item_q = (torch.arange(Sq, device=q.device)
+                     >= Sq - n_items)[None, :, None]
+        is_item_k = kp >= qp[:, Sq - n_items:Sq - n_items + 1]
+        mask = mask & torch.where(is_item_q, ~is_item_k | (kp == qp), True)
+    a = torch.where(mask[:, None], a, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", a.to(v.dtype), v)
+
+
+def _gather(pages, table, live):
+    """(B, H, n_pages * page_tokens, D) keys gathered from a (N + 1,
+    page_tokens, H, D) pool through a (B, n_pages) page table, zero
+    where ``live`` (B, n_pages * page_tokens) is False: a zero key and
+    value contribute silu(0) * 0 = 0, exactly what the kernel leaves
+    out when it does not read a key."""
     B, n_pages = table.shape
-    pt = pages.shape[1]
     g = pages[table.long()]                       # (B, np, pt, H, D)
-    g = g.reshape(B, n_pages * pt, *pages.shape[2:])
-    pos = torch.arange(n_pages * pt, device=pages.device)
-    live = pos[None, :] < prefix_lens.to(pages.device).long()[:, None]
+    g = g.reshape(B, n_pages * pages.shape[1], *pages.shape[2:])
     g = torch.where(live[:, :, None, None], g, 0.0)
     return g.transpose(1, 2)
+
+
+def gather_pages(pages, table, prefix_lens):
+    """The prefix gathered through the page table, every key at or past
+    the row's ``prefix_lens`` zeroed (the kernel's residency mask)."""
+    pos = torch.arange(table.shape[1] * pages.shape[1], device=pages.device)
+    live = pos[None, :] < prefix_lens.to(pages.device).long()[:, None]
+    return _gather(pages, table, live)
 
 
 def paged_prefix_rank_attn_ref(q, k_pages, v_pages, k_table, v_table,
@@ -85,6 +116,38 @@ def paged_prefix_rank_attn_ref(q, k_pages, v_pages, k_table, v_table,
         q, torch.cat([kp, k_new], dim=2), torch.cat([vp, v_new], dim=2),
         n_prefix=n_prefix, n_incr=n_incr,
         n_total=n_total or n_prefix + q.shape[2])
+
+
+HIDDEN = torch.iinfo(torch.int32).max   # position of a key no query sees
+
+
+def span_key_positions(page_pos, page_valid, page_tokens: int):
+    """(B, n_pages * page_tokens) int32 global position of every key of
+    a segment launch's table: ``page_pos[b, p] + j`` where the page
+    holds the token (``j < page_valid[b, p]``), else ``HIDDEN``."""
+    j = torch.arange(page_tokens, dtype=torch.int32, device=page_pos.device)
+    pos = page_pos[:, :, None] + j
+    pos = torch.where(j < page_valid[:, :, None], pos, HIDDEN)
+    return pos.reshape(page_pos.shape[0], -1)
+
+
+def paged_segment_rank_attn_ref(q, k_pages, v_pages, k_table, v_table,
+                                page_pos, page_valid, q_pos, k_new, v_new,
+                                *, n_items: int, n_total: float = None):
+    """The segment twin: gather the span pages through their K and V
+    tables (keys a page does not hold are zero), give each key its
+    global position from ``page_pos`` / ``page_valid``, then the
+    interleaved oracle over [span keys | fresh tokens] with the fresh
+    tokens at ``q_pos``.  ``n_total`` defaults to
+    ``n_pages * page_tokens + Sq``."""
+    kpos = span_key_positions(page_pos, page_valid, k_pages.shape[1])
+    live = kpos != HIDDEN
+    kp = _gather(k_pages, k_table, live)
+    vp = _gather(v_pages, v_table, live)
+    return segment_rank_attn_ref(
+        q, torch.cat([kp, k_new], dim=2), torch.cat([vp, v_new], dim=2),
+        q_pos=q_pos, k_pos=torch.cat([kpos, q_pos.to(kpos.device)], dim=1),
+        n_items=n_items, n_total=n_total or kp.shape[2] + q.shape[2])
 
 
 def decode_attn_ref(q, k, v):

@@ -33,6 +33,7 @@ from repro_torch.core import (BatchingConfig, ClusterConfig, GRCostModel,
                               get_executor, relay_config)
 from repro_torch.data.synthetic import (UserBehaviorStore, WorkloadConfig,
                                         request_stream)
+from repro_torch.kernels import paged_prefix_attn
 from repro_torch.models import build_model, get_config
 
 
@@ -63,9 +64,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--segments", action="store_true",
                     help="beyond-prefix reuse: the stream attaches per-"
                          "user candidate-independent seg_lens and the "
-                         "side path caches them alongside the prefix "
-                         "(implies a paged window; defaults "
-                         "--page-tokens to 64 when unset)")
+                         "side path caches them alongside the prefix; "
+                         "paged ranks read the span tables through the "
+                         "segment kernel (implies a paged window; "
+                         "defaults --page-tokens to 64 when unset)")
     ap.add_argument("--device-pool", action="store_true",
                     help="keep the paged KV pool device-resident: "
                          "inserts/reloads scatter only fresh pages "
@@ -184,6 +186,12 @@ def main(argv=None):
             return
         h2d = svc.stats()["h2d"]
         print(json.dumps({"h2d": h2d}, indent=1))
+        if args.segments:
+            # every paged rank reads the span tables through the segment
+            # kernel (launches count on the card; the CPU twin counts none)
+            print(json.dumps({"launches": {
+                "segment_rank_attn": paged_prefix_attn.launches_segment,
+                "paged_prefix_rank_attn": paged_prefix_attn.launches}}))
         if args.device_pool:
             # the whole point of the device-resident pool: rank
             # launches pass the pool by reference, so a single re-ship

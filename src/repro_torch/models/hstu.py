@@ -213,6 +213,35 @@ class HSTUModel(nn.Module):
         return self._rank(incr_tokens, item_tokens, n_prefix, attend_for)
 
     @torch.no_grad()
+    def rank_with_segments(self, pool, tables, page_pos, page_valid,
+                           incr_tokens, item_tokens):
+        """Score candidates with psi read from cached spans in the pool.
+
+        pool, tables: as ``rank_with_pages``; the tables name each row's
+                      span pages in order
+        page_pos:     (B, n_pages) int32 global position of each page's
+                      first token
+        page_valid:   (B, n_pages) int32 tokens each page holds (0 on
+                      padded slots and pages not resident)
+
+        Positions and normalizer are ``rank_with_pages``'s, as in the
+        reference's rank: the fresh tokens sit at ``n_pages *
+        page_tokens + arange(Sq)`` (RoPE and ``q_pos`` alike), and
+        n_total is ``n_pages * page_tokens + Sq``."""
+        n_prefix = tables.shape[-1] * pool.shape[1]
+        B = incr_tokens.shape[0]
+        Sq = incr_tokens.shape[1] + item_tokens.shape[1]
+        q_pos = torch.arange(n_prefix, n_prefix + Sq, dtype=torch.int32,
+                             device=pool.device).expand(B, Sq)
+
+        def attend_for(n_incr, n_total):
+            return lambda l, q, k, v: ops.segment_rank_attention(
+                q, k, v, pool, tables[:, l, 0], tables[:, l, 1], page_pos,
+                page_valid, q_pos, n_items=Sq - n_incr, n_total=n_total)
+
+        return self._rank(incr_tokens, item_tokens, n_prefix, attend_for)
+
+    @torch.no_grad()
     def full_rank(self, prefix_tokens, incr_tokens, item_tokens):
         """Baseline: full inference with the long prefix on the critical
         path (no cache)."""

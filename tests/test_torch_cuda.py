@@ -8,6 +8,8 @@ This file imports torch only, so it also runs where JAX is absent.  It
 sweeps the edges that ``chip_smoke.py`` does not: ragged lengths around
 the 64-token tiles, every compiled head dim, short and empty prefixes,
 pages smaller than the key tile, and the refusals of the wrapper; for
+the segment mode, spans interleaved with fresh tokens at 16-, 32- and
+64-token pages, partly held pages and null-padded slots; for
 the hybrid's kernels, decode rings that no split divides, GQA with 1 to
 32 kv heads, strided cache views, chunks shorter than 128 and steep
 decays.  Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32
@@ -105,6 +107,111 @@ def test_paged_kernel_and_bitwise_properties(dev, pt):
         one = pk.paged_prefix_rank_attn(q[s], pool, pool, kt[s], vt[s],
                                         plens[s], kn[s], vn[s], n_incr=n_incr)
         assert torch.equal(one[0], got[b])
+
+
+# --- the segment mode: cached spans interleaved with fresh tokens -----------------
+
+SEG_ROWS = [   # ('c', n) a cached span, ('f', n) fresh tokens; 80 fresh per row
+    [("c", 200), ("f", 8), ("c", 37), ("f", 8), ("c", 70), ("f", 64)],
+    [("c", 64), ("f", 16), ("f", 64)],
+    [("f", 4), ("c", 100), ("f", 12), ("c", 1), ("f", 64)],
+    [("c", 129), ("f", 8), ("c", 3), ("f", 8), ("c", 65), ("f", 64)],
+]
+
+
+def _segments(dev, pt, rows=SEG_ROWS, H=4, D=64):
+    """Span tables over a pool of random pages whose K and V pages are
+    distinct and shuffled; the tail of a partly held page is random too
+    (the kernel must not read it), the null page last and zero, and the
+    table one slot wider than the longest row (null-padded slots)."""
+    from repro_torch.kernels.paged_prefix_attn import pack_segments
+    B, Sq = len(rows), sum(n for kind, n in rows[0] if kind == "f")
+    spans, q_pos = [], []
+    for row in rows:
+        pos, sp, fp = 0, [], []
+        for kind, n in row:
+            (sp.append((pos, n)) if kind == "c"
+             else fp.extend(range(pos, pos + n)))
+            pos += n
+        spans.append(sp)
+        q_pos.append(fp)
+    C = max(sum(n for _, n in sp) for sp in spans)
+    rng = np.random.default_rng(pt)
+    kc, vc = (rng.normal(size=(B, H, C, D)).astype(np.float32) for _ in "kv")
+    n_pages = max(sum(-(-n // pt) for _, n in sp) for sp in spans) + 1
+    kp, vp, table, ppos, pval = pack_segments(kc, vc, spans, pt, n_pages)
+    n = kp.shape[0] - 1
+    for pages in (kp, vp):
+        for pid in range(n):           # noise where a page holds nothing
+            held = pval[table == pid].max()
+            pages[pid, held:] = rng.normal(size=pages[pid, held:].shape)
+    perm = rng.permutation(2 * n)
+    pool = np.zeros((2 * n + 1, pt, H, D), np.float32)
+    pool[perm[:n]], pool[perm[n:]] = kp[:n], vp[:n]
+    kt = np.where(table == n, 2 * n, perm[np.minimum(table, n - 1)])
+    vt = np.where(table == n, 2 * n, perm[n + np.minimum(table, n - 1)])
+    on = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    q, kn, vn = (_randn(dev, B, H, Sq, D, seed=9 + i) for i in range(3))
+    return (q, kn, vn, on(pool), on(kt.astype(np.int32)),
+            on(vt.astype(np.int32)), on(ppos), on(pval),
+            on(np.asarray(q_pos, np.int32)))
+
+
+@pytest.mark.parametrize("pt", [16, 32, 64])
+def test_segment_kernel_and_batch_independence(dev, pt):
+    """Ragged rows, interleaved spans, partly held pages and null-padded
+    slots against the plain twin; a row's bits ignore its batch."""
+    q, kn, vn, pool, kt, vt, ppos, pval, qpos = _segments(dev, pt)
+    before = pk.launches_segment
+    got = pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval, qpos, kn,
+                               vn, n_items=64)
+    assert pk.launches_segment == before + 1
+    _close(got, pk.segment_rank_attn_plain(q, pool, pool, kt, vt, ppos, pval,
+                                           qpos, kn, vn, n_items=64))
+    for b in range(q.shape[0]):
+        s = slice(b, b + 1)
+        one = pk.segment_rank_attn(q[s], pool, pool, kt[s], vt[s], ppos[s],
+                                   pval[s], qpos[s], kn[s], vn[s], n_items=64)
+        assert torch.equal(one[0], got[b])
+
+
+@pytest.mark.parametrize("pt", [16, 32, 64])
+def test_segment_kernel_degenerates_to_paged_bitwise(dev, pt):
+    """One span at [0, prefix_len) with the fresh tokens after it is the
+    paged launch, bit for bit (same tiles, values and split)."""
+    lens, n_incr, Sq = [256, 200, 1, 65], 16, 80
+    n_pages = 256 // pt
+    q, kn, vn, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq)
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * pt
+            ).expand(len(lens), n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, pt).int()
+    qpos = (n_pages * pt + torch.arange(Sq, dtype=torch.int32, device=dev)
+            ).expand(len(lens), Sq)
+    paged = pk.paged_prefix_rank_attn(q, pool, pool, kt, vt, plens, kn, vn,
+                                      n_incr=n_incr)
+    seg = pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval, qpos, kn,
+                               vn, n_items=Sq - n_incr)
+    assert torch.equal(seg, paged)
+
+
+def test_segment_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, kn, vn, pool, kt, vt, ppos, pval, qpos = _segments(dev, 64)
+    call = lambda **kw: pk.segment_rank_attn(**{**dict(
+        q=q, k_pages=pool, v_pages=pool, k_table=kt, v_table=vt,
+        page_pos=ppos, page_valid=pval, q_pos=qpos, k_new=kn, v_new=vn,
+        n_items=64), **kw})
+    with pytest.raises(TypeError, match="float32"):
+        call(q=q.bfloat16(), k_new=kn.bfloat16(), v_new=vn.bfloat16())
+    with pytest.raises(ValueError, match="k_pool"):
+        call(k_pages=pool.cpu(), v_pages=pool.cpu())
+    with pytest.raises(ValueError, match="page_pos"):
+        call(page_pos=ppos[:, :-1])
+    with pytest.raises(ValueError, match="page_valid"):
+        call(page_valid=pval.long())
+    with pytest.raises(ValueError, match="q_pos"):
+        call(q_pos=qpos[:, 1:])
+    with pytest.raises(ValueError, match="v_table"):
+        call(v_table=vt[:, :-1])
 
 
 def test_model_on_card_matches_cpu(dev):

@@ -24,6 +24,8 @@ from repro.kernels.decode_attn import decode_attn as pallas_decode_attn
 from repro.kernels.hstu_attn import hstu_attn as pallas_hstu_attn
 from repro.kernels.paged_prefix_attn import (
     paged_prefix_rank_attn as pallas_paged_rank_attn)
+from repro.kernels.paged_prefix_attn import (
+    segment_rank_attn as pallas_segment_rank_attn)
 from repro.kernels.prefix_rank_attn import (
     prefix_rank_attn as pallas_prefix_rank_attn)
 from repro.kernels.ssd_chunk import ssd_chunk_intra as pallas_ssd_intra
@@ -181,6 +183,155 @@ def test_paged_on_live_layout_matches_gather_psi(page_tokens, lens):
         _close(got, want)
 
 
+def _segment_case(patterns, n_items, pt, seed=11, n_pages=None):
+    """``tests/test_kernels.py``'s interleaved case, as numpy float32.
+
+    ``patterns[b]`` is an ordered list of ('c', ln) cached-span / ('f',
+    ln) fresh-token chunks with the same fresh count Sq in every row,
+    the last ``n_items`` fresh tokens the items.  Returns the fresh-token
+    q/k/v, the reference packer's span pool (k_pages, v_pages, table,
+    page_pos, page_valid), q_pos, and the full dense interleaved
+    sequence with its positions (padded rows at a sentinel position)."""
+    from repro.kernels.paged_prefix_attn import pack_segments
+    rng = np.random.default_rng(seed)
+    B, H, D = len(patterns), 2, 64
+    SENTINEL = 1 << 20
+    Sq = sum(ln for kind, ln in patterns[0] if kind == "f")
+    spans, fpos, totals = [], [], []
+    for row in patterns:
+        assert sum(ln for kind, ln in row if kind == "f") == Sq
+        assert row[-1][0] == "f" and row[-1][1] >= n_items
+        pos, sp, fp = 0, [], []
+        for kind, ln in row:
+            if kind == "c":
+                sp.append((pos, ln))
+            else:
+                fp.extend(range(pos, pos + ln))
+            pos += ln
+        spans.append(sp)
+        fpos.append(fp)
+        totals.append(pos)
+    S_max = max(totals)
+    k_full, v_full = _mk(rng, B, H, S_max, D), _mk(rng, B, H, S_max, D)
+    k_pos = np.full((B, S_max), SENTINEL, np.int32)
+    for b, S_b in enumerate(totals):
+        k_pos[b, :S_b] = np.arange(S_b)
+    q = _mk(rng, B, H, Sq, D)
+    q_pos = np.asarray(fpos, np.int32)
+    idx = np.broadcast_to(q_pos[:, None, :, None], (B, H, Sq, D))
+    kn = np.take_along_axis(k_full, idx, axis=2)
+    vn = np.take_along_axis(v_full, idx, axis=2)
+    C_max = max(sum(ln for _, ln in sp) for sp in spans)
+    kc = np.zeros((B, H, C_max, D), np.float32)
+    vc = np.zeros_like(kc)
+    for b, sp in enumerate(spans):
+        off = 0
+        for start, ln in sp:
+            kc[b, :, off:off + ln] = k_full[b, :, start:start + ln]
+            vc[b, :, off:off + ln] = v_full[b, :, start:start + ln]
+            off += ln
+    pages = pack_segments(kc, vc, spans, pt, n_pages=n_pages)
+    return q, kn, vn, pages, q_pos, k_full, v_full, k_pos
+
+
+SEGMENT_PATTERNS = [
+    [("c", 64), ("f", 32), ("c", 64), ("f", 32)],
+    [("c", 30), ("f", 10), ("c", 50), ("f", 22), ("c", 17), ("f", 32)],
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_twin_matches_pallas_and_interleaved_oracle(dtype):
+    """Cached interior spans interleaved with fresh tokens, a different
+    layout in each row of one launch (``tests/test_kernels.py``'s case):
+    the twin matches the Pallas segment kernel in interpret mode and the
+    dense interleaved oracle, in both the reference's and the port's
+    form — a fresh token between two spans must not see the later one."""
+    pt, n_items = 64, 32
+    q, kn, vn, (kp, vp, table, ppos, pval), q_pos, k_full, v_full, k_pos = \
+        _segment_case(SEGMENT_PATTERNS, n_items, pt)
+    nt = table.shape[1] * pt + q.shape[2]
+    (jq, tq), (jkn, tkn), (jvn, tvn), (jkp, tkp), (jvp, tvp) = (
+        _jt(a, dtype) for a in (q, kn, vn, kp, vp))
+    got = paged_prefix_attn.segment_rank_attn(
+        tq, tkp, tvp, _t(table), _t(table), _t(ppos), _t(pval), _t(q_pos),
+        tkn, tvn, n_items=n_items)
+    assert got.dtype == tq.dtype
+    tol = TOL if dtype == "float32" else TOL_BF16
+    want = pallas_segment_rank_attn(
+        jq, jkp, jvp, *map(jnp.asarray, (table, ppos, pval, q_pos)), jkn,
+        jvn, n_items=n_items, bq=32, bk=pt, n_total=nt, interpret=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    oracle = jref.segment_rank_attn_ref(q, k_full, v_full, q_pos=q_pos,
+                                        k_pos=k_pos, n_items=n_items,
+                                        n_total=nt)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(oracle), **tol)
+    dense = ref.segment_rank_attn_ref(
+        _t(q), _t(k_full), _t(v_full), q_pos=_t(q_pos), k_pos=_t(k_pos),
+        n_items=n_items, n_total=nt)
+    _close(dense, oracle)
+
+
+@pytest.mark.parametrize("plens,bucket,pt", [([128, 128], 128, 64),
+                                             ([100, 37, 128], 128, 64),
+                                             ([100, 37, 128], 128, 32)])
+def test_segment_twin_degenerates_to_paged_bitwise(plens, bucket, pt):
+    """One span at [0, prefix_len) with the fresh tokens after it: every
+    mask bit is the paged kernel's, so the segment twin equals the
+    port's paged twin bit for bit, and both the Pallas segment kernel
+    within the f32 tolerance."""
+    n_incr, n_items = 32, 32
+    Sq = n_incr + n_items
+    q, kp, vp, kn, vn, (kpg, vpg, table, pl_) = _paged_case(
+        plens, bucket, pt, n_incr, n_items)
+    paged = paged_prefix_attn.paged_prefix_rank_attn(
+        _t(q), _t(kpg), _t(vpg), _t(table), _t(table), _t(pl_), _t(kn),
+        _t(vn), n_incr=n_incr)
+    spans = [[(0, int(p))] for p in plens]
+    skp, svp, stab, ppos, pval = paged_prefix_attn.pack_segments(
+        kp, vp, spans, pt, n_pages=bucket // pt)
+    q_pos = np.asarray(plens, np.int32)[:, None] + np.arange(Sq,
+                                                             dtype=np.int32)
+    got = paged_prefix_attn.segment_rank_attn(
+        _t(q), _t(skp), _t(svp), _t(stab), _t(stab), _t(ppos), _t(pval),
+        _t(q_pos), _t(kn), _t(vn), n_items=n_items)
+    assert got.numpy().tobytes() == paged.numpy().tobytes()
+    want = pallas_segment_rank_attn(
+        *map(jnp.asarray, (q, skp, svp, stab, ppos, pval, q_pos, kn, vn)),
+        n_items=n_items, bq=32, bk=pt, n_total=bucket + Sq, interpret=True)
+    _close(got, want)
+
+
+def test_pack_segments_matches_reference_packer():
+    from repro.kernels.paged_prefix_attn import pack_segments as jpack
+    rng = np.random.default_rng(6)
+    kc, vc = _mk(rng, 2, 2, 120, 64), _mk(rng, 2, 2, 120, 64)
+    spans = [[(0, 50), (60, 30), (100, 40)], [(0, 7), (20, 64)]]
+    for pt in (16, 64):
+        for a, b in zip(paged_prefix_attn.pack_segments(kc, vc, spans, pt),
+                        jpack(kc, vc, spans, pt)):
+            assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+def test_segment_ops_model_layout():
+    """ops.segment_rank_attention takes the model layout (B, S, H, D)
+    and one pool for K and V, as ``rank_with_segments`` calls it."""
+    pt, n_items = 64, 32
+    q, kn, vn, (kp, vp, table, ppos, pval), q_pos, _, _, _ = \
+        _segment_case(SEGMENT_PATTERNS, n_items, pt)
+    pool = np.concatenate([kp[:-1], vp])            # K pages, V pages, null
+    n_k = kp.shape[0] - 1
+    vt = np.where(table == n_k, pool.shape[0] - 1, table + n_k).astype(np.int32)
+    got = ops.segment_rank_attention(
+        *(_t(np.swapaxes(a, 1, 2)) for a in (q, kn, vn)), _t(pool),
+        _t(table), _t(vt), _t(ppos), _t(pval), _t(q_pos), n_items=n_items)
+    want = paged_prefix_attn.segment_rank_attn(
+        _t(q), _t(kp), _t(vp), _t(table), _t(table), _t(ppos), _t(pval),
+        _t(q_pos), _t(kn), _t(vn), n_items=n_items)
+    assert torch.equal(got, want.transpose(1, 2))
+
+
 def test_rank_mask_matches_reference_and_model():
     from repro.models.hstu import rank_mask as jmask
     from repro_torch.models.hstu import rank_mask
@@ -211,17 +362,27 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     any other device goes to the kernel launcher, which refuses what is
     not CUDA — there is no silent fallback."""
     before = (hstu_attn.launches, prefix_rank_attn.launches,
-              paged_prefix_attn.launches)
+              paged_prefix_attn.launches, paged_prefix_attn.launches_segment)
     q = torch.zeros(1, 1, 4, 32)
     hstu_attn.hstu_attn(q, q, q)
     prefix_rank_attn.prefix_rank_attn_split(q, q, q, q, q, n_incr=2)
+    pool = torch.zeros(2, 4, 1, 32)
+    rows = torch.zeros(1, 1, dtype=torch.int32)
+    qpos = torch.arange(4, dtype=torch.int32)[None]
+    paged_prefix_attn.segment_rank_attn(q, pool, pool, rows, rows, rows,
+                                        rows, qpos, q, q, n_items=2)
     assert (hstu_attn.launches, prefix_rank_attn.launches,
-            paged_prefix_attn.launches) == before
+            paged_prefix_attn.launches,
+            paged_prefix_attn.launches_segment) == before
     m = torch.zeros(1, 1, 4, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         hstu_attn.hstu_attn(m, m, m)
     with pytest.raises(ValueError, match="CUDA"):
         prefix_rank_attn.prefix_rank_attn_split(m, m, m, m, m, n_incr=2)
+    mp, mr = pool.to("meta"), rows.to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_prefix_attn.segment_rank_attn(m, mp, mp, mr, mr, mr, mr,
+                                            qpos.to("meta"), m, m, n_items=2)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -247,6 +408,10 @@ def test_ctypes_params_mirror_the_cuda_struct():
         names += [re.sub(r"\[.*\]", "", n.strip().lstrip("*")).split()[-1]
                   for n in decl.split(",")]
     assert names == [f[0] for f in cuda_lib.RankAttnParams._fields_]
+    # the segment mode's tables, their row strides and its flag
+    for name in ("page_pos", "pp_stride", "page_valid", "pv_stride",
+                 "q_pos", "qp_stride", "segment"):
+        assert name in names
 
 
 # --- the hybrid's kernels: decode_attn and the SSD chunk stages ------------------

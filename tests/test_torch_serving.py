@@ -28,6 +28,7 @@ import torch
 import repro.core as jcore
 import repro_torch.core as tcore
 from repro.core.cache import PagedHBMStore as JPagedStore
+from repro.core.types import reuse_spans
 from repro.data.synthetic import UserBehaviorStore, WorkloadConfig
 from repro.models import build_model as jbuild
 from repro.models import get_config as jget
@@ -102,11 +103,11 @@ def test_pre_infer_rank_cached_and_rank_full_match(live, name):
         _close(tf, jf)
 
 
-def _paged(ex, store_cls, psi, meta):
+def _paged(ex, store_cls, psi, meta, spans=None):
     layout = ex.page_layout
     hbm = store_cls(64 * layout.entry_bytes(512), layout)
     hbm.insert(meta.user_id, psi, kv_nbytes(psi), 0.0,
-               prefix_len=meta.prefix_len)
+               prefix_len=meta.prefix_len, spans=spans)
     return hbm, hbm.acquire_value(hbm.entries[meta.user_id])
 
 
@@ -155,6 +156,136 @@ def test_rank_group_matches(live, kind):
     assert len(ts) == len(js) == len(metas)
     for a, b in zip(ts, js):
         _close(a, b)
+
+
+# --- beyond-prefix segment reuse: the --segments paged path -------------------
+
+SEG_LENS = (3, 2)       # interior segments within the 8 incr tokens
+
+
+def _segment_launches(monkeypatch):
+    """Count the segment twin's calls: on the CPU the wrapper runs it
+    in place of the kernel (and counts no launch)."""
+    from repro_torch.kernels import paged_prefix_attn as pk
+    calls = []
+    plain = pk.segment_rank_attn_plain
+    monkeypatch.setattr(pk, "segment_rank_attn_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    return calls
+
+
+def _span_psi(jex, tex, meta):
+    """Both packages' paged psi of a span-carrying entry, inserted with
+    the spans ``reuse_spans`` gives the runtime."""
+    spans = reuse_spans(meta)
+    jpsi, _, _ = jex.pre_infer(meta)
+    tpsi, _, _ = tex.pre_infer(meta)
+    _, jpaged = _paged(jex, JPagedStore, jpsi, meta, spans)
+    thbm, tpaged = _paged(tex, PagedHBMStore, tpsi, meta, spans)
+    assert tpaged.spans == spans and tpaged.n_tokens == jpaged.n_tokens
+    return jpaged, tpaged, thbm
+
+
+@pytest.mark.parametrize("page_tokens", [32, 64])
+@pytest.mark.parametrize("name", ["live", "batched"])
+def test_rank_cached_segments_match(live, name, page_tokens, monkeypatch):
+    """``--segments``: the reference ranks a span-carrying entry by
+    gathering its whole table (zero interior spans); the port reads the
+    same pages through the segment kernel's span tables.  Prefixes of
+    120 and 473 tokens (not multiples of 64): at 32-token pages the
+    value's 64-token prefill grid overhangs the prefix span.  Both match
+    the reference, and the port's paged-prefix route."""
+    jex, tex = _executors(live, name, page_tokens=page_tokens,
+                          segments=True)
+    _, kex = _executors(live, name, page_tokens=page_tokens)
+    calls = _segment_launches(monkeypatch)
+    for meta in live[4]:
+        meta = dataclasses.replace(meta, seg_lens=SEG_LENS)
+        assert meta.prefix_len % 64
+        jpaged, tpaged, _ = _span_psi(jex, tex, meta)
+        js, _ = jex.rank_cached(meta, jpaged)
+        n = len(calls)
+        ts, _ = tex.rank_cached(meta, tpaged)
+        assert len(calls) == n + tex.model.cfg.n_layers
+        _close(ts, js)
+        ks, _ = kex.rank_cached(meta, tpaged)
+        assert len(calls) == n + tex.model.cfg.n_layers
+        _close(ts, ks.numpy())
+
+
+@pytest.mark.parametrize("page_tokens", [32, 64])
+def test_rank_group_segments_match(live, page_tokens, monkeypatch):
+    """One group mixing a span-carrying and a prefix-only entry takes
+    one segment launch per layer (the prefix-only member is a single
+    run), and matches the reference's group and the port's
+    paged-prefix group."""
+    jex, tex = _executors(live, "batched", page_tokens=page_tokens,
+                          segments=True)
+    _, kex = _executors(live, "batched", page_tokens=page_tokens)
+    calls = _segment_launches(monkeypatch)
+    metas = [dataclasses.replace(live[4][0], seg_lens=SEG_LENS), live[4][1]]
+    jgroup, tgroup = [], []
+    for meta in metas:
+        jpaged, tpaged, _ = _span_psi(jex, tex, meta)
+        jgroup.append(JPending(user_id=meta.user_id, psi=jpaged,
+                               prefix_len=meta.prefix_len, meta=meta))
+        tgroup.append(PendingRank(user_id=meta.user_id, psi=tpaged,
+                                  prefix_len=meta.prefix_len, meta=meta))
+    js, _ = jex.rank_group(jgroup)
+    ts, _ = tex.rank_group(tgroup)
+    assert len(calls) == tex.model.cfg.n_layers
+    ks, _ = kex.rank_group(tgroup)
+    for a, b, c in zip(ts, js, ks):
+        _close(a, b)
+        _close(a, c.numpy())
+
+
+@pytest.mark.parametrize("page_tokens", [32, 64])
+def test_span_rows_survive_spill_and_reload(live, page_tokens):
+    """A spilled span-carrying entry (materialized off the pool) that is
+    inserted again gives the same table width, the same span rows and
+    the same scores."""
+    from repro_torch.core.paging import span_page_rows
+    jex, tex = _executors(live, "live", page_tokens=page_tokens,
+                          segments=True)
+    meta = dataclasses.replace(live[4][1], seg_lens=SEG_LENS)
+    _, tpaged, thbm = _span_psi(jex, tex, meta)
+    pos, valid = span_page_rows(tpaged)
+    pt = page_tokens
+    # the prefix run covers the 64-token prefill grid, then one run per
+    # interior span at its global start
+    n_head = -(-meta.prefix_len // 64) * 64 // pt
+    assert list(pos[:n_head]) == [i * pt for i in range(n_head)]
+    assert list(pos[n_head:]) == [s for s, _ in tpaged.spans[1:]]
+    assert list(valid[n_head:]) == list(SEG_LENS)
+    spilled = tpaged.materialize()
+    thbm.pop(meta.user_id)
+    _, again = _paged(tex, PagedHBMStore, spilled, meta, tpaged.spans)
+    assert again.table.shape == tpaged.table.shape
+    assert again.n_tokens == tpaged.n_tokens
+    for a, b in zip(span_page_rows(again), (pos, valid)):
+        assert np.array_equal(a, b)
+    s0, _ = tex.rank_cached(meta, tpaged)
+    s1, _ = tex.rank_cached(meta, again)
+    assert torch.equal(s0, s1)
+
+
+def test_span_rows_of_prefix_only_and_partly_resident_psi():
+    """No spans: one run (0, n_tokens).  Slots past n_tokens hold
+    nothing; runs that do not fit the table raise."""
+    from repro_torch.core.paging import PagedPsi, span_page_rows
+    layout = PageLayout(page_tokens=16, slabs=2, token_bytes=8)
+    table = np.zeros((2, 5), np.int32)
+    pos, valid = span_page_rows(PagedPsi(table, 70, layout, None))
+    assert list(pos) == [0, 16, 32, 48, 64]
+    assert list(valid) == [16, 16, 16, 16, 6]
+    psi = PagedPsi(table, 40, layout, None, spans=((0, 30), (40, 20)))
+    pos, valid = span_page_rows(psi)
+    assert list(pos) == [0, 16, 32, 40, 56]
+    assert list(valid) == [16, 16, 8, 0, 0]
+    with pytest.raises(ValueError, match="pages"):
+        span_page_rows(PagedPsi(table, 80, layout, None,
+                                spans=((0, 60), (70, 40))))
 
 
 def test_batched_rank_executor_matches(live):
@@ -382,19 +513,28 @@ def test_sim_records_identical(cluster):
                                    ["--batched", "--page-tokens", "64"],
                                    ["--batched", "--device-pool"],
                                    ["--segments", "--page-tokens", "64"],
+                                   ["--segments", "--batched"],
+                                   ["--segments", "--device-pool"],
+                                   ["--segments", "--batched",
+                                    "--device-pool"],
                                    ["--hosts", "2"], ["--prefill-hosts", "1"],
                                    ["--tenants", "2"]],
                          ids=["live", "batched", "paged", "device-pool",
-                              "segments", "hosts-2", "prefill-hosts-1",
-                              "tenants-2"])
+                              "segments", "segments-batched",
+                              "segments-device-pool",
+                              "segments-batched-device-pool", "hosts-2",
+                              "prefill-hosts-1", "tenants-2"])
 def test_serve_main_modes_on_cpu(flags, capsys):
     hits = serve.main(["--device", "cpu", "--requests", "12", *flags])
     assert hits.get("hbm_hit", 0) >= 1
     assert sum(hits.values()) == 12
+    out = capsys.readouterr().out
     if "--device-pool" in flags:
-        out = capsys.readouterr().out
         assert '"launch_reships": 0' in out
         assert '"device_resident": true' in out
+    if "--segments" in flags:
+        # the CPU runs the twins, which count no kernel launch
+        assert '"segment_rank_attn": 0' in out
 
 
 def test_serve_flags():
