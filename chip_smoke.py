@@ -37,10 +37,11 @@ Phases, each fatal on failure (nothing is caught):
      path's shapes and at ragged ones (a ring no split divides, GQA with
      KV in {1, 8, 32} at H 32, one chunk of Q = L < 128) — float32 within
      3e-4 + 3e-4|plain|, bf16 decode within 2**-6 of the largest |plain|
-     (about two bf16 ulps; a kernel writing zeros fails) — timed beside
-     their bound and the one PyTorch call that computes the same
-     function; then 2 prompts x 8192 tokens through ``make_prefill_step``
-     and 32 greedy steps through ``make_serve_step``, counters zeroed
+     (about two bf16 ulps; a kernel writing zeros fails), two calls bit
+     for bit equal — timed beside their bound and, in turns with the
+     kernel, the one PyTorch call that computes the same function;
+     then 2 prompts x 8192 tokens through ``make_prefill_step`` and 32
+     greedy steps through ``make_serve_step``, counters zeroed
      just before each and read just after (38 + 38 SSD launches per
      prefill, 6 decode launches per step); a profile of one prefill and
      one decode step; and card vs CPU logits for a float32 copy at full
@@ -59,6 +60,7 @@ import argparse
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -543,16 +545,25 @@ def hybrid_kernel_checks(torch, results):
         return e
 
     def record(name, shape, e, fn, plain, flops, nbytes, library=None):
-        ms = _time_ms(torch, fn)
+        # kernel and library call in turns (K L L K, twice), the median of
+        # each: the library's time moves between calls, so the two are
+        # compared only within one
+        runs = {"kernel": [], "library": []}
+        order = ("kernel", "library", "library", "kernel") * 2
+        for who in order:
+            f = fn if who == "kernel" else library
+            if f is not None:
+                runs[who].append(_time_ms(torch, f))
+        ms = statistics.median(runs["kernel"])
+        lib_ms = statistics.median(runs["library"]) if runs["library"] else None
         plain_ms = _time_ms(torch, plain, 5)
-        lib_ms = _time_ms(torch, library) if library is not None else None
         bound_ms, by = _bound(flops, nbytes)
         results[name]["shapes"].append(dict(
             shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound_ms, bound_by=by, max_abs_err=e))
+            bound_ms=bound_ms, bound_by=by, max_abs_err=e, runs=runs))
         log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms library {lib_ms} ms bound {bound_ms:.4f} ms "
-            f"({by})")
+            f"({by}); turns {runs}")
 
     # SSD stages: the prefill's shape (64 chunks of 128, H = P = N = 64)
     # and one ragged chunk (Q = L = 100 < 128)
@@ -574,8 +585,11 @@ def hybrid_kernel_checks(torch, results):
                lambda: sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc),
                lambda: sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc),
                flops, nbytes)
-        e = check("ssd_chunk_state", sk.ssd_chunk_state(Bc, xc, cum, dtc),
+        got = sk.ssd_chunk_state(Bc, xc, cum, dtc)
+        e = check("ssd_chunk_state", got,
                   sk.ssd_chunk_state_ref(Bc, xc, cum, dtc))
+        assert torch.equal(sk.ssd_chunk_state(Bc, xc, cum, dtc), got), \
+            "ssd_chunk_state: two calls differ"
         w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
         flops = B * nc * H * (2 * Q * N * P + 3 * Q)
         nbytes = 4 * (B * nc * Q * N + B * nc * Q * H * P + 2 * B * nc * Q * H
@@ -589,7 +603,7 @@ def hybrid_kernel_checks(torch, results):
                                             Bc, w, xc))
 
     # decode: the path's ring (S = 8192 after prefill, KV = H = 32, bf16,
-    # one section of the stacked cache), rings no 128-key split divides,
+    # one section of the stacked cache), rings no 64-key tile divides,
     # and GQA with 8 and 1 kv heads; float32 at the path's shape too
     H, D = 32, 64
     for S, KV, dtype in ((HYB_S, 32, torch.bfloat16), (HYB_S, 32, torch.float32),
@@ -604,7 +618,10 @@ def hybrid_kernel_checks(torch, results):
         want = dk.decode_attn_plain(q, k, v)
         atol, rtol = (TOL, TOL) if dtype == torch.float32 else \
             (BF16_REL * want.float().abs().max().item(), 0.0)
-        e = check("decode_attn", dk.decode_attn(q, k, v), want, atol, rtol)
+        got = dk.decode_attn(q, k, v)
+        e = check("decode_attn", got, want, atol, rtol)
+        assert torch.equal(dk.decode_attn(q, k, v), got), \
+            "decode_attn: two calls differ"
         esz = k.element_size()
         flops = 4 * HYB_B * H * S * D + 5 * HYB_B * H * S
         nbytes = esz * (2 * HYB_B * S * KV * D + 2 * HYB_B * H * D)

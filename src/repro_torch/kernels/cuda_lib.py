@@ -16,6 +16,7 @@ from a launch raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -139,9 +140,9 @@ class DecodeParams(ctypes.Structure):
         ("k", ctypes.c_void_p), ("k_stride", _S3),
         ("v", ctypes.c_void_p), ("v_stride", _S3),
         ("out", ctypes.c_void_p), ("o_stride", _S2),
-        ("part", ctypes.c_void_p),
         ("B", ctypes.c_int), ("H", ctypes.c_int), ("KV", ctypes.c_int),
         ("S", ctypes.c_int), ("D", ctypes.c_int), ("n_split", ctypes.c_int),
+        ("keys_per_split", ctypes.c_int), ("heads_per_block", ctypes.c_int),
         ("dtype", ctypes.c_int), ("scale", ctypes.c_float),
     ]
 
@@ -169,7 +170,10 @@ def library() -> ctypes.CDLL:
                                    f"between Python and the CUDA source")
         lib.hstu_rank_attn_error.argtypes = [ctypes.c_int]
         lib.hstu_rank_attn_error.restype = ctypes.c_char_p
-        lib.decode_attn_keys_per_split.restype = ctypes.c_int
+        lib.decode_attn_max_splits.restype = ctypes.c_int
+        if lib.decode_attn_max_splits() != DECODE_MAX_SPLITS:
+            raise RuntimeError("DECODE_MAX_SPLITS differs between Python "
+                               "and the CUDA source")
         _LIB = lib
     return _LIB
 
@@ -322,7 +326,8 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
 
 SSD_HEAD_DIMS = (32, 64, 128)
 SSD_MAX_CHUNK = 128
-SSD_HEADS_PER_BLOCK = 16
+SSD_HEADS_PER_BLOCK = 16         # ssd_chunk_intra: C B^T shared by 16 heads
+SSD_STATE_HEADS_PER_BLOCK = 32   # ssd_chunk_state: B and weights shared by 32
 
 
 def _f32_view(t: torch.Tensor, name: str, dims: int, device) -> torch.Tensor:
@@ -371,7 +376,8 @@ def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
                   cum=cum.data_ptr(), cum_stride=SsdParams._S4(*cum.stride()),
                   dt=dtc.data_ptr(), dt_stride=SsdParams._S4(*dtc.stride()),
                   B=B, nc=nc, Q=Q, H=H, N=N, P=P,
-                  heads_per_block=min(H, SSD_HEADS_PER_BLOCK))
+                  heads_per_block=min(H, SSD_HEADS_PER_BLOCK if kind == "intra"
+                                      else SSD_STATE_HEADS_PER_BLOCK))
     if kind == "intra":
         Cc = _f32_view(Cc, "Cc", 4, device)
         if Cc.shape != Bc.shape:
@@ -391,6 +397,93 @@ def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
 
 DECODE_HEAD_DIMS = (32, 64, 128)
 _DECODE_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_MAX_SPLITS = 8       # the splits of a row form one cluster (MAX_SPLITS)
+# the plan puts at most this many blocks on an SM: at the Zamba2 ring on
+# the H100 one block per SM (2 splits) is the only split count that beats
+# SDPA, warm and cold (tools/decode_split_sweep.py, PERF.md)
+DECODE_BLOCKS_PER_SM = 1
+DECODE_KEY_ALIGN = 64       # keys per split is a multiple of this
+_SM_COUNT = {}
+
+
+def decode_heads_per_block(G: int) -> int:
+    """Query heads of one kv head that a partial block holds (1, 2 or 4);
+    ``ceil(G / that)`` blocks share each (b, kv head, split)."""
+    return 1 if G == 1 else 2 if G == 2 else 4
+
+
+def decode_split_plan(B: int, KV: int, S: int, n_sm: int,
+                      head_groups: int = 1) -> tuple[int, int]:
+    """(n_split, keys_per_split) for a decode over S keys: split i covers
+    keys [i * keys_per_split, min(S, (i + 1) * keys_per_split)).  As many
+    splits as keep the B * KV * head_groups rows within
+    DECODE_BLOCKS_PER_SM blocks on each of ``n_sm`` SMs (one wave, no SM
+    with more runs than another), at most DECODE_MAX_SPLITS,
+    keys_per_split a multiple of DECODE_KEY_ALIGN, and no split empty.
+    Depends on the shapes and the card only, never on the data."""
+    if min(B, KV, S, n_sm, head_groups) < 1:
+        raise ValueError(f"decode_split_plan needs positive sizes, got "
+                         f"B={B} KV={KV} S={S} n_sm={n_sm} "
+                         f"head_groups={head_groups}")
+    rows = B * KV * head_groups
+    n = max(1, min(DECODE_BLOCKS_PER_SM * n_sm // rows, DECODE_MAX_SPLITS,
+                   -(-S // DECODE_KEY_ALIGN)))
+    kps = -(-S // n)
+    kps = -(-kps // DECODE_KEY_ALIGN) * DECODE_KEY_ALIGN
+    return -(-S // kps), kps
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_template(dtype, device, q_meta, k_meta, v_meta):
+    """Check a decode call's types, devices, shapes and strides (each
+    ``*_meta`` is (dtype, device, shape, strides)) and return its launch
+    template: DecodeParams without the pointers.  Raises on what the
+    kernel does not take; cached, so a decode loop pays for the checks and
+    the plan once per shape."""
+    if dtype not in _DECODE_TYPES:
+        raise TypeError(f"decode_attn takes float32 or bfloat16, got {dtype}")
+    q_shape, k_shape, v_shape = q_meta[2], k_meta[2], v_meta[2]
+    if len(q_shape) != 3 or len(k_shape) != 4 or k_shape != v_shape:
+        raise ValueError(f"need q (B, H, D) and k, v (B, S, KV, D), got "
+                         f"{tuple(q_shape)} / {tuple(k_shape)} / "
+                         f"{tuple(v_shape)}")
+    B, H, D = q_shape
+    _, S, KV, _ = k_shape
+    if D not in DECODE_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not compiled (have {DECODE_HEAD_DIMS})")
+    if k_shape[0] != B or k_shape[3] != D or S < 1 or H % KV:
+        raise ValueError(f"cache {tuple(k_shape)} does not fit q "
+                         f"{tuple(q_shape)} (need H % KV == 0)")
+    vec = 16 // dtype.itemsize
+    for name, (t_dtype, t_device, _, stride) in (("q", q_meta), ("k", k_meta),
+                                                  ("v", v_meta)):
+        if t_dtype != dtype or t_device != device:
+            raise ValueError(f"{name}: need {dtype} on {device}, got "
+                             f"{t_dtype} on {t_device}")
+        if stride[-1] != 1 or any(st % vec for st in stride[:-1]):
+            raise ValueError(f"{name}: need a unit last stride and 16-byte "
+                             f"aligned rows, got strides {stride}")
+    gh = decode_heads_per_block(H // KV)
+    n_split, kps = decode_split_plan(B, KV, S, _sm_count(device),
+                                     -(-(H // KV) // gh))
+    q_stride, k_stride, v_stride = q_meta[3], k_meta[3], v_meta[3]
+    tmpl = DecodeParams(
+        q_stride=DecodeParams._S2(*q_stride[:2]),
+        k_stride=DecodeParams._S3(*k_stride[:3]),
+        v_stride=DecodeParams._S3(*v_stride[:3]),
+        o_stride=DecodeParams._S2(H * D, D), B=B, H=H, KV=KV, S=S, D=D,
+        n_split=n_split, keys_per_split=kps, heads_per_block=gh,
+        dtype=_DECODE_TYPES[dtype], scale=1.0 / float(D) ** 0.5)
+    return bytes(tmpl)
 
 
 def decode_attn(q, k, v) -> torch.Tensor:
@@ -401,38 +494,14 @@ def decode_attn(q, k, v) -> torch.Tensor:
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"decode_attn launches on CUDA tensors, got {device}")
-    if q.dtype not in _DECODE_TYPES:
-        raise TypeError(f"decode_attn takes float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B, H, D) and k, v (B, S, KV, D), got "
-                         f"{tuple(q.shape)} / {tuple(k.shape)} / "
-                         f"{tuple(v.shape)}")
-    B, H, D = q.shape
-    _, S, KV, _ = k.shape
-    if D not in DECODE_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not compiled (have {DECODE_HEAD_DIMS})")
-    if k.shape[0] != B or k.shape[3] != D or S < 1 or H % KV:
-        raise ValueError(f"cache {tuple(k.shape)} does not fit q "
-                         f"{tuple(q.shape)} (need H % KV == 0)")
-    vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != device:
-            raise ValueError(f"{name}: need {q.dtype} on {device}, got "
-                             f"{t.dtype} on {t.device}")
-        if t.stride(-1) != 1 or t.data_ptr() % 16 \
-                or any(s % vec for s in t.stride()[:-1]):
-            raise ValueError(f"{name}: need a unit last stride and 16-byte "
-                             f"aligned rows, got strides {t.stride()}")
-    n_split = -(-S // library().decode_attn_keys_per_split())
-    part = torch.empty((B, H, n_split, D + 2), dtype=torch.float32,
-                       device=device)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=device)
-    p = DecodeParams(
-        q=q.data_ptr(), q_stride=DecodeParams._S2(*q.stride()[:2]),
-        k=k.data_ptr(), k_stride=DecodeParams._S3(*k.stride()[:3]),
-        v=v.data_ptr(), v_stride=DecodeParams._S3(*v.stride()[:3]),
-        out=out.data_ptr(), o_stride=DecodeParams._S2(*out.stride()[:2]),
-        part=part.data_ptr(), B=B, H=H, KV=KV, S=S, D=D, n_split=n_split,
-        dtype=_DECODE_TYPES[q.dtype], scale=1.0 / float(D) ** 0.5)
+    meta = lambda t: (t.dtype, t.device, t.shape, t.stride())
+    tmpl = _decode_template(q.dtype, device, meta(q), meta(k), meta(v))
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+        raise ValueError("q, k, v: need 16-byte aligned rows (a view's "
+                         "first element is not 16-byte aligned)")
+    out = torch.empty(q.shape, dtype=q.dtype, device=device)
+    p = DecodeParams.from_buffer_copy(tmpl)
+    p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    p.out = out.data_ptr()
     _launch("decode_attn", p, device)
     return out

@@ -10,10 +10,12 @@ the 64-token tiles, every compiled head dim, short and empty prefixes,
 pages smaller than the key tile, and the refusals of the wrapper; for
 the segment mode, spans interleaved with fresh tokens at 16-, 32- and
 64-token pages, partly held pages and null-padded slots; for
-the hybrid's kernels, decode rings that no split divides, GQA with 1 to
-32 kv heads, strided cache views, chunks shorter than 128 and steep
-decays.  Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32
-kernel tolerance.  The bfloat16 decode is held to 2**-6 of the largest
+the hybrid's kernels, decode rings around the key tile, the ring and
+the split, GQA with 1 to 32 kv heads, strided cache views, a batch that
+gives each (b, kv) one split, repeat calls bit for bit, chunks shorter
+than 128, state head groups around 32 heads and steep decays.
+Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
+tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
 in float32 and rounds once, and at S = 8192 the outputs are ~0.02, so
 the 6e-2 of ``tests/test_kernels.py`` would pass a kernel writing zeros.
@@ -247,12 +249,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
 # --- the hybrid's kernels -------------------------------------------------------
 
 
-@pytest.mark.parametrize("S", [1, 127, 129, 1000, 8192])
+def _decode_close(got, want):
+    if got.dtype == torch.float32:
+        _close(got, want.float())
+    else:
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=0,
+                                   atol=2 ** -6 * want.abs().max().item())
+
+
+# S around the key tile (64 keys in bf16, 32 in float32 at D 64), the
+# 4-tile ring (256 / 128 keys) and a 64-key split; 1 and 8192 as on the path
+@pytest.mark.parametrize("S", [1, 31, 33, 63, 65, 127, 129, 255, 257, 1000,
+                               8192])
 @pytest.mark.parametrize("KV", [1, 8, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attn_kernel(dev, S, KV, dtype):
-    """H = 32 query heads over a ring of S slots in the model layout,
-    the cache one section of a stacked (n_sec, B, S, KV, D) buffer."""
+    """H = 32 query heads (G = 32, 4, 1) over a ring of S slots in the
+    model layout, the cache one section of a stacked (n_sec, B, S, KV, D)
+    buffer."""
     B, H, D = 2, 32, 64
     q = _randn(dev, B, H, D, seed=1).to(dtype)
     k = _randn(dev, 3, B, S, KV, D, seed=2).to(dtype)[1]
@@ -261,12 +276,30 @@ def test_decode_attn_kernel(dev, S, KV, dtype):
     got = dk.decode_attn(q, k, v)
     assert dk.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, H, D)
-    want = dk.decode_attn_plain(q, k, v).float()
-    if dtype == torch.float32:
-        _close(got, want)
-    else:
-        torch.testing.assert_close(got.float(), want, rtol=0,
-                                   atol=2 ** -6 * want.abs().max().item())
+    _decode_close(got, dk.decode_attn_plain(q, k, v))
+
+
+@pytest.mark.parametrize("case", ["one-split-per-row", "short-ring", "path"])
+def test_decode_attn_split_plan_edges_are_exact_and_deterministic(dev, case):
+    """The plan's edges on this card: rows enough that every (b, kv) gets
+    a single split; a ring shorter than one split; the path's shape with
+    a handful of splits per row.  Two calls give the same bits."""
+    from repro_torch.kernels import cuda_lib
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    KV, D = 32, 64
+    target = cuda_lib.DECODE_BLOCKS_PER_SM * n_sm
+    B, S = {"one-split-per-row": (-(-target // KV), 1000),
+            "short-ring": (2, cuda_lib.DECODE_KEY_ALIGN - 1),
+            "path": (2, 8192)}[case]
+    n_split, _ = cuda_lib.decode_split_plan(B, KV, S, n_sm)
+    assert (n_split == 1) == (case != "path")
+    assert case != "path" or 2 <= n_split <= 16
+    q = _randn(dev, B, KV, D, seed=11).bfloat16()
+    k = _randn(dev, B, S, KV, D, seed=12).bfloat16()
+    v = _randn(dev, B, S, KV, D, seed=13).bfloat16()
+    got = dk.decode_attn(q, k, v)
+    _decode_close(got, dk.decode_attn_plain(q, k, v))
+    assert torch.equal(dk.decode_attn(q, k, v), got)
 
 
 @pytest.mark.parametrize("D", [32, 128])
@@ -295,10 +328,14 @@ def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False):
     return Cc, Bc, xc, cum, dt
 
 
+# the state kernel's head group is 32 (31, 33 around it); 8 x 8 thread
+# tiles of 1 to 32 heads per round (N x P from 16 x 32 to 128 x 128, and
+# N 48, where 256 threads hold 5 heads); Q = 1, 100 and 128
 @pytest.mark.parametrize("B,nc,Q,H,P,N", [
     (2, 4, 128, 64, 64, 64), (2, 2, 128, 4, 64, 64), (2, 2, 128, 2, 128, 32),
     (2, 2, 128, 8, 64, 16), (1, 1, 100, 8, 32, 16), (2, 1, 1, 17, 64, 64),
-    (1, 3, 64, 20, 64, 128)])
+    (1, 3, 64, 20, 64, 128), (1, 2, 128, 31, 64, 64), (1, 2, 128, 33, 64, 64),
+    (1, 2, 128, 3, 128, 128), (1, 1, 77, 5, 64, 48), (1, 2, 100, 40, 32, 16)])
 def test_ssd_chunk_kernels(dev, B, nc, Q, H, P, N):
     Cc, Bc, xc, cum, dt = _ssd_inputs(dev, B, nc, Q, H, P, N)
     before = (sk.launches_intra, sk.launches_state)
@@ -307,6 +344,7 @@ def test_ssd_chunk_kernels(dev, B, nc, Q, H, P, N):
     assert (sk.launches_intra, sk.launches_state) == (before[0] + 1, before[1] + 1)
     _close(y, sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dt))
     _close(s, sk.ssd_chunk_state_ref(Bc, xc, cum, dt))
+    assert torch.equal(sk.ssd_chunk_state(Bc, xc, cum, dt), s)
 
 
 def test_ssd_chunk_intra_steep_decay_is_finite(dev):

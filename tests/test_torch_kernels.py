@@ -459,6 +459,60 @@ def test_cache_decode_attention_model_layout(S):
     _close(got, jcache_decode(*map(jnp.asarray, (q, k, v))))
 
 
+# (B, KV, S, n_sm, head_groups): the Zamba2 ring on an H100 and on a
+# smaller card, rings shorter than a split, ragged and huge rings, rows
+# enough that a (b, kv) gets one split, GQA head groups, tiny cards
+PLAN_CASES = [(2, 32, 8192, 132, 1), (2, 32, 8192, 114, 1),
+              (2, 32, 1, 132, 1), (2, 32, 63, 132, 1), (2, 32, 65, 132, 1),
+              (2, 32, 8192 + 37, 132, 1), (16, 32, 1000, 132, 1),
+              (25, 32, 1000, 132, 1), (2, 8, 8192, 132, 1),
+              (2, 1, 777, 132, 8), (1, 1, 1 << 20, 132, 1),
+              (2, 1, 100_000, 16, 1), (3, 2, 300, 8, 1), (1, 1, 129, 1, 1)]
+
+
+@pytest.mark.parametrize("B,KV,S,n_sm,hg", PLAN_CASES)
+def test_decode_split_plan_covers_every_key_once(B, KV, S, n_sm, hg):
+    """The split plan the CUDA decode launches with: every key of every
+    (b, kv) in exactly one split, no split empty, no more splits than a
+    cluster (the partial buffer) holds, never more blocks than one wave
+    of DECODE_BLOCKS_PER_SM per SM unless the rows alone exceed it, and
+    enough blocks for the card unless the ring or the cluster caps them.
+    It reads shapes and the SM count only, so it cannot depend on the
+    data."""
+    n, kps = cuda_lib.decode_split_plan(B, KV, S, n_sm, hg)
+    assert 1 <= n <= cuda_lib.DECODE_MAX_SPLITS
+    assert kps % cuda_lib.DECODE_KEY_ALIGN == 0
+    seen = np.zeros(S, np.int64)
+    for i in range(n):
+        lo, hi = i * kps, min(S, (i + 1) * kps)
+        assert hi > lo, f"split {i} of {n} is empty"
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    rows = B * KV * hg
+    cap = min(cuda_lib.DECODE_MAX_SPLITS, -(-S // cuda_lib.DECODE_KEY_ALIGN))
+    target = cuda_lib.DECODE_BLOCKS_PER_SM * n_sm
+    assert 2 * rows * n >= min(target, rows * cap)
+    assert rows * n <= max(rows, target)
+    assert cuda_lib.decode_split_plan(B, KV, S, n_sm, hg) == (n, kps)
+
+
+def test_decode_split_plan_sizes_to_the_card():
+    """At the Zamba2 decode shape a (b, kv) gets a handful of splits (not
+    64 splits of 128 keys), more on a larger card, one when the rows
+    alone fill the card; bad sizes raise.  Every G is covered by
+    ceil(G / heads_per_block) head groups of 1, 2 or 4 heads."""
+    n, kps = cuda_lib.decode_split_plan(2, 32, 8192, 132)
+    assert 2 <= n <= 16 and n * kps >= 8192
+    assert cuda_lib.decode_split_plan(2, 32, 8192, 264)[0] > n
+    assert cuda_lib.decode_split_plan(64, 32, 8192, 132)[0] == 1
+    with pytest.raises(ValueError, match="positive"):
+        cuda_lib.decode_split_plan(2, 32, 0, 132)
+    for G in range(1, 65):
+        gh = cuda_lib.decode_heads_per_block(G)
+        assert gh in (1, 2, 4) and gh <= max(G, 4)
+        assert -(-G // gh) * gh - G < gh
+
+
 def _ssd_case(rng, B, nc, Q, H, P, N):
     """``tests/test_kernels.py``'s SSD inputs: normal C, B, x; cum a
     negative cumulative sum; dt positive."""
