@@ -19,8 +19,14 @@ Phases, each fatal on failure (nothing is caught):
      segment kernel at B in {1, 8} over a 2048-token prefix span and
      interior spans of 96 and 160 tokens, fresh tokens 8 | 8 | 64 (the
      64 the items), and proof that its limit fails an all-zero output
-     and a kernel that ignores the span tables; time kernel and plain
-     version with CUDA events;
+     and a kernel that ignores the span tables; two calls of each mode
+     give the same bits; rows 1-2 at their path shapes within 1e-5 of
+     the largest |out| of a float64 version, at inputs N(0, 1) and
+     4 N(0, 1), and proof that single-pass TF32 (q, k, v and P rounded
+     to TF32) misses that limit; time each kernel per wrapper call
+     (``ms``) and per launch by CUDA-graph replay (``graph_ms``), beside
+     its FP32 and 3xTF32 bounds, and the plain version per call, with
+     CUDA events;
   4. serve 24 requests at full ``hstu-gr`` width through
      ``repro_torch.launch.serve.main`` — live, ``--batched``,
      ``--batched --device-pool``, ``--segments --device-pool`` and
@@ -28,7 +34,8 @@ Phases, each fatal on failure (nothing is caught):
      zeroed just before and read just after; each kernel of the mode
      must have launched (under ``--segments`` the segment kernel, and
      never the paged one), hits must include ``hbm_hit``, and
-     ``serve.main`` asserts that the device pool never re-ships;
+     ``serve.main`` asserts that the device pool never re-ships; the
+     rank launches of each mode are also tallied by batch size;
   5. the relay-vs-full eps contract at full width, and full-width scores
      on the card against the same weights on the CPU;
   6. ``hybrid``: the Zamba2 serve path (``zamba2_1p2b`` at full width and
@@ -71,6 +78,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 TOL = 3e-4          # f32 kernel vs plain: the repo's kernel tolerance
 BF16_REL = 2 ** -6  # bf16 decode vs plain: of the largest |plain|, ~2 bf16 ulps
 FP32_PEAK = 67e12   # H100 SXM FP32 outside the tensor cores, FLOP/s
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor cores, FLOP/s
+F64_REL = 1e-5      # rank kernels vs float64: of the largest |out|
 HBM_BW = 3.35e12    # H100 SXM device memory, B/s
 H, D = 4, 64
 PSI, N_INCR, N_ITEMS = 2048, 16, 64
@@ -123,10 +132,56 @@ def _time_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(torch, fn, n=20, reps=5):
+    """The card's time per launch of ``fn``: n launches captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, the least of
+    3 samples.  No host time is in it (the wrapper runs at capture)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / (n * reps))
+    return min(samples)
+
+
 def _bound(flops, nbytes):
     t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BW
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bound_tf32(flops, nbytes):
+    """The bound for the arithmetic the rank kernel uses: three TF32
+    products per product on the tensor cores."""
+    return max(3 * flops / TF32_PEAK, nbytes / HBM_BW) * 1e3
+
+
+def _rank_times(torch, fn, plain, flops, nbytes):
+    """A rank kernel's times at one shape: ``ms`` back-to-back wrapper
+    calls (host included, as every kernel here is timed), ``graph_ms``
+    the card's time per launch (CUDA-graph replay, no host), the plain
+    twin per call, and both bounds."""
+    bound_ms, by = _bound(flops, nbytes)
+    return dict(ms=_time_ms(torch, fn), graph_ms=_graph_ms(torch, fn),
+                plain_ms=_time_ms(torch, plain, 5), bound_ms=bound_ms,
+                bound_by=by, bound_tf32_ms=_bound_tf32(flops, nbytes))
 
 
 def _visible_new(Sq, n_incr):
@@ -168,16 +223,17 @@ def kernel_phase(torch, results):
             for b in range(B):
                 one = hk.hstu_attn(q[b:b + 1], k[b:b + 1], v[b:b + 1])
                 assert torch.equal(one[0], got[b]), "hstu_attn: batch-dependent row"
-        ms = _time_ms(torch, lambda: hk.hstu_attn(q, k, v))
-        plain_ms = _time_ms(torch, lambda: hk.hstu_attn_plain(q, k, v), 5)
+        assert torch.equal(hk.hstu_attn(q, k, v), got), "hstu_attn: two calls differ"
         pairs = B * H * S * (S + 1) // 2
         flops, nbytes = 4 * D * pairs, 4 * 4 * B * H * S * D
-        bound_ms, by = _bound(flops, nbytes)
+        t = _rank_times(torch, lambda: hk.hstu_attn(q, k, v),
+                        lambda: hk.hstu_attn_plain(q, k, v), flops, nbytes)
         results["hstu_attn"]["shapes"].append(dict(
-            B=B, S=S, main=(B, S) == (8, PSI), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=by, max_abs_err=e))
-        log(f"hstu_attn B={B} S={S}: err {e:.2e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})")
+            B=B, S=S, main=(B, S) == (8, PSI), max_abs_err=e, **t))
+        log(f"hstu_attn B={B} S={S}: err {e:.2e} kernel {t['ms']:.4f} ms "
+            f"(graph {t['graph_ms']:.4f}) plain {t['plain_ms']:.4f} ms bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 "
+            f"{t['bound_tf32_ms']:.4f} ms")
 
     # prefix_rank_attn + paged: live shapes and the paper's ranking shape
     for B, n_incr, n_items in ((1, N_INCR, N_ITEMS), (8, N_INCR, N_ITEMS),
@@ -228,6 +284,16 @@ def kernel_phase(torch, results):
         assert torch.equal(seg, paged), (
             f"segment (one span) != paged bitwise "
             f"(max {(seg - paged).abs().max():.3e})")
+        # bitwise: two calls on the same inputs, every mode
+        for mode, again, first in (
+                ("dense", lambda: rk.prefix_rank_attn_split(
+                    q, kp, vp, kn, vn, n_incr=n_incr), dense),
+                ("paged", lambda: pk.paged_prefix_rank_attn(
+                    q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr), paged),
+                ("segment", lambda: pk.segment_rank_attn(
+                    q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn,
+                    n_items=n_items), seg)):
+            assert torch.equal(again(), first), f"{mode}: two calls differ"
         if B > 1:
             for b in range(B):
                 s = slice(b, b + 1)
@@ -254,24 +320,65 @@ def kernel_phase(torch, results):
                  lambda: pk.paged_prefix_rank_attn_plain(
                      q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr),
                  e_p, sum(lens))):
-            ms = _time_ms(torch, fn)
-            plain_ms = _time_ms(torch, plain, 5)
             pairs = new_pairs + H * Sq * pre_keys
             flops = 4 * D * pairs
             nbytes = 4 * (4 * B * H * Sq * D + 2 * pre_keys * H * D)
             if name == "paged_prefix_rank_attn":
                 nbytes += 4 * (2 * B * n_pages + B)     # tables + lengths
-            bound_ms, by = _bound(flops, nbytes)
+            t = _rank_times(torch, fn, plain, flops, nbytes)
             results[name]["shapes"].append(dict(
                 B=B, P=PSI, n_incr=n_incr, n_items=n_items,
-                main=(B, n_incr) == (8, N_INCR), ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                max_abs_err=e, prefix_tokens=pre_keys))
+                main=(B, n_incr) == (8, N_INCR), max_abs_err=e,
+                prefix_tokens=pre_keys, **t))
             log(f"{name} B={B} P={PSI} Sq={Sq}: err {e:.2e} kernel "
-                f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                f"{bound_ms:.4f} ms ({by})")
+                f"{t['ms']:.4f} ms (graph {t['graph_ms']:.4f}) plain "
+                f"{t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), 3xTF32 {t['bound_tf32_ms']:.4f} ms")
     segment_checks(torch, results, gen, check)
+    f32_accuracy(torch, results)
     log("kernels agree with their plain versions; bitwise properties hold")
+
+
+def f32_accuracy(torch, results):
+    """Rows 1-2 at their path shapes against float64, within F64_REL of
+    the largest |out|, at inputs N(0, 1) and 4 N(0, 1) (SiLU out of its
+    linear range); and proof that the limit fails single-pass TF32: the
+    float64 version with q, k, v and P rounded to TF32 misses it."""
+    from repro_torch.kernels import hstu_attn as hk
+    from repro_torch.kernels import prefix_rank_attn as rk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    causal = torch.ones(PSI, PSI, dtype=torch.bool, device="cuda").tril()
+    rank = ref.rank_mask_ref(PSI, N_INCR, N_ITEMS, device="cuda")
+    Sq = N_INCR + N_ITEMS
+    for scale in (1.0, 4.0):
+        cases = []
+        q, k, v = (scale * randn(1, H, PSI, D) for _ in range(3))
+        cases.append(("hstu_attn", hk.hstu_attn(q, k, v), (q, k, v), causal,
+                      PSI))
+        q, kn, vn = (scale * randn(8, H, Sq, D) for _ in range(3))
+        kp, vp = (scale * randn(8, H, PSI, D) for _ in range(2))
+        cases.append(("prefix_rank_attn", rk.prefix_rank_attn_split(
+            q, kp, vp, kn, vn, n_incr=N_INCR),
+            (q, torch.cat([kp, kn], 2), torch.cat([vp, vn], 2)), rank,
+            PSI + Sq))
+        for name, got, qkv, mask, n in cases:
+            want = ref.silu_attn_f64(*qkv, mask, n_total=n)
+            top = want.abs().max().item()
+            err = (got.double() - want).abs().max().item() / top
+            tf32 = (ref.silu_attn_f64(*qkv, mask, n_total=n, tf32=True)
+                    - want).abs().max().item() / top
+            assert err <= F64_REL, (
+                f"{name} x{scale:g}: |kernel - float64| {err:.2e} of max "
+                f"|out| over {F64_REL}")
+            assert tf32 > F64_REL, (
+                f"{name} x{scale:g}: TF32 errs {tf32:.2e}, inside the limit")
+            results[name].setdefault("f64_rel", {})[f"x{scale:g}"] = dict(
+                kernel=err, tf32=tf32)
+            log(f"{name} x{scale:g} vs float64: kernel {err:.2e}, single-pass "
+                f"TF32 {tf32:.2e} of max |out| (limit {F64_REL})")
 
 
 def _segment_inputs(torch, gen, B):
@@ -353,18 +460,20 @@ def segment_checks(torch, results, gen, check):
         flops = 4 * D * pairs
         nbytes = 4 * (4 * B * H * Sq * D + 2 * held * H * D
                       + 4 * a["k_table"].numel() + B * Sq)
-        bound_ms, by = _bound(flops, nbytes)
-        ms = _time_ms(torch, lambda: pk.segment_rank_attn(**a))
-        plain_ms = _time_ms(torch, plain, 5)
+        t = _rank_times(torch, lambda: pk.segment_rank_attn(**a), plain,
+                        flops, nbytes)
+        assert torch.equal(pk.segment_rank_attn(**a), got), \
+            f"{name}: two calls differ"
         results[name]["shapes"].append(dict(
             B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS,
             spans=[n for kind, n in SEG_PATTERN if kind == "c"],
-            main=B == 8, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=by, max_abs_err=e, zero_fails=zero,
-            wrong_mask_margins=margins))
+            main=B == 8, max_abs_err=e, zero_fails=zero,
+            wrong_mask_margins=margins, **t))
         log(f"{name} B={B} spans {results[name]['shapes'][-1]['spans']} "
-            f"Sq={Sq}: err {e:.2e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"bound {bound_ms:.4f} ms ({by}); all-zero fails {zero:.3f}, "
+            f"Sq={Sq}: err {e:.2e} kernel {t['ms']:.4f} ms (graph "
+            f"{t['graph_ms']:.4f}) plain {t['plain_ms']:.4f} ms bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 "
+            f"{t['bound_tf32_ms']:.4f} ms; all-zero fails {zero:.3f}, "
             f"wrong-mask margins (x limit) " + ", ".join(
                 f"{k} {v:.1f}" for k, v in margins.items()))
 
@@ -372,7 +481,27 @@ def segment_checks(torch, results, gen, check):
 # --- phase 4: the main path ------------------------------------------------------
 
 
+def _batch_mix(cuda_lib):
+    """Wrap ``cuda_lib.rank_attn`` so that each rank launch is tallied
+    by kernel and batch size into the returned dict; the caller restores
+    the original.  The wrappers' own counters are untouched."""
+    launch, mix = cuda_lib.rank_attn, {}
+
+    def tally(q, *args, prefix=None, pages=None, spans=None, **kw):
+        out = launch(q, *args, prefix=prefix, pages=pages, spans=spans, **kw)
+        kind = ("segment_rank_attn" if spans is not None else
+                "paged_prefix_rank_attn" if pages is not None else
+                "prefix_rank_attn" if prefix is not None else "hstu_attn")
+        by_b = mix.setdefault(kind, {})
+        by_b[f"B{q.shape[0]}"] = by_b.get(f"B{q.shape[0]}", 0) + 1
+        return out
+
+    cuda_lib.rank_attn = tally
+    return launch, mix
+
+
 def serve_phase(torch, results, requests):
+    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import hstu_attn as hk
     from repro_torch.kernels import paged_prefix_attn as pk
     from repro_torch.kernels import prefix_rank_attn as rk
@@ -396,14 +525,22 @@ def serve_phase(torch, results, requests):
     for mode, flags, must, must_not in modes:
         for m, attr in counters.values():
             setattr(m, attr, 0)
+        launch, mix = _batch_mix(cuda_lib)
         t0 = time.perf_counter()
-        # serve.main asserts launch_reships == 0 under --device-pool
-        hits = serve.main(["--no-smoke", "--device", "cuda", "--requests",
-                           str(requests), *flags])
-        torch.cuda.synchronize()
+        try:
+            # serve.main asserts launch_reships == 0 under --device-pool
+            hits = serve.main(["--no-smoke", "--device", "cuda", "--requests",
+                               str(requests), *flags])
+            torch.cuda.synchronize()
+        finally:
+            cuda_lib.rank_attn = launch
         wall = time.perf_counter() - t0
         counts = {n: getattr(m, attr) for n, (m, attr) in counters.items()}
         log(f"serve {mode}: {wall:.1f} s hits={hits} launches={counts}")
+        log(f"serve {mode}: launches by batch size {mix}")
+        for n, c in counts.items():
+            assert sum(mix.get(n, {}).values()) == c, (
+                f"{mode}: {n} counted {c} launches, tallied {mix.get(n)}")
         assert hits.get("hbm_hit", 0) > 0, f"{mode}: no hbm_hit in {hits}"
         for n in must:
             assert counts[n] > 0, f"{mode}: {n} never launched"
@@ -412,7 +549,8 @@ def serve_phase(torch, results, requests):
         for n, c in counts.items():
             results[n]["launches"] += c
         results["_serve"][mode] = dict(hits=hits, launches=counts,
-                                       wall_s=wall, requests=requests)
+                                       by_batch=mix, wall_s=wall,
+                                       requests=requests)
     for n in counters:
         assert results[n]["launches"] > 0, f"{n} never launched on the main path"
 
@@ -816,9 +954,11 @@ def main(argv=None):
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": path, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"],
-            "ms": main_shape.get("ms"), "plain_ms": main_shape.get("plain_ms"),
+            "ms": main_shape.get("ms"), "graph_ms": main_shape.get("graph_ms"),
+            "plain_ms": main_shape.get("plain_ms"),
             "bound_ms": main_shape.get("bound_ms"),
             "bound_by": main_shape.get("bound_by"),
+            "bound_tf32_ms": main_shape.get("bound_tf32_ms"),
             "library_ms": main_shape.get("library_ms"),
             "shape": {k: main_shape[k] for k in (
                 "B", "S", "P", "spans", "n_incr", "n_items", "L", "Q", "H",

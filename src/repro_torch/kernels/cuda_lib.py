@@ -111,6 +111,7 @@ class RankAttnParams(ctypes.Structure):
         ("page_valid", ctypes.c_void_p), ("pv_stride", ctypes.c_longlong),
         ("q_pos", ctypes.c_void_p), ("qp_stride", ctypes.c_longlong),
         ("segment", ctypes.c_int),
+        ("q_rows", ctypes.c_int), ("cluster", ctypes.c_int),
     ]
 
 
@@ -170,10 +171,12 @@ def library() -> ctypes.CDLL:
                                    f"between Python and the CUDA source")
         lib.hstu_rank_attn_error.argtypes = [ctypes.c_int]
         lib.hstu_rank_attn_error.restype = ctypes.c_char_p
-        lib.decode_attn_max_splits.restype = ctypes.c_int
-        if lib.decode_attn_max_splits() != DECODE_MAX_SPLITS:
-            raise RuntimeError("DECODE_MAX_SPLITS differs between Python "
-                               "and the CUDA source")
+        for fn, value in (("decode_attn_max_splits", DECODE_MAX_SPLITS),
+                          ("hstu_rank_attn_max_cluster", RANK_MAX_CLUSTER),
+                          ("hstu_rank_attn_max_q_rows", RANK_MAX_Q_ROWS)):
+            getattr(lib, fn).restype = ctypes.c_int
+            if getattr(lib, fn)() != value:
+                raise RuntimeError(f"{fn}() differs from the Python constant")
         _LIB = lib
     return _LIB
 
@@ -193,6 +196,42 @@ def _launch(fn: str, params, device):
 # --- HSTU rank attention -------------------------------------------------------
 
 HEAD_DIMS = (32, 64, 128)
+RANK_KEY_TILE = 64          # keys per tile (BK in the source)
+RANK_MAX_Q_ROWS = 128       # one block: 8 warps of 16 query rows (MAX_Q_ROWS)
+RANK_LONG_Q_ROWS = 64       # the q-tile once Sq exceeds one block
+RANK_MAX_CLUSTER = 8        # what the kernel takes (MAX_CLUSTER, portable)
+# the plan's cluster: about RANK_TILES_PER_BLOCK key tiles a block, at
+# most RANK_PLAN_CLUSTER blocks: an H100 holds 30 clusters of 8 blocks of
+# the Sq-80 rank at once and 32 of 7, so the batched rank's 32 (B 8 x
+# H 4) take two waves at 8 and one at 7 (tools/rank_plan_sweep.py)
+RANK_TILES_PER_BLOCK = 5
+RANK_PLAN_CLUSTER = 7
+
+
+@functools.lru_cache(maxsize=256)
+def rank_launch_plan(n_prefix: int, Sq: int) -> tuple[int, int]:
+    """(q_rows, cluster) for a rank launch over ``n_prefix`` prefix keys
+    and ``Sq`` new tokens.  A block holds q_rows queries, 16 per warp: all
+    of Sq when Sq <= RANK_MAX_Q_ROWS (every prefix tile is then read once
+    per (b, h)), else RANK_LONG_Q_ROWS.  ``cluster`` blocks share each
+    (b, h, q-tile) and take its key tiles in turn: enough that each takes
+    about RANK_TILES_PER_BLOCK of the tiles a q-tile multiplies (a causal
+    q-tile of several sees about half the new-token tiles), at most
+    RANK_PLAN_CLUSTER.  A function of (n_prefix, Sq) only -- never of the
+    batch or the data -- so a row's summation order ignores its batch,
+    and dense, paged and segment launches at equal padded length split
+    alike."""
+    if n_prefix < 0 or Sq < 1:
+        raise ValueError(f"rank_launch_plan needs n_prefix >= 0 and Sq >= 1, "
+                         f"got n_prefix={n_prefix} Sq={Sq}")
+    new_tiles = -(-Sq // RANK_KEY_TILE)
+    if Sq <= RANK_MAX_Q_ROWS:
+        q_rows, work = 16 * -(-Sq // 16), new_tiles
+    else:
+        q_rows, work = RANK_LONG_Q_ROWS, -(-new_tiles // 2)
+    work += -(-n_prefix // RANK_KEY_TILE)
+    cluster = min(RANK_PLAN_CLUSTER, -(-work // RANK_TILES_PER_BLOCK))
+    return q_rows, cluster
 
 
 def _view(t: torch.Tensor, name: str, device) -> torch.Tensor:
@@ -318,6 +357,7 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
                                          page_valid.stride(0))
             p.q_pos, p.qp_stride = q_pos.data_ptr(), q_pos.stride(0)
             p.segment = 1
+    p.q_rows, p.cluster = rank_launch_plan(p.n_prefix, Sq)
     _launch("hstu_rank_attn_f32", p, device)
     return out
 

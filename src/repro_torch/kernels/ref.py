@@ -150,6 +150,31 @@ def paged_segment_rank_attn_ref(q, k_pages, v_pages, k_table, v_table,
         n_items=n_items, n_total=n_total or kp.shape[2] + q.shape[2])
 
 
+def round_tf32(x):
+    """``x`` rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds; via float32, returned
+    in x's type."""
+    bits = x.float().contiguous().view(torch.int32)
+    bits = (bits + 0x1000) & ~0x1FFF
+    return bits.view(torch.float32).to(x.dtype)
+
+
+def silu_attn_f64(q, k, v, mask, *, n_total: float, tf32: bool = False):
+    """The SiLU attention of kernels 1-4 in float64, for accuracy probes:
+    q (B, H, Sq, D), k and v (B, H, Sk, D), ``mask`` (Sq, Sk) or (B, 1,
+    Sq, Sk) bool.  ``tf32`` rounds q, k, v and the masked scores P to
+    TF32 before the products, what single-pass TF32 tensor-core products
+    would see (their sums kept exact)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    if tf32:
+        q, k, v = map(round_tf32, (q, k, v))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    a = torch.where(mask, F.silu(logits) / n_total, 0.0)
+    if tf32:
+        a = round_tf32(a)
+    return torch.einsum("bhqk,bhkd->bhqd", a, v)
+
+
 def decode_attn_ref(q, k, v):
     """Softmax flash-decode oracle (GQA), reference signature.
 

@@ -9,7 +9,11 @@ sweeps the edges that ``chip_smoke.py`` does not: ragged lengths around
 the 64-token tiles, every compiled head dim, short and empty prefixes,
 pages smaller than the key tile, and the refusals of the wrapper; for
 the segment mode, spans interleaved with fresh tokens at 16-, 32- and
-64-token pages, partly held pages and null-padded slots; for
+64-token pages, partly held pages and null-padded slots; the rank
+kernel's query tiling (Sq around 16-row warps, one block up to 128
+queries, several q-tiles) in all four modes, repeat calls bit for bit,
+and float32 accuracy against float64 (1e-5 of the largest |out|, a limit
+single-pass TF32 fails); for
 the hybrid's kernels, decode rings around the key tile, the ring and
 the split, GQA with 1 to 32 kv heads, strided cache views, a batch that
 gives each (b, kv) one split, repeat calls bit for bit, chunks shorter
@@ -109,6 +113,88 @@ def test_paged_kernel_and_bitwise_properties(dev, pt):
         one = pk.paged_prefix_rank_attn(q[s], pool, pool, kt[s], vt[s],
                                         plens[s], kn[s], vn[s], n_incr=n_incr)
         assert torch.equal(one[0], got[b])
+
+
+# --- the 3xTF32 tensor-core tiling: query tiles sized to Sq, 16 rows a warp ------
+
+
+@pytest.mark.parametrize("Sq", [1, 15, 16, 17, 80, 90, 129, 576])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_rank_kernel_tiling_edges_all_modes(dev, Sq, D):
+    """Sq around the 16-row warp and the one-block rank (<= 128 queries;
+    80 and 90 put five and six warps in a block), and several q-tiles
+    (129, 576); a prefix that is no multiple of the
+    64-key tile; every compiled head dim.  For the causal prefill and the
+    dense, paged (32-token pages, ragged rows) and segment (one span)
+    ranks: the plain twin within the f32 tolerance, two calls bit for bit,
+    paged == dense at equal padded length and segment == paged."""
+    B, H, n_incr, pt = 2, 2, Sq // 5, 32
+    q, kn, vn = (_randn(dev, B, H, Sq, D, seed=20 + i) for i in range(3))
+    got = hk.hstu_attn(q, kn, vn)
+    _close(got, hk.hstu_attn_plain(q, kn, vn))
+    assert torch.equal(hk.hstu_attn(q, kn, vn), got)
+
+    kp, vp = (_randn(dev, B, H, 100, D, seed=30 + i) for i in range(2))
+    dense = rk.prefix_rank_attn_split(q, kp, vp, kn, vn, n_incr=n_incr)
+    _close(dense, rk.prefix_rank_attn_plain(
+        q, torch.cat([kp, kn], 2), torch.cat([vp, vn], 2), n_prefix=100,
+        n_incr=n_incr))
+    assert torch.equal(rk.prefix_rank_attn_split(q, kp, vp, kn, vn,
+                                                 n_incr=n_incr), dense)
+
+    lens, n_pages = [100, 37], 4
+    _, _, _, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq, H, D)
+    paged = pk.paged_prefix_rank_attn(q, pool, pool, kt, vt, plens, kn, vn,
+                                      n_incr=n_incr)
+    _close(paged, pk.paged_prefix_rank_attn_plain(
+        q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr))
+    assert torch.equal(pk.paged_prefix_rank_attn(
+        q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr), paged)
+    kg, vg = ref.gather_pages(pool, kt, plens), ref.gather_pages(pool, vt, plens)
+    assert torch.equal(rk.prefix_rank_attn_split(q, kg, vg, kn, vn,
+                                                 n_incr=n_incr), paged)
+
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * pt
+            ).expand(B, n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, pt).int()
+    qpos = (n_pages * pt + torch.arange(Sq, dtype=torch.int32, device=dev)
+            ).expand(B, Sq)
+    seg = pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval, qpos, kn,
+                               vn, n_items=Sq - n_incr)
+    assert torch.equal(seg, paged)
+    assert torch.equal(pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval,
+                                            qpos, kn, vn, n_items=Sq - n_incr),
+                       seg)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("kind", ["hstu", "rank"])
+def test_rank_kernel_keeps_f32_accuracy(dev, kind, scale):
+    """Against a float64 version within 1e-5 of the largest |out|, at
+    inputs N(0, 1) x scale (x4 takes SiLU out of its linear range).  The
+    same float64 version with q, k, v and P rounded to TF32 misses that
+    limit, so a kernel that dropped the lo terms of 3xTF32 would fail.
+    The 3e-4 + 3e-4|plain| limit above cannot tell f32 from TF32."""
+    g = torch.Generator(device=dev).manual_seed(int(scale) + len(kind))
+    randn = lambda *shape: scale * torch.randn(shape, generator=g, device=dev)
+    if kind == "hstu":
+        S = 1024
+        q, k, v = (randn(1, 4, S, 64) for _ in range(3))
+        got = hk.hstu_attn(q, k, v)
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        qkv, n = (q, k, v), S
+    else:
+        P, n_incr, Sq = 2048, 16, 80
+        q, kn, vn = (randn(2, 4, Sq, 64) for _ in range(3))
+        kp, vp = (randn(2, 4, P, 64) for _ in range(2))
+        got = rk.prefix_rank_attn_split(q, kp, vp, kn, vn, n_incr=n_incr)
+        mask = ref.rank_mask_ref(P, n_incr, Sq - n_incr, device=dev)
+        qkv, n = (q, torch.cat([kp, kn], 2), torch.cat([vp, vn], 2)), P + Sq
+    want = ref.silu_attn_f64(*qkv, mask, n_total=n)
+    lim = 1e-5 * want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= lim
+    tf32 = ref.silu_attn_f64(*qkv, mask, n_total=n, tf32=True)
+    assert (tf32 - want).abs().max().item() > lim
 
 
 # --- the segment mode: cached spans interleaved with fresh tokens -----------------

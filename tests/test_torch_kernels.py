@@ -414,6 +414,88 @@ def test_ctypes_params_mirror_the_cuda_struct():
         assert name in names
 
 
+# (n_prefix, Sq): the live rank (psi 2048, 16 incr + 64 items), the
+# paper's 64 + 512, the causal prefill, one query, tile and warp edges
+RANK_PLAN_CASES = [(2048, 80), (2048, 576), (0, 2048), (0, 933), (0, 1),
+                   (0, 15), (0, 16), (0, 17), (100, 129), (130, 128),
+                   (63, 80), (65, 64), (1 << 20, 80), (0, 1 << 16)]
+
+
+@pytest.mark.parametrize("n_prefix,Sq", RANK_PLAN_CASES)
+def test_rank_launch_plan_covers_every_tile_once(n_prefix, Sq):
+    """The plan the rank kernel launches with, replayed as the kernel
+    walks it: block r of a cluster takes key tiles r, r + cluster, ...
+    of [prefix | new], so every tile goes to exactly one block, and the
+    rows of the reduction to exactly one block too.  The cluster stays
+    within the kernel's maximum; Sq <= 128 gives one q-tile and no warp
+    wholly past Sq."""
+    q_rows, cl = cuda_lib.rank_launch_plan(n_prefix, Sq)
+    assert 16 <= q_rows <= cuda_lib.RANK_MAX_Q_ROWS and q_rows % 16 == 0
+    assert 1 <= cl <= cuda_lib.RANK_MAX_CLUSTER
+    if Sq <= cuda_lib.RANK_MAX_Q_ROWS:
+        assert -(-Sq // q_rows) == 1 and q_rows - Sq < 16
+    bk = cuda_lib.RANK_KEY_TILE
+    n_tiles = -(-n_prefix // bk) + -(-Sq // bk)
+    seen = np.zeros(n_tiles, np.int64)
+    for r in range(cl):
+        seen[r::cl] += 1
+    assert (seen == 1).all()
+    rows = np.zeros(q_rows, np.int64)
+    per = -(-q_rows // cl)
+    for r in range(cl):
+        rows[r * per:min(q_rows, (r + 1) * per)] += 1
+    assert (rows == 1).all()
+    # the fewest blocks that keep each one's share of the tiles a q-tile
+    # multiplies (a causal one of several sees about half the new tiles)
+    # within RANK_TILES_PER_BLOCK, unless the plan's cap stops it
+    assert cl <= cuda_lib.RANK_PLAN_CLUSTER <= cuda_lib.RANK_MAX_CLUSTER
+    new = -(-Sq // bk)
+    work = -(-n_prefix // bk) + (new if Sq <= cuda_lib.RANK_MAX_Q_ROWS
+                                 else -(-new // 2))
+    tpb = cuda_lib.RANK_TILES_PER_BLOCK
+    assert cl == cuda_lib.RANK_PLAN_CLUSTER or -(-work // cl) <= tpb
+    assert cl == 1 or -(-work // (cl - 1)) > tpb
+
+
+def test_rank_launch_plan_reads_the_row_shape_only():
+    """The plan takes (n_prefix, Sq) and nothing else -- not the batch,
+    not the data -- so a row's bits cannot depend on its batch, and the
+    dense and paged launches at equal padded length (n_prefix =
+    n_pages * page_tokens) get the same plan; bad sizes raise."""
+    import inspect
+    assert list(inspect.signature(
+        cuda_lib.rank_launch_plan).parameters) == ["n_prefix", "Sq"]
+    for pt in (16, 32, 64):
+        assert cuda_lib.rank_launch_plan((2048 // pt) * pt, 80) == \
+            cuda_lib.rank_launch_plan(2048, 80)
+    with pytest.raises(ValueError, match="Sq"):
+        cuda_lib.rank_launch_plan(2048, 0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_f32_accuracy_limit_fails_tf32(scale):
+    """The card tests hold the rank kernel to 1e-5 of max |out| against
+    float64.  That limit separates f32 from single-pass TF32: at B=1,
+    H=4, S=1024, D=64 causal, inputs N(0, 1) times ``scale`` (x4 takes
+    SiLU out of its linear range), the f32 plain twin passes it and the
+    float64 version with q, k, v and P rounded to TF32 fails it, so a
+    kernel that dropped the lo terms of 3xTF32 could not pass."""
+    rng = np.random.default_rng(int(scale))
+    q, k, v = (_t(scale * _mk(rng, 1, 4, 1024, 64)) for _ in range(3))
+    mask = torch.ones(1024, 1024, dtype=torch.bool).tril()
+    want = ref.silu_attn_f64(q, k, v, mask, n_total=1024)
+    lim = 1e-5 * want.abs().max().item()
+    f32 = hstu_attn.hstu_attn_plain(q, k, v).double()
+    tf32 = ref.silu_attn_f64(q, k, v, mask, n_total=1024, tf32=True)
+    assert (f32 - want).abs().max().item() < lim / 10
+    assert (tf32 - want).abs().max().item() > 10 * lim
+    # rounding is to nearest at 10 mantissa bits, ties away from zero
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11,
+                      1 + 2 ** -12], dtype=torch.float64)
+    assert ref.round_tf32(x).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                          1 + 2 ** -9, 1.0]
+
+
 # --- the hybrid's kernels: decode_attn and the SSD chunk stages ------------------
 
 
