@@ -45,13 +45,19 @@ Phases, each fatal on failure (nothing is caught):
      KV in {1, 8, 32} at H 32, one chunk of Q = L < 128) — float32 within
      3e-4 + 3e-4|plain|, bf16 decode within 2**-6 of the largest |plain|
      (about two bf16 ulps; a kernel writing zeros fails), two calls bit
-     for bit equal — timed beside their bound and, in turns with the
-     kernel, the one PyTorch call that computes the same function;
-     then 2 prompts x 8192 tokens through ``make_prefill_step`` and 32
+     for bit equal, ``ssd_chunk_intra``'s rows independent of the batch
+     and, at the prefill shape, within 1e-5 of the largest |out| of a
+     float64 version at the path's decay and a steep one (a limit
+     single-pass TF32 misses) — timed per wrapper call beside their
+     bound (and row 6's 3xTF32 one), per launch by CUDA-graph replay,
+     and, in turns with the kernel, the one PyTorch call that computes
+     the same function; then 2 prompts x 8192 tokens through
+     ``make_prefill_step`` and 32
      greedy steps through ``make_serve_step``, counters zeroed
      just before each and read just after (38 + 38 SSD launches per
-     prefill, 6 decode launches per step); a profile of one prefill and
-     one decode step; and card vs CPU logits for a float32 copy at full
+     prefill, 6 decode launches per step); a profile of one prefill
+     (with the SSD kernels' share of its wall) and one decode step; and
+     card vs CPU logits for a float32 copy at full
      width and 7 layers (one section + a 1-layer tail), prefill plus 4
      decode steps, within 5e-4 of the largest |logit|;
   7. print the ``kernels`` JSON line, then the final device line.
@@ -67,6 +73,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -637,7 +644,7 @@ def profile_fn(torch, label, fn, iters):
     for name, ms in host:
         log(f"  host   {ms:.4f} ms  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=idle, top=top,
-                host=host)
+                host=host, kernels=by_kernel)
 
 
 # --- phase 6: the Zamba2 hybrid serve path -----------------------------------------
@@ -655,6 +662,34 @@ def _ssd_inputs(torch, gen, B, nc, Q, H=64, P=64, N=64):
     A = -torch.exp(0.5 * randn(H))
     cum = torch.cumsum(dtc * A, dim=2)
     return Cc, Bc, xc, cum, dtc
+
+
+def ssd_f64_accuracy(torch, results, Cc, Bc, xc, cum, dtc):
+    """ssd_chunk_intra at the prefill shape against float64, within
+    F64_REL of the largest |out|, at the path's decay and at a steep one
+    (cum = cumsum(-20 dt): the masked exp(cum[q] - cum[t]) overflows);
+    and proof that the limit fails single-pass TF32: the float64 version
+    with C, B, x and M rounded to TF32 misses it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as sk
+
+    for label, cum in (("path", cum), ("steep", torch.cumsum(-20 * dtc, 2))):
+        got = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc)
+        assert torch.isfinite(got).all(), f"ssd_chunk_intra {label}: non-finite"
+        want = ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dtc)
+        top = want.abs().max().item()
+        err = (got.double() - want).abs().max().item() / top
+        tf32 = (ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dtc, tf32=True)
+                - want).abs().max().item() / top
+        assert err <= F64_REL, (
+            f"ssd_chunk_intra {label}: |kernel - float64| {err:.2e} of max "
+            f"|out| over {F64_REL}")
+        assert tf32 > F64_REL, (
+            f"ssd_chunk_intra {label}: TF32 errs {tf32:.2e}, inside the limit")
+        results["ssd_chunk_intra"].setdefault("f64_rel", {})[label] = dict(
+            kernel=err, tf32=tf32)
+        log(f"ssd_chunk_intra {label} decay vs float64: kernel {err:.2e}, "
+            f"single-pass TF32 {tf32:.2e} of max |out| (limit {F64_REL})")
 
 
 def hybrid_kernel_checks(torch, results):
@@ -682,10 +717,12 @@ def hybrid_kernel_checks(torch, results):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
         return e
 
-    def record(name, shape, e, fn, plain, flops, nbytes, library=None):
+    def record(name, shape, e, fn, plain, flops, nbytes, library=None,
+               tf32=False):
         # kernel and library call in turns (K L L K, twice), the median of
         # each: the library's time moves between calls, so the two are
-        # compared only within one
+        # compared only within one; then the card's time per launch by
+        # CUDA-graph replay, and for a 3xTF32 kernel that bound too
         runs = {"kernel": [], "library": []}
         order = ("kernel", "library", "library", "kernel") * 2
         for who in order:
@@ -694,14 +731,17 @@ def hybrid_kernel_checks(torch, results):
                 runs[who].append(_time_ms(torch, f))
         ms = statistics.median(runs["kernel"])
         lib_ms = statistics.median(runs["library"]) if runs["library"] else None
+        graph_ms = _graph_ms(torch, fn)
         plain_ms = _time_ms(torch, plain, 5)
         bound_ms, by = _bound(flops, nbytes)
+        tf32_ms = _bound_tf32(flops, nbytes) if tf32 else None
         results[name]["shapes"].append(dict(
-            shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=bound_ms, bound_by=by, max_abs_err=e, runs=runs))
-        log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library {lib_ms} ms bound {bound_ms:.4f} ms "
-            f"({by}); turns {runs}")
+            shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+            bound_tf32_ms=tf32_ms, max_abs_err=e, runs=runs))
+        log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms (graph "
+            f"{graph_ms:.4f}) plain {plain_ms:.4f} ms library {lib_ms} ms "
+            f"bound {bound_ms:.4f} ms ({by}), 3xTF32 {tf32_ms}; turns {runs}")
 
     # SSD stages: the prefill's shape (64 chunks of 128, H = P = N = 64)
     # and one ragged chunk (Q = L = 100 < 128)
@@ -709,8 +749,19 @@ def hybrid_kernel_checks(torch, results):
         Cc, Bc, xc, cum, dtc = _ssd_inputs(torch, gen, B, nc, Q)
         H, P, N = xc.shape[3], xc.shape[4], Bc.shape[3]
         main = (B, nc * Q) == (HYB_B, HYB_S)
-        e = check("ssd_chunk_intra", sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc),
+        y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc)
+        e = check("ssd_chunk_intra", y,
                   sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc))
+        # bitwise: two calls, and each row of the batch alone
+        assert torch.equal(sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc), y), \
+            "ssd_chunk_intra: two calls differ"
+        for b in range(B):
+            s = slice(b, b + 1)
+            one = sk.ssd_chunk_intra(Cc[s], Bc[s], xc[s], cum[s], dtc[s])
+            assert torch.equal(one[0], y[b]), \
+                "ssd_chunk_intra: batch-dependent row"
+        if main:
+            ssd_f64_accuracy(torch, results, Cc, Bc, xc, cum, dtc)
         # the work the function needs: C B^T once per chunk (it does not
         # depend on the head), the causal half of M x per head, and ~4
         # operations per kept entry of M; x, B, C, cum, dt in, y out
@@ -722,7 +773,7 @@ def hybrid_kernel_checks(torch, results):
                                        main=main), e,
                lambda: sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc),
                lambda: sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc),
-               flops, nbytes)
+               flops, nbytes, tf32=True)
         got = sk.ssd_chunk_state(Bc, xc, cum, dtc)
         e = check("ssd_chunk_state", got,
                   sk.ssd_chunk_state_ref(Bc, xc, cum, dtc))
@@ -862,6 +913,14 @@ def hybrid_phase(torch, results):
     prof_pre = profile_fn(torch, f"prefill {HYB_B}x{HYB_S}",
                           lambda: prefill({"tokens": prompts}), 1)
     probe = {"m": cache["m"], "a": tuple(t.clone() for t in cache["a"])}
+    ssd = {re.search(r"ssd_\w+", k).group(0): v
+           for k, v in prof_pre["kernels"].items() if "ssd_" in k}
+    ssd_ms = sum(ssd.values())
+    log(f"prefill {HYB_B}x{HYB_S}: wall {prof_pre['wall_ms']:.4f} ms, device "
+        f"busy {prof_pre['busy_ms']:.4f} ms, SSD kernels {ssd_ms:.4f} ms "
+        f"({ssd_ms / prof_pre['wall_ms']:.3f} of the wall): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in ssd.items()))
+    prof_pre["ssd_ms"] = ssd_ms
     prof_dec = profile_fn(
         torch, "decode step",
         lambda: serve_step(probe, {"token": tok, "pos": pos + HYB_STEPS}), 5)

@@ -1,7 +1,5 @@
-// Mamba2 SSD chunk stages for Hopper (sm_90a), full float32 on the CUDA
-// cores (no TF32: the products are FFMA, so the numbers are those of an
-// f32 reference up to summation order).  Replaces the two TPU kernels of
-// src/repro/kernels/ssd_chunk.py:
+// Mamba2 SSD chunk stages for Hopper (sm_90a), float32 in and out.
+// Replaces the two TPU kernels of src/repro/kernels/ssd_chunk.py:
 //
 //   * ssd_chunk_intra (_kernel): per (batch b, chunk c, head h)
 //       y[q] = sum_{t <= q} exp(cum[q] - cum[t]) * (C[q] . B[t]) * dt[t] * x[t]
@@ -12,24 +10,47 @@
 // intra out (B, nc, Q, H, P); state out (B, nc, H, N, P); Q <= 128.  All
 // float32, read and written through strides with a unit last stride.
 //
-// ssd_chunk_intra.  The TPU grid (B, nc, H) recomputes the (Q, Q) score
-// tile C B^T for every head, although B and C are shared by all heads
-// (one group).  Here one block owns (b, c, a group of up to
-// `heads_per_block` heads): it computes C B^T once into shared memory and
-// reuses it for each head of the group, so the head-independent half of
-// the intra-chunk work is done H / heads_per_block times less.  Per head
-// it builds the masked decay matrix M[q, t] in shared memory — selecting
-// t <= q BEFORE the exp, so exp never sees the positive cum[q] - cum[t]
-// of a masked entry and no inf * 0 = NaN can arise — then y = M x with a
-// causal bound: each warp owns 16 rows and stops at its last row's column
-// (M is zero past it), and the row groups are spread so that the four
-// schedulers of an SM get equal work.  At the Zamba2 prefill shape
-// (B = 2, L = 8192, H = 64, P = N = 64) it needs ~9 GFLOP against
-// ~0.55 GB of x in and y out: bound by bytes at 67 TFLOP/s f32 and
-// 3.35 TB/s.  It does not overlap loads with compute (one block per SM
-// for ~200 KB of shared memory); a later version would double-buffer x
-// and keep the score tile in registers.
+// ssd_chunk_intra.  It replaces a version that built the masked decay
+// matrix M in shared memory per head and ran both products as FFMA, with
+// no load in flight during a product (0.89 ms at the Zamba2 prefill
+// shape, B = 2, L = 8192, H = 64, P = N = 64).  At that shape the
+// function moves ~0.55 GB (x in, y out), 0.165 ms at 3.35 TB/s, and
+// needs ~9 GFLOP of products.  Single-pass TF32 keeps ~3 decimal digits,
+// which the model's f32 path does not allow, so the products run in
+// 3xTF32 (x = hi + lo, each rounded to TF32 by an integer add, ptxas
+// emulating cvt.rna.tf32.f32 in five instructions; lo.hi' and hi.lo'
+// before hi.hi').  On the H100 mma.sync.m16n8k8 .tf32 retires about a
+// quarter of wgmma's TF32 rate: a version with every product on
+// mma.sync, causal work split 9 : 9 blocks a warp, took 0.32 ms, most of
+// it in the tensor pipe, so M x runs on wgmma.
 //
+//   * One block is one warpgroup (4 warps) and owns (b, c, a group of
+//     `heads_per_block` heads); the chunk is two 64-row tiles, warp w
+//     holding rows 16w.. of each.
+//   * S = C B^T once per block, with mma.sync in 3xTF32 from C and B in
+//     shared memory (XOR-swizzled, conflict-free fragment reads), while
+//     the first head's x is in flight.  Each warp keeps its rows of S in
+//     registers in accumulator layout for all the block's heads: 8 key
+//     blocks of 8 for tile 0, 16 for tile 1.
+//   * Per head, M is formed on that fragment: where(t <= q, .., -inf)
+//     selected before the exp, so a masked entry never becomes inf * 0,
+//     times dt[t]; split hi/lo it is the register A operand of
+//     wgmma.m64n64k8 .tf32 (the accumulator's keys 2t, 2t + 1 taken as
+//     the A slots t, t + 4), no M in shared memory.  Tile 0 takes 8 key
+//     steps, tile 1 16, each as three wgmma (lo.hi', hi.lo', hi.hi'), in
+//     batches of 4 steps.
+//   * wgmma's TF32 form reads B K-major only, and x lies key by key.  So
+//     x streams through a cp.async landing slab (the next head's copies
+//     issued before this head's products) and one pass per head splits it
+//     into hi and lo planes in the canonical K-major, unswizzled layout
+//     (8 x 16-byte core matrices), keys permuted to the A slots' order,
+//     16-byte stores that hit 32 banks.  cum and dt of the whole head
+//     group are copied once at block start (4-byte cp.async along H).
+//   * At P = N = 64 and 16 heads a block takes ~113 KB of shared memory:
+//     two blocks share an SM, one's products over the other's pass and
+//     loads.  y is written straight from the accumulators: each 8-byte
+//     store of a quarter warp fills one 32-byte sector.
+
 // ssd_chunk_state.  At the same shape it is 8.6 GFLOP of FFMA against
 // ~0.41 GB (x in, the (N, P) states out): bound by operations, with the
 // bytes close behind, so loads must overlap the product and the product
@@ -55,6 +76,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 extern "C" {
@@ -75,180 +98,358 @@ struct SsdParams {
 namespace {
 
 constexpr int QM = 128;        // largest chunk
-constexpr int MS = QM + 4;     // padded row of a (QM, QM) tile: 16 B aligned, banks spread
-constexpr int NK = 32;         // state width loaded per step of C B^T
-constexpr int NT = 256;        // threads per block
 constexpr int SMEM_MAX = 232448;   // dynamic shared memory one block may use
 
 __device__ __forceinline__ float lane4(const float4& v, int e) {
     return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-template <int PC>
-__device__ __forceinline__ void load_cols(float (&b)[PC], const float* row) {
-    if constexpr (PC % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < PC; j += 4) {
-            const float4 t = *reinterpret_cast<const float4*>(row + j);
-            b[j] = t.x; b[j + 1] = t.y; b[j + 2] = t.z; b[j + 3] = t.w;
-        }
-    } else {
-#pragma unroll
-        for (int j = 0; j < PC; j += 2) {
-            const float2 t = *reinterpret_cast<const float2*>(row + j);
-            b[j] = t.x; b[j + 1] = t.y;
-        }
-    }
+// 16-byte asynchronous copy to shared memory; `live` false writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(live ? 16 : 0) : "memory");
+}
+// 4-byte asynchronous copy, cached in L1 (its neighbours along H follow)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(live ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <int PC>
-__device__ __forceinline__ void store_cols(float* row, const float (&v)[PC]) {
-    if constexpr (PC % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < PC; j += 4)
-            *reinterpret_cast<float4*>(row + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
-    } else {
-#pragma unroll
-        for (int j = 0; j < PC; j += 2)
-            *reinterpret_cast<float2*>(row + j) = make_float2(v[j], v[j + 1]);
-    }
+// x = hi + lo, each rounded to TF32 to nearest, ties away from zero (what
+// cvt.rna.tf32.f32 gives for finite x, which ptxas would emulate in five
+// instructions): add half an ulp of TF32 and let the low 13 bits go.
+// hi is cut here, because lo is x - hi; lo keeps its low bits, which the
+// tensor core ignores.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
-// x rows [0, QM) of head h into sX (QM, P); rows at or past Q are zero,
-// so they add nothing to any product.
-template <int P>
-__device__ __forceinline__ void load_x(float* sX, const SsdParams& p, int b, int c, int h) {
-    const float* xb = p.x + b * p.x_stride[0] + c * p.x_stride[1] + h * p.x_stride[3];
-    for (int idx = threadIdx.x; idx < QM * (P / 4); idx += NT) {
-        const int t = idx / (P / 4), j = (idx % (P / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t < p.Q) v = *reinterpret_cast<const float4*>(xb + t * p.x_stride[2] + j);
-        *reinterpret_cast<float4*>(sX + t * P + j) = v;
-    }
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float at4(const float* base, const long long* s, int b, int c,
-                                     int t, int h) {
-    return base[b * s[0] + c * s[1] + t * s[2] + h * s[3]];
+// c[off + j] += a . b[j] for N blocks in 3xTF32, b[j] = (b[j][0], b[j][1]) as
+// floats: every block's lo.hi', then every hi.lo', then every hi.hi', so
+// that the N accumulators' chains interleave (each block's own order is
+// the two cross terms, then hi.hi')
+template <int N, int M>
+__device__ __forceinline__ void mma3(float (&c)[M][4], int off, const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const float (&b)[N][2]) {
+    uint32_t bh[N][2], bl[N][2];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        split(b[j][0], bh[j][0], bl[j][0]);
+        split(b[j][1], bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma(c[off + j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma(c[off + j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) mma(c[off + j], ah, bh[j][0], bh[j][1]);
 }
 
 // ---- ssd_chunk_intra ---------------------------------------------------------
 
+constexpr int IN_NT = 128;     // one warpgroup: warp w owns rows 16w.. of each 64-row tile
+constexpr int IN_SLOTS = 24;   // 8-key blocks of S a warp holds: 8 + 16
+constexpr int IN_WS = QM + 4;  // padded row of the (heads, Q) cum and dt tables
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of an intra block: the split-x planes (C and B before
+// them), the x landing slab, the cum and dt tables.
+__host__ __device__ constexpr int intra_smem_floats(int P, int N, int heads) {
+    return 2 * QM * (P > N ? P : N) + QM * P + 2 * heads * IN_WS;
+}
+
+// Word of element (r, col) of an unpadded (QM, N) C or B tile: 16-byte
+// chunk col / 4 of row r sits at chunk (col / 4) ^ (r mod 8) when 32
+// divides N, else ^ ((r / 2) mod 4), so the fragment reads (rows g,
+// columns k + t and k + t + 4) hit 32 banks.
+__device__ __forceinline__ int cbsw(int r, int col, int N) {
+    const int s = N & 16 ? (r >> 1) & 3 : r & 7;
+    return r * N + (col ^ (s << 2));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Word of element (r, col) of the unpadded (QM, P) x landing slab: 16-byte
+// chunk col / 4 of row r sits at chunk (col / 4) ^ 2f, f = (r mod 2) +
+// 2((r / 8) mod 2), so the split pass (lanes over 8 columns x 2 row
+// parities x 2 key steps) reads 32 banks.
 template <int P>
-__global__ void __launch_bounds__(NT, 1) ssd_intra_kernel(const SsdParams p) {
-    constexpr int PC = P / 16;                 // output columns per thread
+__device__ __forceinline__ int xsw(int r, int col) {
+    return r * P + (col ^ (((r & 1) | ((r >> 2) & 2)) << 3));
+}
+
+// Word of x[key][col] in a split-x plane, the B operand of the M x product
+// in the tensor cores' K-major layout without swizzle: one tile of 8P
+// words per 8-key step, in it core matrices of 8 columns x 4 keys (128 B):
+// column groups col / 8 at 256 B (the stride byte offset), key halves at
+// 128 B (the leading byte offset), column col % 8 at 16 B, key slot at 4
+// B.  Keys 2s and 2s + 1 of a step sit in slots s and s + 4, the order of
+// the A operand built from the score accumulators.
+template <int P>
+__device__ __forceinline__ int xtw(int key, int col) {
+    return (key >> 3) * 8 * P + (col >> 3) * 64 + (key & 1) * 32 + (col & 7) * 4 + ((key & 7) >> 1);
+}
+
+// Shared-memory matrix descriptor of a K-major, unswizzled B tile at `tile`
+// (core matrices 128 B apart along K, 256 B apart along N)
+__device__ __forceinline__ uint64_t kmajor_desc(const float* tile) {
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+    return static_cast<uint64_t>((addr >> 4) & 0x3fff) | (static_cast<uint64_t>(128 >> 4) << 16) |
+           (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// d += a . B for one m64n32k8 tile: a this warp's 16 x 8 slice of A
+// (mma.m16n8k8 layout), B (8 x 32) read by the tensor cores through `desc`
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += a . B for one m64n64k8 tile: a this warp's 16 x 8 slice of A
+// (mma.m16n8k8 layout), B (8 x 64) read by the tensor cores through `desc`
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int PN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[PN / 2], const uint32_t (&a)[4], uint64_t desc) {
+    if constexpr (PN == 32) wgmma_n32(d, a, desc);
+    else wgmma_n64(d, a, desc);
+}
+
+template <int P>
+__global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) {
+    constexpr int PN = P < 64 ? P : 64;        // output columns per product (wgmma N)
+    constexpr int ND = PN / 2;                 // accumulators per thread
+    constexpr int KG = 4;                      // 8-key steps per batch of products
     extern __shared__ float4 smem4[];
-    float* sS = reinterpret_cast<float*>(smem4);   // (QM, MS) scores C B^T
-    float* sM = sS + QM * MS;                  // (QM, MS) masked decay * scores * dt
-    float* sR = sM + QM * MS;                  // C / B^T chunks, then x
-    float* sCum = sR + max(QM * (NK + 4) + NK * MS, QM * P);
-    float* sDt = sCum + QM;
+    const int HG = p.heads_per_block;
+    float* xh = reinterpret_cast<float*>(smem4);    // split x, hi; C and B before it
+    float* xl = xh + QM * P;                   // split x, lo
+    float* stage = xh + 2 * QM * max(P, p.N);  // (QM, P) landing slab
+    float* sCum = stage + QM * P;              // (HG, IN_WS)
+    float* sDt = sCum + HG * IN_WS;
 
-    const int b = blockIdx.z, c = blockIdx.y;
-    const int h0 = blockIdx.x * p.heads_per_block;
-    const int h1 = min(p.H, h0 + p.heads_per_block);
-    const int tid = threadIdx.x;
-    const int Qp = (p.Q + 3) & ~3;
+    const int b = blockIdx.z, c = blockIdx.y, h0 = blockIdx.x * HG;
+    const int hg = min(HG, p.H - h0);          // live heads of this group
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
 
-    // 1) S = C B^T over the whole (QM, QM) tile, NK state columns at a time
-    {
-        float* sC = sR;                        // (QM, NK + 4)
-        float* sBT = sR + QM * (NK + 4);       // (NK, MS)
-        const int ty = tid / 16, tx = tid % 16;
-        float s[8][8];
+    // x of head hl into the landing slab, every row, zero past Q
+    const float* xb = p.x + b * p.x_stride[0] + c * p.x_stride[1] + h0 * p.x_stride[3];
+    // (thread tid copies 16 bytes at column xc of rows xr + i QM / XI)
+    constexpr int XI = QM * (P / 4) / IN_NT;
+    const int xr = tid / (P / 4), xc = (tid % (P / 4)) * 4;
+    auto issue = [&](int hl) {
+        const float* src = xb + hl * p.x_stride[3] + xc;
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+        for (int i = 0; i < XI; ++i) {
+            const int r = xr + i * (QM / XI);
+            const bool live = r < p.Q;
+            cp_async16(stage + xsw<P>(r, xc), src + (live ? r * p.x_stride[2] : 0), live);
+        }
+    };
+    {   // C and B of the chunk over the split-x planes, cum and dt of every
+        // head of the group (consecutive threads along H), all zero past Q,
+        // and the first head's x
+        float* sC = xh;
+        float* sB = xh + QM * p.N;
         const float* cb = p.C + b * p.c_stride[0] + c * p.c_stride[1];
         const float* bb = p.Bm + b * p.b_stride[0] + c * p.b_stride[1];
-        for (int n0 = 0; n0 < p.N; n0 += NK) {
-            const int nk = min(NK, p.N - n0);
-            __syncthreads();
-            for (int idx = tid; idx < QM * (NK / 4); idx += NT) {
-                const int t = idx / (NK / 4), k = (idx % (NK / 4)) * 4;
-                float4 cv = make_float4(0.f, 0.f, 0.f, 0.f), bv = cv;
-                if (t < p.Q && k < nk) {
-                    cv = *reinterpret_cast<const float4*>(cb + t * p.c_stride[2] + n0 + k);
-                    bv = *reinterpret_cast<const float4*>(bb + t * p.b_stride[2] + n0 + k);
-                }
-                *reinterpret_cast<float4*>(sC + t * (NK + 4) + k) = cv;
-                sBT[(k + 0) * MS + t] = bv.x;
-                sBT[(k + 1) * MS + t] = bv.y;
-                sBT[(k + 2) * MS + t] = bv.z;
-                sBT[(k + 3) * MS + t] = bv.w;
-            }
-            __syncthreads();
-#pragma unroll 2
-            for (int k = 0; k < NK; k += 4) {
-                float4 a[8];
-#pragma unroll
-                for (int i = 0; i < 8; ++i)
-                    a[i] = *reinterpret_cast<const float4*>(sC + (ty + 16 * i) * (NK + 4) + k);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float bv[8];
-                    load_cols<8>(bv, sBT + (k + e) * MS + tx * 8);
-#pragma unroll
-                    for (int i = 0; i < 8; ++i) {
-                        const float ai = lane4(a[i], e);
-#pragma unroll
-                        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(ai, bv[j], s[i][j]);
-                    }
-                }
-            }
+        for (int idx = tid; idx < QM * (p.N / 4); idx += IN_NT) {
+            const int r = idx / (p.N / 4), col = (idx % (p.N / 4)) * 4;
+            const bool live = r < p.Q;
+            cp_async16(sC + cbsw(r, col, p.N), cb + (live ? r * p.c_stride[2] + col : 0), live);
+            cp_async16(sB + cbsw(r, col, p.N), bb + (live ? r * p.b_stride[2] + col : 0), live);
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) store_cols<8>(sS + (ty + 16 * i) * MS + tx * 8, s[i]);
+        const long long co = b * p.cum_stride[0] + c * p.cum_stride[1] + h0 * p.cum_stride[3];
+        const long long dto = b * p.dt_stride[0] + c * p.dt_stride[1] + h0 * p.dt_stride[3];
+        for (int idx = tid; idx < QM * HG; idx += IN_NT) {
+            const int r = idx / HG, hl = idx % HG;
+            const bool live = r < p.Q && hl < hg;
+            cp_async4(sCum + hl * IN_WS + r,
+                      p.cum + (live ? co + r * p.cum_stride[2] + hl * p.cum_stride[3] : 0), live);
+            cp_async4(sDt + hl * IN_WS + r,
+                      p.dt + (live ? dto + r * p.dt_stride[2] + hl * p.dt_stride[3] : 0), live);
+        }
+        cp_async_commit();
+        issue(0);
+        cp_async_commit();
+        cp_async_wait<1>();                    // C, B and the tables landed
+        __syncthreads();
     }
 
-    // 2) per head: M = where(t <= q, exp(cum[q] - cum[t]), 0) * S * dt[t];
-    //    y = M x, row group g of 16 rows per warp, causal column bound
-    const int w = tid / 32, lane = tid % 32;
-    const int g = w < 4 ? w : 11 - w;          // schedulers s, s+4 get groups summing to 7
-    const int r0 = 16 * g + 8 * (lane / 16), tx = lane % 16;
-    const int t_end = r0 < p.Q ? min(r0 + 8, Qp) : 0;   // rows past Q: nothing to do
-    float* sX = sR;
-    for (int h = h0; h < h1; ++h) {
-        __syncthreads();                       // S written / last head's reads done
-        for (int t = tid; t < QM; t += NT) {
-            const bool live = t < p.Q;
-            sCum[t] = live ? at4(p.cum, p.cum_stride, b, c, t, h) : 0.f;
-            sDt[t] = live ? at4(p.dt, p.dt_stride, b, c, t, h) : 0.f;
+    // S = C B^T for this warp's rows of both 64-row tiles: slot i < 8 holds
+    // key block i of rows 16 warp + (g, g + 8), slot 8 + j key block j of
+    // rows 64 + 16 warp + (g, g + 8); blocks past a row are masked later
+    float s[IN_SLOTS][4];
+#pragma unroll
+    for (int i = 0; i < IN_SLOTS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    {
+        const float* sC = xh;
+        const float* sB = xh + QM * p.N;
+        for (int k0 = 0; k0 < p.N; k0 += 8) {
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int T = 0; T < 2; ++T) {
+                const int ra = 64 * T + 16 * warp + g;
+                split(sC[cbsw(ra, k0 + t, p.N)], ah[T][0], al[T][0]);
+                split(sC[cbsw(ra + 8, k0 + t, p.N)], ah[T][1], al[T][1]);
+                split(sC[cbsw(ra, k0 + t + 4, p.N)], ah[T][2], al[T][2]);
+                split(sC[cbsw(ra + 8, k0 + t + 4, p.N)], ah[T][3], al[T][3]);
+            }
+#pragma unroll
+            for (int i = 0; i < IN_SLOTS; ++i) {
+                const int T = i < 8 ? 0 : 1;
+                const int key = (i - 8 * T) * 8 + g;
+                const float bv[1][2] = {{sB[cbsw(key, k0 + t, p.N)],
+                                         sB[cbsw(key, k0 + t + 4, p.N)]}};
+                mma3<1>(s, i, ah[T], al[T], bv);
+            }
         }
-        load_x<P>(sX, p, b, c, h);
-        __syncthreads();
-        for (int idx = tid; idx < QM * QM; idx += NT) {
-            const int q = idx / QM, t = idx % QM;
-            sM[q * MS + t] = t <= q ? expf(sCum[q] - sCum[t]) * sS[q * MS + t] * sDt[t] : 0.f;
+    }
+
+    const uint64_t dh = kmajor_desc(xh), dl = kmajor_desc(xl);
+    float* ob = p.out + b * p.o_stride[0] + c * p.o_stride[1] + h0 * p.o_stride[3];
+    for (int hl = 0; hl < hg; ++hl) {
+        cp_async_wait<0>();                    // this thread's copies of head hl landed
+        __syncthreads();                       // ... everyone's; the planes are free
+        // split x once into the two planes: lane (c, e, j) of a warp takes
+        // column 8cg + c, keys 8kb + 2s + e (s = 0..3) of step kb = 2kp + j,
+        // one 16-byte row of a core matrix per plane, so reads and writes
+        // hit 32 banks
+#pragma unroll
+        for (int u = warp; u < (P / 8) * (QM / 16); u += IN_NT / 32) {
+            const int cg = u % (P / 8), kb = 2 * (u / (P / 8)) + (lane >> 4);
+            const int e = (lane >> 3) & 1, col = 8 * cg + (lane & 7);
+            const float* rd = stage + xsw<P>(8 * kb + e, col);
+            uint32_t hi[4], lo[4];
+#pragma unroll
+            for (int sl = 0; sl < 4; ++sl) split(rd[2 * sl * P], hi[sl], lo[sl]);
+            const int w = xtw<P>(8 * kb + e, col);
+            *reinterpret_cast<uint4*>(xh + w) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+            *reinterpret_cast<uint4*>(xl + w) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
         }
-        __syncthreads();
-        float acc[8][PC];
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        __syncthreads();                       // the planes are written; the slab is free
+        if (hl + 1 < hg) issue(hl + 1);
+        cp_async_commit();
+        const float* cum = sCum + hl * IN_WS;
+        const float* dt = sDt + hl * IN_WS;
+        float* oh = ob + hl * p.o_stride[3];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int T = 0; T < 2; ++T) {
+            if (64 * T >= p.Q) continue;
+            const int qa = 64 * T + 16 * warp + g;    // rows qa, qa + 8 of this lane
+            const float cq[2] = {cum[qa], cum[qa + 8]};
+            for (int pc = 0; pc < P; pc += PN) {
+                float acc[ND];
 #pragma unroll
-            for (int j = 0; j < PC; ++j) acc[i][j] = 0.f;
-        for (int t = 0; t < t_end; t += 4) {
-            float4 a[8];
+                for (int j = 0; j < ND; ++j) acc[j] = 0.f;
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
-                a[i] = *reinterpret_cast<const float4*>(sM + (r0 + i) * MS + t);
+                for (int k0 = 0; k0 < 8 * (T + 1); k0 += KG) {
+                    uint32_t ah[KG][4], al[KG][4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                float bv[PC];
-                load_cols<PC>(bv, sX + (t + e) * P + tx * PC);
+                    for (int ks = 0; ks < KG; ++ks) {
+                        // M = where(key <= q, exp(cum[q] - cum[key]), 0) S dt[key]
+                        // on the fragment: element e is row qa + 8 (e / 2), key
+                        // k + e % 2, A slot (e / 2) + 2 (e % 2)
+                        const int kb = k0 + ks, k = kb * 8 + 2 * t;
+                        const float2 ck = *reinterpret_cast<const float2*>(cum + k);
+                        const float2 dk = *reinterpret_cast<const float2*>(dt + k);
+                        float m[4];
 #pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const float ai = lane4(a[i], e);
+                        for (int e = 0; e < 4; ++e) {
+                            const int q = qa + 8 * (e >> 1), key = k + (e & 1);
+                            const float d = cq[e >> 1] - (e & 1 ? ck.y : ck.x);
+                            m[e] = exp2_approx((key <= q ? d : -INFINITY) * LOG2E) *
+                                   s[8 * T + kb][e] * (e & 1 ? dk.y : dk.x);
+                        }
+                        split(m[0], ah[ks][0], al[ks][0]);
+                        split(m[2], ah[ks][1], al[ks][1]);
+                        split(m[1], ah[ks][2], al[ks][2]);
+                        split(m[3], ah[ks][3], al[ks][3]);
+                    }
+                    wgmma_fence();
 #pragma unroll
-                    for (int j = 0; j < PC; ++j) acc[i][j] = fmaf(ai, bv[j], acc[i][j]);
+                    for (int ks = 0; ks < KG; ++ks) {
+                        const uint64_t off = static_cast<uint64_t>((k0 + ks) * 32 * P + pc * 32) >> 4;
+                        wgmma_tile<PN>(acc, al[ks], dh + off);
+                        wgmma_tile<PN>(acc, ah[ks], dl + off);
+                        wgmma_tile<PN>(acc, ah[ks], dh + off);
+                    }
+                    wgmma_commit();
+                    wgmma_wait<0>();
+                }
+#pragma unroll
+                for (int j = 0; j < ND / 4; ++j) {
+                    float* o = oh + pc + j * 8 + 2 * t;
+                    if (qa < p.Q)
+                        *reinterpret_cast<float2*>(o + qa * p.o_stride[2]) =
+                            make_float2(acc[4 * j], acc[4 * j + 1]);
+                    if (qa + 8 < p.Q)
+                        *reinterpret_cast<float2*>(o + (qa + 8) * p.o_stride[2]) =
+                            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
                 }
             }
         }
-        float* ob = p.out + b * p.o_stride[0] + c * p.o_stride[1] + h * p.o_stride[3];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-            if (r0 + i < p.Q) store_cols<PC>(ob + (r0 + i) * p.o_stride[2] + tx * PC, acc[i]);
     }
 }
 
@@ -260,19 +461,6 @@ constexpr int ST_STAGE = 8192;   // x floats per ring stage (32 KB)
 constexpr int ST_NS = 2;         // ring stages: one slab loads while one is used
 constexpr int ST_WS = QM + 4;    // padded row of the (heads, Q) weight table
 
-// 16-byte asynchronous copy to shared memory; `live` false writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src), "r"(live ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 constexpr int ST_CH = ST_STAGE / 4 / ST_NT;    // 16-byte chunks each thread copies per slab
 
@@ -420,19 +608,24 @@ __global__ void __launch_bounds__(ST_NT, 2) ssd_state_kernel(const SsdParams p) 
     cp_async_wait<0>();
 }
 
-template <typename K>
-cudaError_t launch(K kernel, const SsdParams& p, int smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.H + p.heads_per_block - 1) / p.heads_per_block, p.nc, p.B);
-    kernel<<<grid, NT, smem, stream>>>(p);
-    return cudaGetLastError();
-}
-
 bool valid(const SsdParams& p) {
     return p.Q >= 1 && p.Q <= QM && p.N >= 16 && p.N <= 128 && p.N % 16 == 0 &&
            p.heads_per_block >= 1 && p.B >= 1 && p.nc >= 1 && p.H >= 1;
+}
+
+// Launch `kernel` over the grid (head groups, chunks, batch) with `smem`
+// bytes of dynamic shared memory, the carveout at its maximum.
+template <typename K>
+int run(K kernel, const SsdParams& p, int threads, int smem, cudaStream_t stream) {
+    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((p.H + p.heads_per_block - 1) / p.heads_per_block, p.nc, p.B);
+    kernel<<<grid, threads, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -440,14 +633,12 @@ bool valid(const SsdParams& p) {
 extern "C" int ssd_chunk_intra_f32(const SsdParams* p, void* stream) {
     if (!valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int region = QM * (NK + 4) + NK * MS;
-    auto smem = [&](int P) {
-        return static_cast<int>(sizeof(float) * (2 * QM * MS + max(region, QM * P) + 2 * QM));
-    };
+    const int smem =
+        static_cast<int>(sizeof(float)) * intra_smem_floats(p->P, p->N, p->heads_per_block);
     switch (p->P) {
-        case 32: return launch(ssd_intra_kernel<32>, *p, smem(32), s);
-        case 64: return launch(ssd_intra_kernel<64>, *p, smem(64), s);
-        case 128: return launch(ssd_intra_kernel<128>, *p, smem(128), s);
+        case 32: return run(ssd_intra_kernel<32>, *p, IN_NT, smem, s);
+        case 64: return run(ssd_intra_kernel<64>, *p, IN_NT, smem, s);
+        case 128: return run(ssd_intra_kernel<128>, *p, IN_NT, smem, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -457,28 +648,17 @@ extern "C" int ssd_chunk_state_f32(const SsdParams* p, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int smem = static_cast<int>(
         sizeof(float) * (QM * p->N + p->heads_per_block * ST_WS + ST_NS * ST_STAGE));
-    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    auto run = [&](auto kernel) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-        if (err == cudaSuccess)
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        const dim3 grid((p->H + p->heads_per_block - 1) / p->heads_per_block, p->nc, p->B);
-        kernel<<<grid, ST_NT, smem, s>>>(*p);
-        return static_cast<int>(cudaGetLastError());
-    };
     auto by_n = [&](auto p_tag) {
         constexpr int P = decltype(p_tag)::value;
         switch (p->N) {
-            case 16: return run(ssd_state_kernel<P, 16>);
-            case 32: return run(ssd_state_kernel<P, 32>);
-            case 48: return run(ssd_state_kernel<P, 48>);
-            case 64: return run(ssd_state_kernel<P, 64>);
-            case 80: return run(ssd_state_kernel<P, 80>);
-            case 96: return run(ssd_state_kernel<P, 96>);
-            case 112: return run(ssd_state_kernel<P, 112>);
-            case 128: return run(ssd_state_kernel<P, 128>);
+            case 16: return run(ssd_state_kernel<P, 16>, *p, ST_NT, smem, s);
+            case 32: return run(ssd_state_kernel<P, 32>, *p, ST_NT, smem, s);
+            case 48: return run(ssd_state_kernel<P, 48>, *p, ST_NT, smem, s);
+            case 64: return run(ssd_state_kernel<P, 64>, *p, ST_NT, smem, s);
+            case 80: return run(ssd_state_kernel<P, 80>, *p, ST_NT, smem, s);
+            case 96: return run(ssd_state_kernel<P, 96>, *p, ST_NT, smem, s);
+            case 112: return run(ssd_state_kernel<P, 112>, *p, ST_NT, smem, s);
+            case 128: return run(ssd_state_kernel<P, 128>, *p, ST_NT, smem, s);
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
     };

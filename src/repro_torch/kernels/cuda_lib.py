@@ -366,8 +366,23 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
 
 SSD_HEAD_DIMS = (32, 64, 128)
 SSD_MAX_CHUNK = 128
-SSD_HEADS_PER_BLOCK = 16         # ssd_chunk_intra: C B^T shared by 16 heads
+# ssd_chunk_intra: the most heads that share one block's C B^T; 16 keep
+# two blocks of 113 KB on an SM at P = N = 64, and beat 8 at the Zamba2
+# prefill on the H100 (tools/ssd_intra_sweep.py --plans 8)
+SSD_INTRA_HEADS_PER_BLOCK = 16
 SSD_STATE_HEADS_PER_BLOCK = 32   # ssd_chunk_state: B and weights shared by 32
+
+
+def ssd_intra_heads_per_block(H: int) -> int:
+    """Heads per ``ssd_chunk_intra`` block: the fewest blocks of at most
+    SSD_INTRA_HEADS_PER_BLOCK heads that cover H, each block as small as
+    that count allows (H 13 runs as 7 + 6, not 8 + 5).  A function of H
+    only, never of the batch or the data, so a row's result does not
+    depend on its batch."""
+    if H < 1:
+        raise ValueError(f"ssd_intra_heads_per_block needs H >= 1, got {H}")
+    groups = -(-H // SSD_INTRA_HEADS_PER_BLOCK)
+    return -(-H // groups)
 
 
 def _f32_view(t: torch.Tensor, name: str, dims: int, device) -> torch.Tensor:
@@ -416,8 +431,8 @@ def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
                   cum=cum.data_ptr(), cum_stride=SsdParams._S4(*cum.stride()),
                   dt=dtc.data_ptr(), dt_stride=SsdParams._S4(*dtc.stride()),
                   B=B, nc=nc, Q=Q, H=H, N=N, P=P,
-                  heads_per_block=min(H, SSD_HEADS_PER_BLOCK if kind == "intra"
-                                      else SSD_STATE_HEADS_PER_BLOCK))
+                  heads_per_block=ssd_intra_heads_per_block(H) if kind == "intra"
+                  else min(H, SSD_STATE_HEADS_PER_BLOCK))
     if kind == "intra":
         Cc = _f32_view(Cc, "Cc", 4, device)
         if Cc.shape != Bc.shape:

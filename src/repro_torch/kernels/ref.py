@@ -175,6 +175,29 @@ def silu_attn_f64(q, k, v, mask, *, n_total: float, tf32: bool = False):
     return torch.einsum("bhqk,bhkd->bhqd", a, v)
 
 
+def ssd_chunk_intra_f64(Cc, Bc, xc, cum, dtc, *, tf32: bool = False):
+    """``ssd_chunk_intra`` in float64, for accuracy probes: shapes as in
+    ``kernels/ssd_chunk.py``, returns (B, nc, Q, H, P) float64.  ``tf32``
+    rounds C, B, x and the masked decay matrix M to TF32 before the
+    products, what single-pass TF32 tensor-core products would see (their
+    sums kept exact).  One batch row at a time, to bound the (Q, Q) per
+    head tiles' memory."""
+    Q = Cc.shape[2]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=Cc.device).tril()
+    rnd = round_tf32 if tf32 else (lambda t: t)
+    out = []
+    for b in range(Cc.shape[0]):
+        C, Bm, x = (rnd(t[b].double()) for t in (Cc, Bc, xc))
+        cm, dt = cum[b].double(), dtc[b].double()             # (nc, Q, H)
+        scores = torch.einsum("cqn,ckn->cqk", C, Bm)
+        dec = (cm[:, :, None, :] - cm[:, None, :, :]).permute(0, 3, 1, 2)
+        M = torch.where(causal, torch.exp(torch.where(causal, dec, -math.inf)),
+                        0.0) * scores[:, None] * dt.permute(0, 2, 1)[:, :, None, :]
+        y = torch.matmul(rnd(M), x.permute(0, 2, 1, 3))         # (nc, H, Q, P)
+        out.append(y.permute(0, 2, 1, 3))
+    return torch.stack(out)
+
+
 def decode_attn_ref(q, k, v):
     """Softmax flash-decode oracle (GQA), reference signature.
 

@@ -17,7 +17,10 @@ single-pass TF32 fails); for
 the hybrid's kernels, decode rings around the key tile, the ring and
 the split, GQA with 1 to 32 kv heads, strided cache views, a batch that
 gives each (b, kv) one split, repeat calls bit for bit, chunks shorter
-than 128, state head groups around 32 heads and steep decays.
+than 128, state head groups around 32 heads and steep decays; for
+``ssd_chunk_intra``, chunks of 1 to 128 at P 32 / 64 / 128 and N 16 to
+128 with head groups that do not divide H, float64 accuracy (the limit
+single-pass TF32 fails), repeat calls and rows of a batch bit for bit.
 Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
 tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
@@ -416,12 +419,19 @@ def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False):
 
 # the state kernel's head group is 32 (31, 33 around it); 8 x 8 thread
 # tiles of 1 to 32 heads per round (N x P from 16 x 32 to 128 x 128, and
-# N 48, where 256 threads hold 5 heads); Q = 1, 100 and 128
+# N 48, where 256 threads hold 5 heads); Q = 1, 100 and 128.  Then the
+# intra kernel's tiling: 8-key steps over two 64-row tiles, each warp 16
+# rows of a tile (Q around 8, 16 and 64..128), one 64-column product at
+# P <= 64 and two at P 128, every N (C and B swizzled by 32 or 16
+# columns), and H not a multiple of its head group (19 = 10 + 9, 35 =
+# 12 + 12 + 11)
 @pytest.mark.parametrize("B,nc,Q,H,P,N", [
     (2, 4, 128, 64, 64, 64), (2, 2, 128, 4, 64, 64), (2, 2, 128, 2, 128, 32),
     (2, 2, 128, 8, 64, 16), (1, 1, 100, 8, 32, 16), (2, 1, 1, 17, 64, 64),
     (1, 3, 64, 20, 64, 128), (1, 2, 128, 31, 64, 64), (1, 2, 128, 33, 64, 64),
-    (1, 2, 128, 3, 128, 128), (1, 1, 77, 5, 64, 48), (1, 2, 100, 40, 32, 16)])
+    (1, 2, 128, 3, 128, 128), (1, 1, 77, 5, 64, 48), (1, 2, 100, 40, 32, 16)] + [
+    (2, 2, Q, 19 if Q % 2 else 35, P, (16, 48, 64, 128)[(Q + P // 32) % 4])
+    for Q in (1, 8, 15, 16, 17, 100, 127, 128) for P in (32, 64, 128)])
 def test_ssd_chunk_kernels(dev, B, nc, Q, H, P, N):
     Cc, Bc, xc, cum, dt = _ssd_inputs(dev, B, nc, Q, H, P, N)
     before = (sk.launches_intra, sk.launches_state)
@@ -441,6 +451,34 @@ def test_ssd_chunk_intra_steep_decay_is_finite(dev):
     y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
     assert torch.isfinite(y).all()
     _close(y, sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dt))
+
+
+@pytest.mark.parametrize("steep", [False, True])
+def test_ssd_chunk_intra_keeps_f32_accuracy(dev, steep):
+    """Against a float64 version within 1e-5 of the largest |out|, at a
+    full head group and a full chunk, gentle and steep decay.  The same
+    float64 version with C, B, x and M rounded to TF32 misses that limit,
+    so a kernel that dropped the lo terms of 3xTF32 would fail; the 3e-4
+    + 3e-4|plain| limit above cannot tell f32 from TF32."""
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 2, 4, 128, 16, 64, 64, steep=steep)
+    got = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
+    want = ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dt)
+    lim = 1e-5 * want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= lim
+    tf32 = ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dt, tf32=True)
+    assert (tf32 - want).abs().max().item() > lim
+
+
+def test_ssd_chunk_intra_is_deterministic_and_batch_independent(dev):
+    """Two calls give the same bits, and each row of a B = 3 call equals
+    the B = 1 call on that row bit for bit (the plan reads H only)."""
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 3, 2, 128, 20, 64, 64)
+    y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
+    assert torch.equal(sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt), y)
+    for b in range(3):
+        s = slice(b, b + 1)
+        one = sk.ssd_chunk_intra(Cc[s], Bc[s], xc[s], cum[s], dt[s])
+        assert torch.equal(one[0], y[b])
 
 
 def test_hybrid_on_card_matches_cpu(dev):

@@ -632,6 +632,55 @@ def test_ssd_chunk_state_matches_ref_and_pallas(H, P, N):
     _close(got, jstate_ref(Bc, xc, cum, dtc))
 
 
+@pytest.mark.parametrize("H", [1, 2, 7, 8, 9, 13, 16, 17, 20, 33, 64, 65,
+                               128])
+def test_ssd_intra_heads_per_block_takes_fewest_smallest_blocks(H):
+    """The intra kernel's plan: as few blocks as blocks of at most
+    SSD_INTRA_HEADS_PER_BLOCK heads allow, each as small as that count
+    allows, every head in exactly one block."""
+    cap = cuda_lib.SSD_INTRA_HEADS_PER_BLOCK
+    hg = cuda_lib.ssd_intra_heads_per_block(H)
+    groups = -(-H // hg)
+    assert 1 <= hg <= min(H, cap)
+    assert groups == -(-H // cap)
+    assert hg == 1 or -(-H // (hg - 1)) > groups
+    heads = [h for gi in range(groups) for h in range(gi * hg, min(H, (gi + 1) * hg))]
+    assert heads == list(range(H))
+
+
+def test_ssd_intra_plan_reads_the_head_count_only():
+    """The plan never sees the batch or the data (a row of a batched call
+    equals the B = 1 call bit for bit on the card); the Zamba2 layers'
+    64 heads run as 4 blocks of 16; nonsense raises."""
+    import inspect
+    assert list(inspect.signature(
+        cuda_lib.ssd_intra_heads_per_block).parameters) == ["H"]
+    assert cuda_lib.ssd_intra_heads_per_block(64) == 16
+    with pytest.raises(ValueError, match="H >= 1"):
+        cuda_lib.ssd_intra_heads_per_block(0)
+
+
+@pytest.mark.parametrize("rate", [0.5, 20.0])
+def test_ssd_intra_f64_limit_fails_tf32(rate):
+    """The card tests hold the intra kernel to 1e-5 of max |out| against
+    float64.  That limit separates f32 from single-pass TF32: the f32
+    plain twin passes it and the float64 version with C, B, x and M
+    rounded to TF32 fails it, at gentle and steep decay (rate 20: the
+    masked exp(cum[q] - cum[t]) overflows, and the oracle stays finite)."""
+    rng = np.random.default_rng(int(rate))
+    Cc, Bc, xc, cum, dtc = _ssd_case(rng, 2, 2, 128, 3, 32, 16)
+    dtc = np.log1p(np.exp(rng.normal(size=dtc.shape))).astype(np.float32)
+    cum = np.cumsum(-rate * dtc, axis=2).astype(np.float32)
+    args = [_t(a) for a in (Cc, Bc, xc, cum, dtc)]
+    want = ref.ssd_chunk_intra_f64(*args)
+    assert torch.isfinite(want).all()
+    lim = 1e-5 * want.abs().max().item()
+    f32 = ssd_chunk.ssd_chunk_intra_ref(*args).double()
+    tf32 = ref.ssd_chunk_intra_f64(*args, tf32=True)
+    assert (f32 - want).abs().max().item() < lim / 10
+    assert (tf32 - want).abs().max().item() > 10 * lim
+
+
 def test_hybrid_wrappers_count_no_cpu_launch_and_other_devices_raise():
     """CPU tensors take the plain twins without counting a launch; a
     tensor elsewhere goes to the launcher, which refuses what is not
