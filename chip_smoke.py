@@ -30,14 +30,24 @@ Phases, each fatal on failure (nothing is caught):
   4. serve 24 requests at full ``hstu-gr`` width through
      ``repro_torch.launch.serve.main`` — live, ``--batched``,
      ``--batched --device-pool``, ``--segments --device-pool`` and
-     ``--batched --segments --device-pool`` — with every launch counter
+     ``--batched --segments --device-pool`` — every rank and prefill
+     launch a CUDA-graph replay (the default), with every launch counter
      zeroed just before and read just after; each kernel of the mode
      must have launched (under ``--segments`` the segment kernel, and
      never the paged one), hits must include ``hbm_hit``, and
      ``serve.main`` asserts that the device pool never re-ships; the
-     rank launches of each mode are also tallied by batch size;
+     rank launches of each mode are also tallied by batch size (eager
+     launches where they run, each graph replay by its tally) and the
+     tally must equal the counters;
   5. the relay-vs-full eps contract at full width, and full-width scores
      on the card against the same weights on the CPU;
+  5b. ``graphs``: CUDA graphs against eager launches, in turns — the B=1
+     ``rank_with_cache`` (wall, device busy, idle share), the copy of
+     dense psi into a graph's static psi, serve's rank p50 / p99 in the
+     live and ``--batched --device-pool`` modes (launch counts equal
+     between runs whose runtime decided alike), and one fixed sequence
+     of executor calls with equal counts and outputs within 1e-6 of the
+     largest |value| (bit for bit expected);
   6. ``hybrid``: the Zamba2 serve path (``zamba2_1p2b`` at full width and
      depth, bf16, random weights from a seed, LoRA live).  First the
      decode and SSD kernels against their plain twins on the card, at the
@@ -52,11 +62,14 @@ Phases, each fatal on failure (nothing is caught):
      bound (and row 6's 3xTF32 one), per launch by CUDA-graph replay,
      and, in turns with the kernel, the one PyTorch call that computes
      the same function; then 2 prompts x 8192 tokens through
-     ``make_prefill_step`` and 32
-     greedy steps through ``make_serve_step``, counters zeroed
+     ``make_prefill_step`` (eager) and 32
+     greedy steps through ``make_serve_step`` (a CUDA-graph replay per
+     step after the first), counters zeroed
      just before each and read just after (38 + 38 SSD launches per
-     prefill, 6 decode launches per step); a profile of one prefill
-     (with the SSD kernels' share of its wall) and one decode step; and
+     prefill, 6 decode launches per step); the decode again eagerly and
+     with graphs, in turns, from copies of the post-prefill cache, with
+     identical greedy tokens; a profile of one prefill (with the SSD
+     kernels' share of its wall) and one decode step each way; and
      card vs CPU logits for a float32 copy at full
      width and 7 layers (one section + a 1-layer tail), prefill plus 4
      decode steps, within 5e-4 of the largest |logit|;
@@ -87,6 +100,7 @@ BF16_REL = 2 ** -6  # bf16 decode vs plain: of the largest |plain|, ~2 bf16 ulps
 FP32_PEAK = 67e12   # H100 SXM FP32 outside the tensor cores, FLOP/s
 TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor cores, FLOP/s
 F64_REL = 1e-5      # rank kernels vs float64: of the largest |out|
+GRAPH_REL = 1e-6    # graph replay vs eager, of the largest |value|
 HBM_BW = 3.35e12    # H100 SXM device memory, B/s
 H, D = 4, 64
 PSI, N_INCR, N_ITEMS = 2048, 16, 64
@@ -488,36 +502,84 @@ def segment_checks(torch, results, gen, check):
 # --- phase 4: the main path ------------------------------------------------------
 
 
-def _batch_mix(cuda_lib):
-    """Wrap ``cuda_lib.rank_attn`` so that each rank launch is tallied
-    by kernel and batch size into the returned dict; the caller restores
-    the original.  The wrappers' own counters are untouched."""
-    launch, mix = cuda_lib.rank_attn, {}
+def _batch_mix(torch, cuda_lib, graphs):
+    """Tally each rank launch by kernel and batch size into the returned
+    dict; the caller calls the returned ``restore``.  An eager launch is
+    seen at ``cuda_lib.rank_attn`` (a call made while a CUDA graph is
+    being captured runs nothing and is skipped); a graph replay adds its
+    graph's tally at the graph's batch (``graphs.Graph.replay`` is
+    wrapped too).  The wrappers' own counters are untouched."""
+    launch, replay, mix = cuda_lib.rank_attn, graphs.Graph.replay, {}
+
+    def add(kind, B, n):
+        by_b = mix.setdefault(kind, {})
+        by_b[f"B{B}"] = by_b.get(f"B{B}", 0) + n
 
     def tally(q, *args, prefix=None, pages=None, spans=None, **kw):
         out = launch(q, *args, prefix=prefix, pages=pages, spans=spans, **kw)
-        kind = ("segment_rank_attn" if spans is not None else
+        if not torch.cuda.is_current_stream_capturing():
+            add("segment_rank_attn" if spans is not None else
                 "paged_prefix_rank_attn" if pages is not None else
-                "prefix_rank_attn" if prefix is not None else "hstu_attn")
-        by_b = mix.setdefault(kind, {})
-        by_b[f"B{q.shape[0]}"] = by_b.get(f"B{q.shape[0]}", 0) + 1
+                "prefix_rank_attn" if prefix is not None else "hstu_attn",
+                q.shape[0], 1)
         return out
 
-    cuda_lib.rank_attn = tally
-    return launch, mix
+    def replayed(self, *args, **kw):
+        out = replay(self, *args, **kw)
+        for kind, n in self.tally.items():
+            add(kind, self.batch, n)
+        return out
+
+    def restore():
+        cuda_lib.rank_attn, graphs.Graph.replay = launch, replay
+
+    cuda_lib.rank_attn, graphs.Graph.replay = tally, replayed
+    return restore, mix
+
+
+RANK_COUNTERS = ("hstu_attn", "prefix_rank_attn", "paged_prefix_rank_attn",
+                 "segment_rank_attn")
+
+
+def serve_run(torch, flags, requests):
+    """One full-width ``serve.main`` run with every launch counter zeroed
+    just before and read just after: (hits, launches by kernel, rank
+    launches by kernel and batch size, rank compute ms per request, the
+    graph runner's captures and pool bytes, wall s)."""
+    import numpy as np
+    from repro_torch.core import graphs
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve
+
+    graphs.write_counters({n: 0 for n in graphs.COUNTERS})
+    restore, mix = _batch_mix(torch, cuda_lib, graphs)
+    summary = {}
+    t0 = time.perf_counter()
+    try:
+        # serve.main asserts launch_reships == 0 under --device-pool
+        hits = serve.main(["--no-smoke", "--device", "cuda", "--requests",
+                           str(requests), *flags], summary)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    counts = {n: c for n, c in graphs.read_counters().items()
+              if n in RANK_COUNTERS}
+    for n, c in counts.items():
+        assert sum(mix.get(n, {}).values()) == c, (
+            f"{flags}: {n} counted {c} launches, tallied {mix.get(n)}")
+    lat = summary["rank_ms"]
+    runner = summary["graphs"]
+    return dict(hits=hits, launches=counts, by_batch=mix, wall_s=wall,
+                requests=requests, rank_ms=lat, batch=summary.get("batch"),
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                graphs=None if runner is None else dict(
+                    runner.captures, pool_bytes=runner.pool_bytes(),
+                    keys=len(runner.graphs)))
 
 
 def serve_phase(torch, results, requests):
-    from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels import hstu_attn as hk
-    from repro_torch.kernels import paged_prefix_attn as pk
-    from repro_torch.kernels import prefix_rank_attn as rk
-    from repro_torch.launch import serve
-
-    counters = {"hstu_attn": (hk, "launches"),
-                "prefix_rank_attn": (rk, "launches"),
-                "paged_prefix_rank_attn": (pk, "launches"),
-                "segment_rank_attn": (pk, "launches_segment")}
     seg_must = ("hstu_attn", "segment_rank_attn")
     # (mode, flags, kernels that must launch, kernels that must not)
     modes = (("live", [], ("hstu_attn", "prefix_rank_attn"), ()),
@@ -530,24 +592,13 @@ def serve_phase(torch, results, requests):
               ["--batched", "--segments", "--device-pool"], seg_must,
               ("paged_prefix_rank_attn",)))
     for mode, flags, must, must_not in modes:
-        for m, attr in counters.values():
-            setattr(m, attr, 0)
-        launch, mix = _batch_mix(cuda_lib)
-        t0 = time.perf_counter()
-        try:
-            # serve.main asserts launch_reships == 0 under --device-pool
-            hits = serve.main(["--no-smoke", "--device", "cuda", "--requests",
-                               str(requests), *flags])
-            torch.cuda.synchronize()
-        finally:
-            cuda_lib.rank_attn = launch
-        wall = time.perf_counter() - t0
-        counts = {n: getattr(m, attr) for n, (m, attr) in counters.items()}
-        log(f"serve {mode}: {wall:.1f} s hits={hits} launches={counts}")
-        log(f"serve {mode}: launches by batch size {mix}")
-        for n, c in counts.items():
-            assert sum(mix.get(n, {}).values()) == c, (
-                f"{mode}: {n} counted {c} launches, tallied {mix.get(n)}")
+        r = serve_run(torch, flags, requests)
+        hits, counts = r["hits"], r["launches"]
+        log(f"serve {mode}: {r['wall_s']:.1f} s hits={hits} launches={counts} "
+            f"rank p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms, "
+            f"graphs {r['graphs']}")
+        log(f"serve {mode}: launches by batch size {r['by_batch']}")
+        assert r["graphs"] is not None, f"{mode}: served without graphs"
         assert hits.get("hbm_hit", 0) > 0, f"{mode}: no hbm_hit in {hits}"
         for n in must:
             assert counts[n] > 0, f"{mode}: {n} never launched"
@@ -555,10 +606,8 @@ def serve_phase(torch, results, requests):
             assert counts[n] == 0, f"{mode}: {n} launched {counts[n]} times"
         for n, c in counts.items():
             results[n]["launches"] += c
-        results["_serve"][mode] = dict(hits=hits, launches=counts,
-                                       by_batch=mix, wall_s=wall,
-                                       requests=requests)
-    for n in counters:
+        results["_serve"][mode] = r
+    for n in RANK_COUNTERS:
         assert results[n]["launches"] > 0, f"{n} never launched on the main path"
 
 
@@ -645,6 +694,177 @@ def profile_fn(torch, label, fn, iters):
         log(f"  host   {ms:.4f} ms  {name[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=idle, top=top,
                 host=host, kernels=by_kernel)
+
+
+# --- phase 5b: CUDA graphs against eager launches ---------------------------------
+
+
+def graphs_phase(torch, results, requests):
+    """Graphs (the default) against eager launches, in turns: the B=1
+    full-width ``rank_with_cache`` (wall, device busy, idle share; the
+    graph path copies psi into its static input), the copy of dense psi
+    into a graph's static psi, and serve's rank p50 / p99 in the live
+    and ``--batched --device-pool`` modes with equal per-kernel launch
+    counts.  The hybrid decode's comparison runs in the hybrid phase."""
+    import numpy as np
+    from repro_torch.core.graphs import GraphRunner
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.batching import stack_psi
+
+    out = results.setdefault("_graphs", {})
+    cfg = get_config("hstu-gr")
+    model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    _, psi = model.prefill(on(rng.integers(0, cfg.vocab, (1, 1024))))
+    incr = on(rng.integers(0, cfg.vocab, (1, N_INCR)))
+    items = on(rng.integers(0, cfg.vocab, (1, N_ITEMS)))
+    runner = GraphRunner("cuda")
+    key = ("rank", 1, 1024, N_INCR, N_ITEMS)
+    graph = lambda: runner.run(key, model.rank_with_cache, (psi, incr, items))
+    eager = lambda: model.rank_with_cache(psi, incr, items)
+    want = eager()
+    for _ in range(3):
+        graph()
+        eager()
+    assert torch.equal(graph(), want), "rank_with_cache: replay != eager"
+    prof = {"eager": [], "graphs": []}
+    for who in ("eager", "graphs", "graphs", "eager"):
+        prof[who].append(profile_fn(torch, f"rank_with_cache B=1 ({who})",
+                                    graph if who == "graphs" else eager, 5))
+    out["rank_b1"] = {k: [{f: p[f] for f in ("wall_ms", "busy_ms",
+                                               "idle_share")} for p in v]
+                      for k, v in prof.items()}
+    # the copy of dense psi into a graph's static psi: one user at bucket
+    # 2048 (L x 2 x 2048 x H x D float32), and a B=8 group through
+    # stack_psi into the static buffer (members of 2048 tokens)
+    user = tuple(torch.randn((cfg.n_layers, 1, 2048, cfg.n_heads,
+                              cfg.head_dim), device="cuda") for _ in range(2))
+    static1 = tuple(torch.empty_like(a) for a in user)
+    static8 = tuple(torch.empty((cfg.n_layers, 8, 2048, cfg.n_heads,
+                                 cfg.head_dim), device="cuda")
+                    for _ in range(2))
+    nbytes = sum(a.numel() * a.element_size() for a in user)
+    copy1 = _time_ms(torch, lambda: [s.copy_(a) for s, a in
+                                      zip(static1, user)])
+    copy8 = _time_ms(torch, lambda: stack_psi([user] * 8, 2048, out=static8))
+    out["psi_copy"] = dict(bytes_per_user=nbytes, b1_ms=copy1, b8_ms=copy8,
+                           b1_bytes_bound_ms=2 * nbytes / HBM_BW * 1e3)
+    log(f"psi copy into the static psi: B=1 at 2048 ({nbytes / 1e6:.1f} MB) "
+        f"{copy1:.4f} ms, B=8 group {copy8:.4f} ms (read + write bound "
+        f"{2 * nbytes / HBM_BW * 1e3:.4f} ms a user)")
+    del user, static1, static8, model, psi, runner
+
+    # serve: graphs and eager in turns, g e e g (the first g is the serve
+    # phase's run where it ran), the same stream each time
+    for mode, flags in (("live", []),
+                        ("batched-device-pool", ["--batched", "--device-pool"])):
+        runs = {"graphs": [], "eager": []}
+        first = results["_serve"].get(mode)
+        order = ("eager", "eager", "graphs") if first else \
+            ("graphs", "eager", "eager", "graphs")
+        if first:
+            runs["graphs"].append(first)
+        for who in order:
+            runs[who].append(serve_run(
+                torch, flags + (["--no-graphs"] if who == "eager" else []),
+                requests))
+        # the runtime reads the measured latencies (the relay race, the
+        # batch slots), so a run may take other decisions than another:
+        # counts are held equal between runs that decided alike (same
+        # hits, same rank and prefill batches); the executor check below
+        # holds them equal on one fixed call sequence
+        ref = runs["graphs"][0]
+        alike = []
+        for who, rs in runs.items():
+            for r in rs:
+                assert (r["graphs"] is None) == (who == "eager")
+                if (r["hits"], r["batch"]) == (ref["hits"], ref["batch"]):
+                    assert r["launches"] == ref["launches"], (
+                        f"{mode}: {who} counted {r['launches']}, graphs "
+                        f"{ref['launches']} on the same decisions")
+                    alike.append(who)
+        out[mode] = {who: [{f: r[f] for f in ("p50_ms", "p99_ms", "wall_s",
+                                              "graphs", "launches", "hits")}
+                           for r in rs] for who, rs in runs.items()}
+        out[mode]["alike"] = alike
+        log(f"graphs {mode}: rank p50 / p99 ms, graphs " + ", ".join(
+            f"{r['p50_ms']:.4f} / {r['p99_ms']:.4f}" for r in runs["graphs"])
+            + "; eager " + ", ".join(
+            f"{r['p50_ms']:.4f} / {r['p99_ms']:.4f}" for r in runs["eager"])
+            + f"; launches " + ", ".join(str(r["launches"]) for rs in
+                                        runs.values() for r in rs)
+            + f" (runs deciding alike, counts equal: {alike}); graph pool "
+            f"{[r['graphs']['pool_bytes'] for r in runs['graphs']]} B")
+    executor_counts(torch, out)
+
+
+def executor_counts(torch, out):
+    """One fixed sequence of executor calls at full width — warm-up,
+    prefill of single users and of a group, dense rank and full rank per
+    user, and groups of 1, 2, 3 and 8 — through a ``batched`` executor
+    with graphs and one without: every per-kernel launch count equal, and
+    every output equal bit for bit."""
+    from repro_torch.core import BatchingConfig, UserMeta, get_executor
+    from repro_torch.core.graphs import read_counters, write_counters
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    from repro_torch.models import build_model, get_config
+    from repro_torch.serving.batching import PendingRank
+
+    cfg = get_config("hstu-gr")
+    model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    store = UserBehaviorStore(WorkloadConfig(
+        vocab=cfg.vocab, n_items=N_ITEMS, incr_len=N_INCR, max_len=2048))
+    metas = [UserMeta(user_id=u, prefix_len=n, incr_len=N_INCR,
+                      n_items=N_ITEMS)
+             for u, n in enumerate((300, 700, 1500, 2048, 100, 64, 900, 1200))]
+    twins = [UserMeta(user_id=100 + u, prefix_len=n, incr_len=N_INCR,
+                      n_items=N_ITEMS) for u, n in enumerate((290, 300, 270))]
+
+    def drive(graphs):
+        ex = get_executor("batched")(model, store,
+                                     batching=BatchingConfig(max_batch=8),
+                                     graphs=graphs)
+        write_counters({n: 0 for n in read_counters()})
+        ex.warmup([m.prefix_len for m in metas], batch_sizes=(1, 2, 4, 8),
+                  incr_len=N_INCR, n_items=N_ITEMS)
+        outs = []
+        psis = [ex.pre_infer(m)[0] for m in metas]
+        outs += psis
+        for _ in range(2):
+            outs += [psi for psi, _ in ex.pre_infer_group(twins)[0]]
+            for m, psi in zip(metas, psis):
+                outs.append(ex.rank_cached(m, psi)[0])
+                outs.append(ex.rank_full(m)[0])
+            for n in (1, 2, 3, 8):
+                for cached in (True, False):
+                    group = [PendingRank(user_id=m.user_id,
+                                         psi=psi if cached else None,
+                                         prefix_len=m.prefix_len, meta=m)
+                             for m, psi in zip(metas[:n], psis[:n])]
+                    outs += ex.rank_group(group)[0]
+        torch.cuda.synchronize()
+        return outs, read_counters(), ex.graphs
+
+    g_outs, g_counts, runner = drive(None)
+    e_outs, e_counts, _ = drive(False)
+    assert g_counts == e_counts, f"graphs {g_counts} != eager {e_counts}"
+    from repro_torch.core.graphs import tensor_leaves
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        tensor_leaves(g_outs), tensor_leaves(e_outs)))
+    top = max(b.abs().max().item() for b in tensor_leaves(e_outs))
+    # bit for bit unless cuBLAS picks another algorithm under capture;
+    # then within 1e-6 of the largest |value|
+    assert diff <= GRAPH_REL * top, (
+        f"graph replays differ from eager by {diff:.3e} (max |value| {top})")
+    out["executor"] = dict(launches=g_counts, captures=runner.captures,
+                           keys=len(runner.graphs),
+                           pool_bytes=runner.pool_bytes(), max_diff=diff,
+                           max_value=top)
+    log(f"executor sequence: launches {g_counts} with graphs and eagerly; "
+        f"max |graph - eager| {diff:.3e} (bitwise: {diff == 0}) of max "
+        f"|value| {top:.3e}; {runner.captures}, graph pool "
+        f"{runner.pool_bytes() / 2**20:.1f} MiB over {len(runner.graphs)} keys")
 
 
 # --- phase 6: the Zamba2 hybrid serve path -----------------------------------------
@@ -885,34 +1105,65 @@ def hybrid_phase(torch, results):
     assert tuple(cache["a"][0].shape) == (model.n_sections, HYB_B, HYB_S,
                                           cfg.n_kv_heads, cfg.head_dim)
 
-    zero()
-    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    # decode: the main path replays a CUDA graph per (batch, cache) key
+    # (make_serve_step's default); graphs and eager then in turns from
+    # copies of the same post-prefill cache, with identical greedy tokens
+    clone = lambda c: {"m": {k: tuple(t.clone() for t in v)
+                             for k, v in c["m"].items()},
+                       "a": tuple(t.clone() for t in c["a"])}
+    base = clone(cache)
+    eager_step = make_serve_step(model, graphs=False)
+    tok0 = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
     pos = torch.full((HYB_B,), HYB_S, device="cuda")
-    out = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(HYB_STEPS):
-        before = dk.launches
-        logits, cache = serve_step(cache, {"token": tok, "pos": pos + i})
-        assert dk.launches - before == model.n_sections, (i, dk.launches)
-        tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-        out.append(tok)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / HYB_STEPS
+
+    def decode(step, c, counted=False):
+        """HYB_STEPS greedy steps: (ms of the first step, ms per later
+        step, ms per step over all, tokens, last logits)."""
+        tok, out = tok0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(HYB_STEPS):
+            before = dk.launches
+            logits, c = step(c, {"token": tok, "pos": pos + i})
+            if counted:
+                assert dk.launches - before == model.n_sections, (i, dk.launches)
+            tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            out.append(tok)
+            if i == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / (HYB_STEPS - 1),
+                (t2 - t0) * 1e3 / HYB_STEPS, torch.cat(out, 1), logits)
+
+    zero()
+    first_ms, rest_ms, decode_ms, gen_toks, logits = decode(serve_step, cache,
+                                                            counted=True)
     c_dec = counters()
-    log(f"decode {HYB_STEPS} steps: {decode_ms:.2f} ms/step, "
+    log(f"decode {HYB_STEPS} steps (graphs): {decode_ms:.2f} ms/step "
+        f"(first {first_ms:.2f}, later {rest_ms:.4f}), "
         f"{HYB_B * 1e3 / decode_ms:.1f} tokens/s, launches {c_dec}")
     assert c_dec == {"ssd_chunk_intra": 0, "ssd_chunk_state": 0,
                      "decode_attn": model.n_sections * HYB_STEPS}, c_dec
     assert torch.isfinite(logits).all(), "decode: non-finite logits"
-    gen_toks = torch.cat(out, 1)
     assert ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()
     for name in c_pre:
         results[name]["launches"] += c_pre[name] + c_dec[name]
+    turns = {"graphs": [(first_ms, rest_ms, decode_ms)], "eager": []}
+    for who in ("eager", "eager", "graphs"):
+        f, r, d, toks, _ = decode(eager_step if who == "eager" else serve_step,
+                                  clone(base))
+        assert torch.equal(toks, gen_toks), f"decode ({who}): other tokens"
+        turns[who].append((f, r, d))
+    graph_pool = serve_step.runner.pool_bytes()
+    log(f"decode ms per step (first, later, all), graphs {turns['graphs']}, "
+        f"eager {turns['eager']}; greedy tokens identical; graph pool "
+        f"{graph_pool / 2**20:.1f} MiB over "
+        f"{len(serve_step.runner.graphs)} cache keys")
 
     prof_pre = profile_fn(torch, f"prefill {HYB_B}x{HYB_S}",
                           lambda: prefill({"tokens": prompts}), 1)
-    probe = {"m": cache["m"], "a": tuple(t.clone() for t in cache["a"])}
     ssd = {re.search(r"ssd_\w+", k).group(0): v
            for k, v in prof_pre["kernels"].items() if "ssd_" in k}
     ssd_ms = sum(ssd.values())
@@ -921,14 +1172,19 @@ def hybrid_phase(torch, results):
         f"({ssd_ms / prof_pre['wall_ms']:.3f} of the wall): " + ", ".join(
             f"{k} {v:.4f}" for k, v in ssd.items()))
     prof_pre["ssd_ms"] = ssd_ms
-    prof_dec = profile_fn(
-        torch, "decode step",
-        lambda: serve_step(probe, {"token": tok, "pos": pos + HYB_STEPS}), 5)
+    prof_dec = {}
+    for who, step in (("graphs", serve_step), ("eager", eager_step)):
+        probe = clone(base)
+        batch = {"token": tok0, "pos": pos}
+        step(probe, batch)                  # capture / warm
+        prof_dec[who] = profile_fn(torch, f"decode step ({who})",
+                                   lambda: step(probe, batch), 5)
     results["_hybrid"] = dict(
         config="zamba2_1p2b", params=n_params, batch=HYB_B, prompt=HYB_S,
         steps=HYB_STEPS, prefill_ms=prefill_ms,
         prefill_tok_s=HYB_B * HYB_S * 1e3 / prefill_ms,
         decode_ms_per_step=decode_ms, decode_tok_s=HYB_B * 1e3 / decode_ms,
+        decode_turns=turns, decode_graph_pool_bytes=graph_pool,
         launches_prefill=c_pre, launches_decode=c_dec,
         profile_prefill=prof_pre, profile_decode=prof_dec,
         generated=gen_toks.tolist())
@@ -967,7 +1223,7 @@ def hybrid_phase(torch, results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,relay,hybrid")
+    ap.add_argument("--phases", default="kernels,serve,relay,graphs,hybrid")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1002,6 +1258,8 @@ def main(argv=None):
         serve_phase(torch, results, args.requests)
     if "relay" in phases:
         relay_phase(torch, results)
+    if "graphs" in phases:
+        graphs_phase(torch, results, args.requests)
     if "hybrid" in phases:
         hybrid_phase(torch, results)
 

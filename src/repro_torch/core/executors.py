@@ -45,6 +45,7 @@ hop) differs.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Protocol, \
     Sequence, Tuple, runtime_checkable
 
@@ -57,6 +58,7 @@ from repro_torch.serving.batching import (BatchingConfig, PendingRank,
 
 from .cache import kv_nbytes
 from .costmodel import GRCostModel
+from .graphs import GraphRunner, resolve_runner
 from .paging import (DevicePagePool, PageLayout, PagedPsi, ceil_div,
                      span_page_rows)
 from .types import UserMeta
@@ -101,17 +103,19 @@ def _pages_of(tokens: int, psi: PagedPsi) -> int:
     return page_bucket(tokens, psi.layout.page_tokens)
 
 
-def _pool_and_tables(psis: Sequence[PagedPsi], np_bucket: int, device):
+def _pool_and_tables(psis: Sequence[PagedPsi], np_bucket: int, device,
+                     runner: Optional[GraphRunner] = None):
     """The pool tensor and the (B, L, 2, np_bucket) int32 page tables —
     per-member (slabs, n) tables padded with the pool's null (all-zero)
     page — that every paged launch reads.
 
     The pool: a ``DevicePagePool`` passes its device-resident tensor by
     REFERENCE (zero host->device traffic per launch); a host-buffer pool
-    re-ships the whole pool, counted in the owning pool's ``h2d``
-    ledger.  A member whose table exceeds ``np_bucket`` is an error —
-    truncating would silently drop cached pages (callers widen the
-    launch bucket to the group's largest member instead)."""
+    re-ships the whole pool (into the graph runner's static pool buffer
+    when graphs are on), counted in the owning pool's ``h2d`` ledger.  A
+    member whose table exceeds ``np_bucket`` is an error — truncating
+    would silently drop cached pages (callers widen the launch bucket to
+    the group's largest member instead)."""
     buf = psis[0].buffer
     null = buf.shape[0] - 1
     rows = []
@@ -129,39 +133,37 @@ def _pool_and_tables(psis: Sequence[PagedPsi], np_bucket: int, device):
     if isinstance(pool, DevicePagePool):
         launch_buf = pool.device_view(buf)
     else:
-        launch_buf = torch.from_numpy(buf).to(device)  # O(pool bytes)
+        host = torch.from_numpy(buf)
+        if runner is None:
+            launch_buf = host.to(device)              # O(pool bytes)
+        else:
+            launch_buf = runner.reship_buffer(host.shape, host.dtype)
+            launch_buf.copy_(host)                    # O(pool bytes)
         if pool is not None:
             pool.h2d["launch_reships"] += 1
             pool.h2d["reshipped_bytes"] += int(buf.nbytes)
     return launch_buf, torch.from_numpy(np.stack(rows)).to(device)
 
 
-def _page_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
-    """The paged kernel's launch arguments: pool, tables and the (B,)
+def _page_rows(psis: Sequence[PagedPsi], np_bucket: int, device,
+               segments: bool):
+    """The per-row inputs of a paged launch besides the tables: the (B,)
     int32 resident token counts (``PagedPsi.n_tokens``: keys between a
-    user's prefix_len and the 64-token grid are real K/V, which the
-    dense path attends to as well)."""
-    buf, tables = _pool_and_tables(psis, np_bucket, device)
-    prefix_lens = torch.tensor([psi.n_tokens for psi in psis],
-                               dtype=torch.int32, device=device)
-    return buf, tables, prefix_lens
-
-
-def _segment_launch_args(psis: Sequence[PagedPsi], np_bucket: int, device):
-    """The segment kernel's launch arguments: pool and tables as
-    ``_page_launch_args``, plus each member's ``span_page_rows`` as the
-    (B, np_bucket) int32 ``page_pos`` / ``page_valid``, padded slots at
-    position 0 holding nothing.  Residency rides in ``page_valid``.  A
-    prefix-only member is one run ``(0, n_tokens)``, which gives the
-    paged launch's scores."""
-    buf, tables = _pool_and_tables(psis, np_bucket, device)
+    user's prefix_len and the 64-token grid are real K/V, which the dense
+    path attends to as well); or, for the segment kernel, each member's
+    ``span_page_rows`` as the (B, np_bucket) int32 ``page_pos`` /
+    ``page_valid``, padded slots at position 0 holding nothing.
+    Residency rides in ``page_valid``.  A prefix-only member is one run
+    ``(0, n_tokens)``, which gives the paged launch's scores."""
+    if not segments:
+        return (torch.tensor([psi.n_tokens for psi in psis],
+                             dtype=torch.int32, device=device),)
     pos = np.zeros((len(psis), np_bucket), np.int32)
     valid = np.zeros((len(psis), np_bucket), np.int32)
     for i, psi in enumerate(psis):
         p, v = span_page_rows(psi)
         pos[i, :len(p)], valid[i, :len(v)] = p, v
-    return (buf, tables, torch.from_numpy(pos).to(device),
-            torch.from_numpy(valid).to(device))
+    return torch.from_numpy(pos).to(device), torch.from_numpy(valid).to(device)
 
 
 # --- registry ----------------------------------------------------------------
@@ -279,11 +281,19 @@ class SimExecutor:
 
 @register_executor("live")
 class LiveExecutor:
-    """Runs the real HSTU backbone eagerly on the model's device."""
+    """Runs the real HSTU backbone on the model's device.
+
+    On a CUDA device every entry point (prefill, rank with cache, full
+    rank, paged and segment rank) runs as a CUDA-graph replay keyed by
+    its launch shape (``core/graphs.py``): the counterpart of the
+    reference's jitted entry points.  ``graphs``: None (default) for
+    graphs on CUDA and eager on the CPU, False for eager, True to
+    require graphs (raises on the CPU), or a ``GraphRunner`` shared by
+    several executors of one model."""
 
     def __init__(self, model, store, cost: Optional[GRCostModel] = None,
                  page_tokens: int = 0, segments: bool = False,
-                 device_pool: bool = False):
+                 device_pool: bool = False, graphs=None):
         self.model = model
         self.device = model.device      # every tensor of this executor
         self.store = store
@@ -300,6 +310,8 @@ class LiveExecutor:
         # THIS model's psi, not the (possibly full-scale) cost model's
         self.page_layout = (PageLayout.from_model_config(
             model.cfg, page_tokens) if page_tokens else None)
+        self.graphs = resolve_runner(graphs, self.device)
+        self._warmed: set = set()
 
     def _sync(self) -> None:
         """Wait for the device before the clock is read: kernel
@@ -319,6 +331,115 @@ class LiveExecutor:
     def _round(self, n: int, m: int = 64) -> int:
         return max(m, (n + m - 1) // m * m)  # bucketed shapes
 
+    def _rank_len(self, n: int) -> int:
+        """Prefix length a dense rank launch runs at: psi as cached."""
+        return n
+
+    def _batch_grid(self, n: int) -> int:
+        return 1
+
+    # --- launches: eager, or replayed from a graph per launch key -----------
+    # Each launch is (key, fn, args, refs): ``fn(*refs, *args)`` eagerly,
+    # or ``GraphRunner.run`` over them.  A key is (entry point, batch,
+    # shapes...); a page pool read in place is a ref, its storage in the
+    # key.
+
+    def _run(self, key, fn, args, refs=()):
+        if self.graphs is None:
+            return fn(*refs, *args)
+        return self.graphs.run(key, fn, args, refs)
+
+    def _owned(self, t):
+        """A launch's result the caller may keep: graph outputs are
+        overwritten by the next replay, so they are cloned."""
+        if self.graphs is None:
+            return t
+        return tuple(a.clone() for a in t) if isinstance(t, tuple) \
+            else t.clone()
+
+    def _prefill_launch(self, toks):
+        return (("prefill", toks.shape[0], toks.shape[1]),
+                self.model.prefill, (toks,))
+
+    def _dense_launch(self, psis, bucket: int, incr, items):
+        """Rank over dense psi: each member's (K, V) zero-padded to
+        ``bucket`` and stacked on the batch axis — written straight into
+        the graph's static psi once the key is captured."""
+        key = ("rank", len(psis), bucket, incr.shape[1], items.shape[1])
+        g = self.graphs.get(key) if self.graphs is not None else None
+        if g is not None:
+            kv = stack_psi(psis, bucket, out=g.args[0])
+        elif len(psis) == 1:
+            kv = pad_psi(psis[0], bucket)
+        else:
+            kv = stack_psi(psis, bucket)
+        return key, self.model.rank_with_cache, (kv, incr, items)
+
+    def _full_launch(self, pref, incr, items):
+        return (("full", pref.shape[0], pref.shape[1], incr.shape[1],
+                 items.shape[1]), self.model.full_rank, (pref, incr, items))
+
+    def _paged_launch(self, buf, tables, rows, incr, items):
+        """One paged launch per layer over the pool ``buf``: through the
+        segment kernel when segments are on (every paged rank, span-
+        carrying or not, then reads the span tables), else through the
+        paged-prefix kernel.  The two give the same scores on the live
+        path, whose interior spans are zero K/V."""
+        kind, fn = (("segment", self.model.rank_with_segments)
+                    if self.segments else
+                    ("paged", self.model.rank_with_pages))
+        key = (kind, tables.shape[0], tables.shape[-1], incr.shape[1],
+               items.shape[1], buf.data_ptr(), tuple(buf.shape))
+        return key, fn, (tables, *rows, incr, items), (buf,)
+
+    def _rank_paged(self, psis: Sequence[PagedPsi], np_bucket: int, incr,
+                    items):
+        buf, tables = _pool_and_tables(psis, np_bucket, self.device,
+                                       self.graphs)
+        rows = _page_rows(psis, np_bucket, self.device, self.segments)
+        return self._run(*self._paged_launch(buf, tables, rows, incr, items))
+
+    # --- entry points ----------------------------------------------------------
+
+    def pre_infer(self, meta: UserMeta) -> Tuple[Any, int, float]:
+        n = self._round(meta.prefix_len)
+        toks = self._tokens(
+            np.resize(self.store.long_term(meta.user_id), n)[None, :])
+        t0 = time.perf_counter()
+        _, kv = self._run(*self._prefill_launch(toks))
+        kv = self._owned(kv)
+        self._sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        kv = self._pad_segments(kv, meta)
+        return kv, kv_nbytes(kv), ms
+
+    def rank_cached(self, meta: UserMeta, psi) -> Tuple[Any, float]:
+        incr = self._tokens(self.store.short_term(meta.user_id)[None, :])
+        items = self._tokens(self.store.candidates(meta.user_id)[None, :])
+        t0 = time.perf_counter()
+        if isinstance(psi, PagedPsi):
+            # page tables pad to the page-count bucket
+            scores = self._rank_paged([psi], _pages_of(psi.n_tokens, psi),
+                                      incr, items)
+        else:
+            kv = self._psi(psi)
+            scores = self._run(*self._dense_launch(
+                [kv], self._rank_len(kv[0].shape[2]), incr, items))
+        scores = self._owned(scores)
+        self._sync()
+        return scores, (time.perf_counter() - t0) * 1e3
+
+    def rank_full(self, meta: UserMeta) -> Tuple[Any, float]:
+        n = self._full_pad(meta.prefix_len)
+        pref = self._tokens(
+            np.resize(self.store.long_term(meta.user_id), n)[None, :])
+        incr = self._tokens(self.store.short_term(meta.user_id)[None, :])
+        items = self._tokens(self.store.candidates(meta.user_id)[None, :])
+        t0 = time.perf_counter()
+        scores = self._owned(self._run(*self._full_launch(pref, incr, items)))
+        self._sync()
+        return scores, (time.perf_counter() - t0) * 1e3
+
     def _pad_segments(self, kv, meta: UserMeta):
         """Append the segmented entry's span slots to live psi: one
         whole-page run of ZERO K/V per interior segment, matching the
@@ -334,55 +455,6 @@ class LiveExecutor:
         return tuple(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, extra))
                      for a in kv)
 
-    def pre_infer(self, meta: UserMeta) -> Tuple[Any, int, float]:
-        n = self._round(meta.prefix_len)
-        toks = self._tokens(
-            np.resize(self.store.long_term(meta.user_id), n)[None, :])
-        t0 = time.perf_counter()
-        _, kv = self.model.prefill(toks)
-        self._sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        kv = self._pad_segments(kv, meta)
-        return kv, kv_nbytes(kv), ms
-
-    def rank_cached(self, meta: UserMeta, psi) -> Tuple[Any, float]:
-        incr = self._tokens(self.store.short_term(meta.user_id)[None, :])
-        items = self._tokens(self.store.candidates(meta.user_id)[None, :])
-        t0 = time.perf_counter()
-        if isinstance(psi, PagedPsi):
-            scores = self._rank_paged([psi], _pages_of(psi.n_tokens, psi),
-                                      incr, items)
-        else:
-            scores = self.model.rank_with_cache(self._psi(psi), incr, items)
-        self._sync()
-        return scores, (time.perf_counter() - t0) * 1e3
-
-    def _rank_paged(self, psis: Sequence[PagedPsi], np_bucket: int, incr,
-                    items):
-        """One paged launch per layer over ``psis`` at ``np_bucket``
-        pages: through the segment kernel when segments are on (every
-        paged rank, span-carrying or not, then reads the span tables),
-        else through the paged-prefix kernel.  The two give the same
-        scores on the live path, whose interior spans are zero K/V."""
-        if self.segments:
-            buf, tables, pos, valid = _segment_launch_args(psis, np_bucket,
-                                                           self.device)
-            return self.model.rank_with_segments(buf, tables, pos, valid,
-                                                 incr, items)
-        buf, tables, plens = _page_launch_args(psis, np_bucket, self.device)
-        return self.model.rank_with_pages(buf, tables, plens, incr, items)
-
-    def rank_full(self, meta: UserMeta) -> Tuple[Any, float]:
-        n = self._full_pad(meta.prefix_len)
-        pref = self._tokens(
-            np.resize(self.store.long_term(meta.user_id), n)[None, :])
-        incr = self._tokens(self.store.short_term(meta.user_id)[None, :])
-        items = self._tokens(self.store.candidates(meta.user_id)[None, :])
-        t0 = time.perf_counter()
-        scores = self.model.full_rank(pref, incr, items)
-        self._sync()
-        return scores, (time.perf_counter() - t0) * 1e3
-
     def _full_pad(self, n: int) -> int:
         """Padded prefix length for the full-inference fallback."""
         return self._round(n)
@@ -393,6 +465,104 @@ class LiveExecutor:
         if self.page_tokens:
             return self.cost.paged_load_ms(t, self.page_tokens)
         return self.cost.dram_load_ms(t)
+
+    # --- startup pre-warming -------------------------------------------------
+
+    def _warm_shapes(self, prefix_lens, batch_sizes):
+        """(prefix lengths, batch sizes) ``warmup`` runs: every length
+        of the live 64-token grid the workload hits, batch 1."""
+        return sorted({self._round(int(n)) for n in prefix_lens}), [1]
+
+    def _warm(self, key, fn, args, refs=()):
+        if self.graphs is None:
+            fn(*refs, *args)
+        elif self.graphs.get(key) is None:
+            self.graphs.capture(key, fn, args, refs)
+
+    def _warm_pool(self, pool) -> torch.Tensor:
+        """The pool tensor a serving window's launches will read: a
+        ``DevicePagePool``'s resident tensor (bound to this device and
+        allocated now), else what a host pool re-ships into (the graph
+        runner's static buffer; a zero pool when eager)."""
+        cfg = self.model.cfg
+        shape = (pool.n_pages + 1, self.page_tokens, cfg.n_heads,
+                 cfg.head_dim)
+        dtype = self.model.tok.dtype
+        if isinstance(pool, DevicePagePool):
+            if pool.device is None:
+                pool.device = self.device
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            return pool.ensure_device(
+                np.broadcast_to(np.zeros((), np_dtype), shape))
+        if self.graphs is not None:
+            return self.graphs.reship_buffer(shape, dtype)
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def warmup(self, prefix_lens: Sequence[int],
+               batch_sizes: Sequence[int] = (1,),
+               incr_len: int = 64, n_items: int = 512,
+               pool_pages: int = 0, pools: Sequence = ()) -> List[Tuple]:
+        """Run the rank entry points once ahead of traffic, so that the
+        first request does not pay the kernel library's load (the build
+        and ``ctypes`` load of the CUDA kernels, cuBLAS handles); with
+        graphs, capture each launch key (the reference's jit compile,
+        ``repro.core.executors`` ``warmup``).  A key left out is captured
+        at its first hit.
+
+        ``prefix_lens`` is the expected workload (e.g. the sampled
+        arrival stream).  Returns the freshly warmed (prefix length,
+        batch, incr_len, n_items) keys (already-warm keys are skipped).
+        With ``page_tokens`` set, the paged launch runs too
+        (``rank_with_segments`` when segments are on, else
+        ``rank_with_pages``) over each of ``pools`` — the serving
+        windows' page pools, whose launch tensors the graphs then read
+        — or, without pools, over a zero pool of ``pool_pages``
+        pages."""
+        cfg = self.model.cfg
+        dtype = self.model.tok.dtype
+        lengths, sizes = self._warm_shapes(prefix_lens, batch_sizes)
+        if self.page_tokens and pools:
+            bufs = {t.data_ptr(): t for t in map(self._warm_pool, pools)}
+            bufs = list(bufs.values())
+        elif self.page_tokens and pool_pages:
+            bufs = [torch.zeros((pool_pages + 1, self.page_tokens,
+                                 cfg.n_heads, cfg.head_dim), dtype=dtype,
+                                device=self.device)]
+        else:
+            bufs = []
+        zeros = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                           device=self.device)
+        if self.graphs is not None:
+            self.graphs.warming = True
+        done = []
+        try:
+            for n in lengths:
+                for nb in sizes:
+                    key = (n, nb, incr_len, n_items)
+                    if key in self._warmed:
+                        continue
+                    z = torch.zeros((cfg.n_layers, 1, n, cfg.n_heads,
+                                     cfg.head_dim), dtype=dtype,
+                                    device=self.device)
+                    incr, items = zeros(nb, incr_len), zeros(nb, n_items)
+                    self._warm(*self._dense_launch([(z, z)] * nb, n, incr,
+                                                   items))
+                    self._warm(*self._full_launch(
+                        zeros(nb, self._full_pad(n)), incr, items))
+                    npb = page_bucket(n, self.page_tokens or 1)
+                    rows = ((zeros(nb, npb), zeros(nb, npb))
+                            if self.segments else (zeros(nb),))
+                    for buf in bufs:
+                        self._warm(*self._paged_launch(
+                            buf, zeros(nb, cfg.n_layers, 2, npb), rows,
+                            incr, items))
+                    self._sync()
+                    self._warmed.add(key)
+                    done.append(key)
+        finally:
+            if self.graphs is not None:
+                self.graphs.warming = False
+        return done
 
     # --- device-pool hooks ---------------------------------------------------
     # The paged window routes its page-data movement through the
@@ -435,8 +605,9 @@ class BatchedLiveExecutor(LiveExecutor):
         matching what the per-request call does after bucketing);
       * the batch axis snaps to a power-of-two grid by repeating the
         first member (row-independent compute, sliced off afterwards),
-        so few distinct launch shapes exist — ``warmup`` runs each once
-        so the first request does not pay the kernel library's load;
+        so few distinct launch shapes exist — ``warmup`` captures each
+        (or runs it once, eagerly) so the first request does not pay the
+        kernel library's load;
       * over a paged HBM window (``page_tokens > 0``) the group path
         becomes ``rank_with_pages``: members carry ``PagedPsi`` handles,
         their page tables pad to the page-count bucket with the pool's
@@ -447,20 +618,16 @@ class BatchedLiveExecutor(LiveExecutor):
     def __init__(self, model, store, cost: Optional[GRCostModel] = None,
                  batching: Optional[BatchingConfig] = None,
                  page_tokens: int = 0, segments: bool = False,
-                 device_pool: bool = False):
+                 device_pool: bool = False, graphs=None):
         super().__init__(model, store, cost, page_tokens=page_tokens,
-                         segments=segments, device_pool=device_pool)
+                         segments=segments, device_pool=device_pool,
+                         graphs=graphs)
         self.batching = batching or BatchingConfig()
-        self._warmed: set = set()
 
     # --- per-request paths on the bucket grid -------------------------------
 
-    def rank_cached(self, meta: UserMeta, psi) -> Tuple[Any, float]:
-        if isinstance(psi, PagedPsi):
-            # page tables already pad to the page-count bucket in super
-            return super().rank_cached(meta, psi)
-        psi = pad_psi(self._psi(psi), bucket_of(psi[0].shape[2]))
-        return super().rank_cached(meta, psi)
+    def _rank_len(self, n: int) -> int:
+        return bucket_of(n)
 
     def _full_pad(self, n: int) -> int:
         return bucket_of(n)
@@ -506,13 +673,14 @@ class BatchedLiveExecutor(LiveExecutor):
             scores = self._rank_paged([w.psi for w in rows], npb, incr,
                                       items)
         elif group[0].psi is not None:        # homogeneous by aggregator key
-            kv = stack_psi([self._psi(w.psi) for w in rows], bucket)
-            scores = self.model.rank_with_cache(kv, incr, items)
+            scores = self._run(*self._dense_launch(
+                [self._psi(w.psi) for w in rows], bucket, incr, items))
         else:
             pref = self._tokens(np.stack([
                 np.resize(self.store.long_term(w.user_id), bucket)
                 for w in rows]))
-            scores = self.model.full_rank(pref, incr, items)
+            scores = self._run(*self._full_launch(pref, incr, items))
+        scores = self._owned(scores[:n])
         self._sync()
         ms = (time.perf_counter() - t0) * 1e3
         return [scores[i] for i in range(n)], ms
@@ -524,87 +692,34 @@ class BatchedLiveExecutor(LiveExecutor):
         ``prefill_grid``, so every member's padded length is identical).
         The batch axis snaps to the power-of-two grid by repeating the
         first member.  Each member gets its OWN contiguous psi copy: a
-        view ``a[:, i:i+1]`` would pin the whole batched psi, and the
-        window's byte ledger would undercount the memory the device
-        holds."""
+        view ``a[:, i:i+1]`` would pin the whole batched psi (or, with
+        graphs, the next replay would overwrite it), and the window's
+        byte ledger would undercount the memory the device holds."""
         n = self._round(max(m.prefix_len for m in metas))
         rows = list(metas)
         rows += [metas[0]] * (self._batch_grid(len(metas)) - len(metas))
         toks = self._tokens(np.stack(
             [np.resize(self.store.long_term(m.user_id), n) for m in rows]))
         t0 = time.perf_counter()
-        _, kv = self.model.prefill(toks)
+        _, kv = self._run(*self._prefill_launch(toks))
         self._sync()
         ms = (time.perf_counter() - t0) * 1e3
         outs = []
-        for i in range(len(metas)):
+        for i, meta in enumerate(metas):
             psi = tuple(a[:, i:i + 1].clone(memory_format=torch.contiguous_format)
                         for a in kv)                 # (L, 1, n, H, D)
-            psi = self._pad_segments(psi, metas[i])
+            psi = self._pad_segments(psi, meta)
             outs.append((psi, kv_nbytes(psi)))
         return outs, ms
 
     # --- startup pre-warming -------------------------------------------------
 
-    def warmup(self, prefix_lens: Sequence[int],
-               batch_sizes: Sequence[int] = (1,),
-               incr_len: int = 64, n_items: int = 512,
-               pool_pages: int = 0) -> List[Tuple]:
-        """Run the bucketed rank entry points once ahead of traffic, so
-        the first request does not pay the kernel library's load (the
-        build and ``ctypes`` load of the CUDA kernels, cuBLAS handles).
-
-        ``prefix_lens`` is the expected workload (e.g. the sampled
-        arrival stream); the ``batching.max_buckets_live`` *most
-        frequent* buckets are warmed.  Returns the freshly warmed
-        (bucket, batch, incr_len, n_items) keys (already-warm keys are
-        skipped).  With ``page_tokens`` set, the paged launch runs too
-        (``rank_with_segments`` when segments are on, else
-        ``rank_with_pages``), over a zero pool of ``pool_pages`` pages."""
-        from collections import Counter
-        cfg = self.model.cfg
-        dtype = self.model.tok.dtype
+    def _warm_shapes(self, prefix_lens, batch_sizes):
+        """The ``batching.max_buckets_live`` most frequent buckets of the
+        workload, at every batch size of the power-of-two grid that
+        ``batch_sizes`` reach."""
         freq = Counter(bucket_of(int(n)) for n in prefix_lens)
         buckets = sorted(b for b, _ in
                          freq.most_common(self.batching.max_buckets_live))
-        sizes = sorted({self._batch_grid(int(b)) for b in batch_sizes})
-        done = []
-        for bucket in buckets:
-            for nb in sizes:
-                key = (bucket, nb, incr_len, n_items)
-                if key in self._warmed:
-                    continue
-                z = torch.zeros(
-                    (cfg.n_layers, nb, bucket, cfg.n_heads, cfg.head_dim),
-                    dtype=dtype, device=self.device)
-                incr = torch.zeros((nb, incr_len), dtype=torch.int32,
-                                   device=self.device)
-                items = torch.zeros((nb, n_items), dtype=torch.int32,
-                                    device=self.device)
-                self.model.rank_with_cache((z, z), incr, items)
-                pref = torch.zeros((nb, bucket), dtype=torch.int32,
-                                   device=self.device)
-                self.model.full_rank(pref, incr, items)
-                if self.page_tokens and pool_pages:
-                    npb = page_bucket(bucket, self.page_tokens)
-                    buf = torch.zeros(
-                        (pool_pages + 1, self.page_tokens,
-                         cfg.n_heads, cfg.head_dim), dtype=dtype,
-                        device=self.device)
-                    tables = torch.zeros((nb, cfg.n_layers, 2, npb),
-                                         dtype=torch.int32,
-                                         device=self.device)
-                    if self.segments:
-                        rows = torch.zeros((nb, npb), dtype=torch.int32,
-                                           device=self.device)
-                        self.model.rank_with_segments(buf, tables, rows,
-                                                      rows, incr, items)
-                    else:
-                        plens = torch.zeros((nb,), dtype=torch.int32,
-                                            device=self.device)
-                        self.model.rank_with_pages(buf, tables, plens,
-                                                   incr, items)
-                self._sync()
-                self._warmed.add(key)
-                done.append(key)
-        return done
+        return buckets, sorted({self._batch_grid(int(b))
+                                for b in batch_sizes})

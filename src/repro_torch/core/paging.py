@@ -211,7 +211,7 @@ class DevicePagePool(PagePool):
                     "the pool binds it (LiveExecutor.insert_pages)")
             self.device_buffer = torch.zeros(
                 host_buffer.shape, device=self.device,
-                dtype=torch.from_numpy(host_buffer[:0]).dtype)
+                dtype=torch.from_numpy(np.empty(0, host_buffer.dtype)).dtype)
         return self.device_buffer
 
     def device_view(self, host_buffer: np.ndarray):

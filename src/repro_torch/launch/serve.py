@@ -17,6 +17,12 @@ drive the identical ``RelayRuntime`` state machine
 ``--smoke`` (the default) serves the 2-layer smoke model; ``--no-smoke``
 serves the full-width configuration.  Weights are random, drawn from a
 seeded ``torch.Generator``.
+
+On a CUDA device every rank and prefill launch replays a CUDA graph per
+launch shape (``repro_torch.core.graphs``), captured while warming up
+for the shapes the sampled stream hits and at a shape's first hit
+otherwise; ``--no-graphs`` runs them eagerly.  The CPU always runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.core import (BatchingConfig, ClusterConfig, GRCostModel,
                               LiveExecutor, RelayGRService, TriggerConfig,
                               get_executor, relay_config)
+from repro_torch.core.graphs import resolve_runner
 from repro_torch.data.synthetic import (UserBehaviorStore, WorkloadConfig,
                                         request_stream)
 from repro_torch.kernels import paged_prefix_attn
@@ -49,6 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="serve the full-width configuration")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the live model (cuda or cpu)")
+    ap.add_argument("--no-graphs", dest="graphs", action="store_false",
+                    help="run the live launches eagerly instead of as "
+                         "CUDA-graph replays (the default on cuda)")
     ap.add_argument("--requests", type=int, default=100)
     ap.add_argument("--qps", type=float, default=200.0)
     ap.add_argument("--sim", action="store_true",
@@ -103,8 +113,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None):
+def main(argv=None, summary=None):
+    """Serve and print the report; returns the hit counts by kind.  A
+    ``summary`` dict, when given, receives each request's rank compute
+    ms (``rank_ms``), the graph runner (``graphs``, None when eager)
+    and, under ``--batched``, each instance's rank and prefill batch
+    statistics (``batch``)."""
     args = parse_args(argv)
+    summary = {} if summary is None else summary
 
     cfg = get_config(args.arch, smoke=args.smoke and not args.sim)
     cost = GRCostModel(get_config(args.arch))
@@ -160,9 +176,10 @@ def main(argv=None):
             assert abs(r.latency_ms - sum(r.components.values())) < 1e-6
             hits[r.hit.value] = hits.get(r.hit.value, 0) + 1
             lat.append(r.components["rank"])
+        summary["rank_ms"] = lat
         print(f"requests={len(results)} hits={hits}")
-        print(f"rank compute ms: p50={np.percentile(lat, 50):.1f} "
-              f"p99={np.percentile(lat, 99):.1f}")
+        print(f"rank compute ms: p50={np.percentile(lat, 50):.4f} "
+              f"p99={np.percentile(lat, 99):.4f}")
         return hits
 
     def report_tenants(svc):
@@ -202,63 +219,79 @@ def main(argv=None):
                 f"{h2d['launch_reships']}x")
             assert h2d["bytes_scattered"] > 0
 
+    # on cuda one graph runner serves every executor of the model, so a
+    # launch shape is captured once whichever instance hits it first
+    runner = resolve_runner(None if args.graphs else False, model.device)
+    summary["graphs"] = runner
+    graphs = runner if runner is not None else False
+    arrivals = []
+    for i, (t, meta) in enumerate(request_stream(
+            store, args.qps, 1e9, refresh_prob=0.2,
+            segments=args.segments, tenants=args.tenants)):
+        if i >= args.requests:
+            break
+        arrivals.append((t, meta))
+
+    def warm(ex, svc, batch_sizes):
+        # warm (capture) the launch shapes the sampled stream will hit,
+        # paged ones over the serving windows' own pools
+        pools = [i.hbm.pool for i in svc.instances.values()
+                 if hasattr(i.hbm, "pool")] if args.page_tokens else []
+        warmed = ex.warmup([m.prefix_len for _, m in arrivals],
+                           batch_sizes=batch_sizes,
+                           incr_len=store.cfg.incr_len,
+                           n_items=store.cfg.n_items, pools=pools)
+        print(f"warmed {len(warmed)} (prefix, batch) launch shapes: "
+              f"{sorted({k[:2] for k in warmed})}")
+
+    def report_graphs():
+        if runner is not None:
+            print(f"graphs: {runner.captures['warmup']} captured at "
+                  f"warm-up, {runner.captures['lazy']} lazily at a "
+                  f"shape's first hit")
+
     if args.batched:
-        # one shared executor across the pool; warm the (bucket, batch)
-        # grid the sampled stream will actually hit
+        # one shared executor across the pool
         ex = get_executor("batched")(
             model, store, cost=cost,
             batching=BatchingConfig(max_batch=args.max_batch,
                                     max_wait_ms=args.batch_wait_ms),
             page_tokens=args.page_tokens, segments=args.segments,
-            device_pool=args.device_pool)
-        arrivals = []
-        for i, (t, meta) in enumerate(request_stream(
-                store, args.qps, 1e9, refresh_prob=0.2,
-                segments=args.segments, tenants=args.tenants)):
-            if i >= args.requests:
-                break
-            arrivals.append((t, meta))
-        pool_pages = 0
-        if args.page_tokens:
-            # the executor owns the page geometry; deriving the pool
-            # size from ITS layout warms rank_with_pages at the serving
-            # store's pool shape
-            pool_pages = (int(relay_cfg.cluster.hbm_cache_bytes)
-                          // ex.page_layout.page_bytes)
-        warmed = ex.warmup([m.prefix_len for _, m in arrivals],
-                           batch_sizes=range(1, args.max_batch + 1),
-                           incr_len=store.cfg.incr_len,
-                           n_items=store.cfg.n_items,
-                           pool_pages=pool_pages)
-        print(f"warmed {len(warmed)} (bucket, batch) launch shapes: "
-              f"{sorted({k[:2] for k in warmed})}")
+            device_pool=args.device_pool, graphs=graphs)
         svc = RelayGRService(relay_cfg, cost,
                              executor_factory=lambda name: ex)
+        warm(ex, svc, range(1, args.max_batch + 1))
         results = []
         rt = svc.runtime
         for t, meta in arrivals:
             rt.schedule(t, "arrival", meta=meta, sink=results.append)
         rt.drain()
         hits = report(results)
+        report_graphs()
         batch = {n: i.batcher.stats for n, i in svc.instances.items()
                  if i.batcher is not None and i.batcher.stats["requests"]}
+        summary["batch"] = {n: {"rank": i.batcher.stats,
+                                "pre": i.pre_batcher.stats}
+                            for n, i in svc.instances.items()
+                            if i.batcher is not None}
         print(json.dumps({"batch": batch}, indent=1))
         report_tenants(svc)
         report_h2d(svc)
         return hits
-    svc = RelayGRService(
-        relay_cfg, cost,
-        executor_factory=lambda name: LiveExecutor(
+    executors = []
+
+    def live_executor(name):
+        executors.append(LiveExecutor(
             model, store, page_tokens=args.page_tokens,
-            segments=args.segments, device_pool=args.device_pool))
-    results = []
-    for i, (t, meta) in enumerate(request_stream(
-            store, args.qps, 1e9, refresh_prob=0.2,
-            segments=args.segments, tenants=args.tenants)):
-        if i >= args.requests:
-            break
-        results.append(svc.submit(meta, now=t))
+            segments=args.segments, device_pool=args.device_pool,
+            graphs=graphs))
+        return executors[-1]
+
+    svc = RelayGRService(relay_cfg, cost, executor_factory=live_executor)
+    warm(executors[0], svc, (1,))
+    results = [svc.submit(meta, now=t) for t, meta in arrivals]
     hits = report(results)
+    report_graphs()
     print(json.dumps(svc.stats()["trigger"], indent=1))
     if args.prefill_hosts:
         print(json.dumps({"shipping": svc.stats()["shipping"]}, indent=1))

@@ -78,12 +78,26 @@ def pad_psi(psi, target_len: int):
             torch.nn.functional.pad(v, widths))
 
 
-def stack_psi(psis, bucket: int):
+def stack_psi(psis, bucket: int, out=None):
     """Pad each member's (K, V) to the shared prefix bucket and stack on
     the batch axis — THE group-launch cache layout, shared by the raw
-    ``BatchedRankExecutor`` and ``BatchedLiveExecutor.rank_group``."""
-    ks, vs = zip(*(pad_psi(psi, bucket) for psi in psis))
-    return (torch.cat(ks, dim=1), torch.cat(vs, dim=1))
+    ``BatchedRankExecutor`` and ``BatchedLiveExecutor.rank_group``.
+
+    ``out``: a (K, V) pair of (L, len(psis), bucket, H, D) tensors to
+    write into (a CUDA graph's static psi) — each member is copied once
+    into its row and the row's tail zeroed; returns ``out``."""
+    if out is None:
+        ks, vs = zip(*(pad_psi(psi, bucket) for psi in psis))
+        return (torch.cat(ks, dim=1), torch.cat(vs, dim=1))
+    for dst, src in zip(out, zip(*psis)):
+        if dst.shape[1] != len(src) or dst.shape[2] != bucket:
+            raise ValueError(f"out {tuple(dst.shape)} does not hold "
+                             f"{len(src)} members at bucket {bucket}")
+        for i, a in enumerate(src):
+            n = a.shape[2]
+            dst[:, i:i + 1, :n].copy_(a)
+            dst[:, i:i + 1, n:].zero_()
+    return out
 
 
 @dataclasses.dataclass

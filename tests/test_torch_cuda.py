@@ -544,3 +544,208 @@ def test_hybrid_wrappers_refuse_what_the_kernels_do_not_take(dev):
     odd = _randn(dev, 1, 10, 4, 66)[..., 1:65]
     with pytest.raises(ValueError, match="aligned"):
         dk.decode_attn(_randn(dev, 1, 4, 64), odd, odd)
+
+
+# --- CUDA graphs (core/graphs.py): replay == eager, honest counters ------------
+
+
+def _hstu(dev, layers=2):
+    """hstu-gr at full width (d_model 256, 4 heads x 64), cut in depth."""
+    import dataclasses
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("hstu-gr"), n_layers=layers)
+    return build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+
+
+def _graph_cases(model, dev, B, seed):
+    """(key, fn, args, refs) of every HSTU serve launch at batch B:
+    prefill, rank with cache, full rank, paged and segment rank over one
+    page pool (64-token pages, ragged rows, the null page last)."""
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    tok = lambda *s: torch.as_tensor(rng.integers(0, cfg.vocab, s),
+                                     dtype=torch.int32, device=dev)
+    P, pt, npb = 256, 64, 4
+    psi = tuple(torch.as_tensor(rng.standard_normal(
+        (cfg.n_layers, B, P, cfg.n_heads, cfg.head_dim)), dtype=torch.float32,
+        device=dev) for _ in range(2))
+    incr, items = tok(B, 16), tok(B, 64)
+    n_pool = 2 * cfg.n_layers * B * npb
+    pool = torch.as_tensor(rng.standard_normal(
+        (n_pool + 1, pt, cfg.n_heads, cfg.head_dim)), dtype=torch.float32,
+        device=dev)
+    pool[n_pool] = 0
+    tables = torch.as_tensor(rng.permutation(n_pool).reshape(
+        B, cfg.n_layers, 2, npb), dtype=torch.int32, device=dev)
+    lens = torch.as_tensor(rng.integers(1, P + 1, B), dtype=torch.int32,
+                           device=dev)
+    ppos = (torch.arange(npb, dtype=torch.int32, device=dev) * pt).expand(
+        B, npb).contiguous()
+    pval = (lens[:, None] - ppos).clamp(0, pt).int()
+    return {
+        "prefill": (("prefill", B, P), model.prefill, (tok(B, P),), ()),
+        "rank": (("rank", B, P, 16, 64), model.rank_with_cache,
+                 (psi, incr, items), ()),
+        "full": (("full", B, P, 16, 64), model.full_rank,
+                 (tok(B, P), incr, items), ()),
+        "paged": (("paged", B, npb, 16, 64, pool.data_ptr()),
+                  model.rank_with_pages, (tables, lens, incr, items),
+                  (pool,)),
+        "segment": (("segment", B, npb, 16, 64, pool.data_ptr()),
+                    model.rank_with_segments,
+                    (tables, ppos, pval, incr, items), (pool,)),
+    }
+
+
+def _equal(a, b):
+    from repro_torch.core.graphs import tensor_leaves
+    return all(torch.equal(x, y) for x, y in
+               zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("entry", ["prefill", "rank", "full", "paged",
+                                   "segment"])
+def test_graph_replay_equals_eager_bitwise(dev, entry, B):
+    """The first call (eager warm-up, then capture) and replays on new
+    inputs give the eager call's bits; the capture counts no launch, the
+    warm-up one eager run, each replay the graph's tally."""
+    from repro_torch.core.graphs import GraphRunner, read_counters
+    model = _hstu(dev)
+    runner = GraphRunner(dev)
+    key, fn, args, refs = _graph_cases(model, dev, B, 0)[entry]
+    c0 = read_counters()
+    first = runner.run(key, fn, args, refs)
+    c1 = read_counters()
+    assert _equal(first, fn(*refs, *args))
+    eager_run = {n: read_counters()[n] - c1[n] for n in c1}
+    assert {n: c1[n] - c0[n] for n in c0} == eager_run   # warm-up only
+    tally = runner.get(key).tally
+    assert tally == {n: c for n, c in eager_run.items() if c}
+    for seed in (1, 2, 3):
+        _, _, new, _ = _graph_cases(model, dev, B, seed)[entry]
+        before = read_counters()
+        got = runner.run(key, fn, new, refs)
+        after = read_counters()
+        assert {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+            == tally
+        assert _equal(got, fn(*refs, *new)), f"{entry} B={B} seed {seed}"
+    assert runner.get(key).replays == 3
+
+
+def test_graph_outputs_survive_another_keys_replay(dev):
+    from repro_torch.core import LiveExecutor, UserMeta
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    model = _hstu(dev)
+    store = UserBehaviorStore(WorkloadConfig(
+        vocab=model.cfg.vocab, n_items=64, incr_len=16, max_len=2048))
+    ex = LiveExecutor(model, store)
+    eager = LiveExecutor(model, store, graphs=False)
+    assert ex.graphs is not None
+    metas = [UserMeta(user_id=u, prefix_len=n, incr_len=16, n_items=64)
+             for u, n in ((1, 300), (2, 700), (3, 300))]
+    psis = [ex.pre_infer(m)[0] for m in metas]
+    for m, p in zip(metas, psis):
+        assert _equal(p, eager.pre_infer(m)[0])
+    kept = []
+    for _ in range(2):                   # capture, then replay
+        for m, p in zip(metas, psis):
+            kept.append((m, p, ex.rank_cached(m, p)[0]))
+            ex.rank_full(m)
+    for m, p, s in kept:                 # other keys replayed since
+        assert torch.equal(s, eager.rank_cached(m, p)[0])
+        assert torch.equal(ex.rank_full(m)[0], eager.rank_full(m)[0])
+
+
+def test_paged_graph_refuses_another_pool(dev):
+    from repro_torch.core.graphs import GraphRunner
+    model = _hstu(dev)
+    runner = GraphRunner(dev)
+    key, fn, args, (pool,) = _graph_cases(model, dev, 2, 0)["paged"]
+    runner.run(key, fn, args, (pool,))
+    runner.run(key, fn, args, (pool,))
+    with pytest.raises(ValueError, match="reference"):
+        runner.get(key).replay(args, (pool.clone(),))
+
+
+def test_decode_step_graph_equals_eager(dev):
+    """The Zamba2 decode step (float32 smoke variant) replayed from a
+    graph: logits and the updated cache equal the eager step's bit for
+    bit over several steps; each step counts one decode launch a
+    section."""
+    import dataclasses
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
+                              n_layers=5, attn_every=2, dtype="float32")
+    model = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 256)), device=dev)
+    _, cache = make_prefill_step(model)({"tokens": toks})
+    clone = lambda c: {"m": {k: tuple(t.clone() for t in v)
+                             for k, v in c["m"].items()},
+                       "a": tuple(t.clone() for t in c["a"])}
+    ce, cg = clone(cache), clone(cache)
+    eager, graphed = make_serve_step(model, graphs=False), make_serve_step(model)
+    for i in range(4):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)), device=dev)
+        pos = torch.full((2,), 256 + i, device=dev)
+        le, ce = eager(ce, {"token": tok, "pos": pos})
+        before = dk.launches
+        lg, cg2 = graphed(cg, {"token": tok, "pos": pos})
+        assert cg2 is cg and dk.launches == before + model.n_sections
+        assert torch.equal(lg, le), f"step {i}"
+        assert _equal(cg, ce), f"step {i}: cache"
+    assert graphed.runner.captures == {"warmup": 0, "lazy": 1}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--page-tokens", "64"], ["--batched", "--page-tokens", "64"],
+    ["--segments", "--batched"], ["--hosts", "2"], ["--prefill-hosts", "1"]],
+    ids=["reship", "batched-reship", "segments-batched-reship", "hosts-2",
+         "prefill-hosts-1"])
+def test_serve_replays_graphs_on_card(dev, flags, capsys):
+    """serve (smoke model) on the card in modes chip_smoke.py does not
+    drive — a host page pool re-shipped per launch into the runner's
+    static pool buffer among them — with graphs and with --no-graphs:
+    graphs are captured and replayed, hits reach HBM, the rank kernels
+    count launches, and the re-shipped pool stays in the h2d ledger."""
+    import re
+    from repro_torch.core.graphs import read_counters, write_counters
+    from repro_torch.launch import serve
+    for extra in ([], ["--no-graphs"]):
+        write_counters({n: 0 for n in read_counters()})
+        summary = {}
+        hits = serve.main(["--device", "cuda", "--requests", "12", *flags,
+                           *extra], summary)
+        out = capsys.readouterr().out
+        counts = read_counters()
+        assert hits.get("hbm_hit", 0) >= 1, (extra, hits)
+        assert counts["hstu_attn"] > 0, counts
+        runner = summary["graphs"]
+        if extra:
+            assert runner is None and "graphs:" not in out
+        else:
+            assert sum(g.replays for g in runner.graphs.values()) > 0
+            assert "graphs:" in out
+        paged = ("paged_prefix_rank_attn" if "--segments" not in flags
+                 else "segment_rank_attn")
+        if "--page-tokens" in flags or "--segments" in flags:
+            assert counts[paged] > 0, counts
+            reships = int(re.search(r'"launch_reships": (\d+)', out).group(1))
+            assert reships > 0, out
+
+
+def test_a_failing_capture_raises(dev):
+    """A capture that cannot be recorded (a host sync inside) raises and
+    leaves no graph; nothing reruns eagerly in its place."""
+    from repro_torch.core.graphs import GraphRunner, read_counters
+    runner = GraphRunner(dev)
+    x = _randn(dev, 8)
+    before = read_counters()
+    with pytest.raises(RuntimeError):
+        runner.run(("sync", 1), lambda t: t * t.sum().item(), (x,))
+    assert runner.get(("sync", 1)) is None
+    assert read_counters() == before
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()

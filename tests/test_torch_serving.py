@@ -542,3 +542,24 @@ def test_serve_flags():
     assert args.smoke is True and args.device == "cuda"
     assert serve.parse_args(["--no-smoke"]).smoke is False
     assert serve.parse_args(["--device-pool"]).page_tokens == 64
+
+
+@pytest.mark.parametrize("flags", [[], ["--batched", "--device-pool"]],
+                         ids=["live", "batched-device-pool"])
+def test_serve_no_graphs_on_cpu_serves_as_before(flags, capsys):
+    """``--no-graphs`` parses, and on the CPU (always eager) it serves
+    the same stream to the same hits as the default, with no graph
+    runner and no graph line in the report."""
+    assert serve.parse_args([]).graphs is True
+    assert serve.parse_args(["--no-graphs"]).graphs is False
+    runs = []
+    for extra in ([], ["--no-graphs"]):
+        summary = {}
+        hits = serve.main(["--device", "cpu", "--requests", "12", *flags,
+                           *extra], summary)
+        runs.append((hits, len(summary["rank_ms"])))
+        assert summary["graphs"] is None
+        out = capsys.readouterr().out
+        assert "warmed" in out and "graphs:" not in out
+    assert runs[0] == runs[1]
+    assert runs[0][0].get("hbm_hit", 0) >= 1 and runs[0][1] == 12
