@@ -48,6 +48,16 @@ Phases, each fatal on failure (nothing is caught):
      between runs whose runtime decided alike), and one fixed sequence
      of executor calls with equal counts and outputs within 1e-6 of the
      largest |value| (bit for bit expected);
+  5c. ``costmodel``: ``repro_torch.benchmarks.hardware.measure`` at full
+     width — ``LiveExecutor.pre_infer`` / ``rank_cached`` / ``rank_full``
+     at 64 incr + 512 items over 1024, 4096 and 16384 prefix tokens, as
+     CUDA-graph replays, counters zeroed just before and read just after
+     (``hstu_attn`` and ``prefix_rank_attn`` must launch) — and the
+     pinned psi copy; the fitted H100 ``HardwareModel`` (``eff_flops``,
+     ``h2d_bw``) printed as one JSON line with each point's measured and
+     predicted ms, and the simulator's baseline and relay p99 at L 2048,
+     60 QPS, 4 s, priced by it (the table is written to
+     ``chiprun_out/h100_hardware.json`` and read back by ``hardware.load``);
   6. ``hybrid``: the Zamba2 serve path (``zamba2_1p2b`` at full width and
      depth, bf16, random weights from a seed, LoRA live).  First the
      decode and SSD kernels against their plain twins on the card, at the
@@ -867,6 +877,56 @@ def executor_counts(torch, out):
         f"{runner.pool_bytes() / 2**20:.1f} MiB over {len(runner.graphs)} keys")
 
 
+# --- phase 5c: the H100 cost model ---------------------------------------------------
+
+COST_LENS = (1024, 4096, 16384)
+
+
+def costmodel_phase(torch, results):
+    """``hardware.measure`` at full width on three prefix lengths (the
+    serve path's graphs, counters zeroed just before and read just
+    after: ``pre_infer`` and ``rank_full`` launch ``hstu_attn``,
+    ``rank_cached`` and ``rank_full`` ``prefix_rank_attn``), the fitted
+    H100 ``HardwareModel`` with each point's measured and predicted ms,
+    and one baseline and one relay simulator point priced by it."""
+    from repro_torch.benchmarks import hardware
+    from repro_torch.benchmarks.capacity import HSTU, run_point
+    from repro_torch.core import graphs
+    from repro_torch.core.costmodel import GRCostModel
+
+    t0 = time.perf_counter()
+    graphs.write_counters({n: 0 for n in graphs.COUNTERS})
+    measured = hardware.measure("cuda", smoke=False, lens=COST_LENS)
+    torch.cuda.synchronize()
+    counts = graphs.read_counters()
+    for n in ("hstu_attn", "prefix_rank_attn"):
+        assert counts[n] > 0, f"costmodel: {n} never launched"
+        results[n]["launches"] += counts[n]
+    tab = hardware.table(measured)
+    hw = tab["hardware"]
+    assert all(math.isfinite(r[k]) and r[k] > 0 for r in tab["fit"]
+               for k in ("ms", "pred_ms")), tab["fit"]
+    assert math.isfinite(hw["eff_flops"]) and hw["eff_flops"] > 0, hw
+    assert math.isfinite(hw["h2d_bw"]) and hw["h2d_bw"] > 0, hw
+    path = os.path.join(ROOT, "chiprun_out", "h100_hardware.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(tab, f, indent=1, sort_keys=True)
+    cost = GRCostModel(HSTU, hardware.load(path))
+    p99 = {}
+    for mode in ("baseline", "relay"):
+        s = run_point(mode, 2048, 60, cost=cost, dur=4.0)
+        assert s["n"] > 0 and math.isfinite(s["p99_ms"]), (mode, s)
+        p99[mode] = s["p99_ms"]
+    line = {"eff_flops": hw["eff_flops"], "h2d_bw": hw["h2d_bw"],
+            "points": [{k: r[k] for k in ("op", "L", "ms", "pred_ms",
+                                            "rel_err")} for r in tab["fit"]],
+            "h2d": tab["h2d"], "launches": {
+                n: counts[n] for n in ("hstu_attn", "prefix_rank_attn")},
+            "sim_p99_ms": p99, "seconds": time.perf_counter() - t0}
+    print(json.dumps({"costmodel": line}), flush=True)
+
+
 # --- phase 6: the Zamba2 hybrid serve path -----------------------------------------
 
 
@@ -1223,7 +1283,8 @@ def hybrid_phase(torch, results):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,serve,relay,graphs,hybrid")
+    ap.add_argument("--phases",
+                    default="kernels,serve,relay,graphs,costmodel,hybrid")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1260,6 +1321,8 @@ def main(argv=None):
         relay_phase(torch, results)
     if "graphs" in phases:
         graphs_phase(torch, results, args.requests)
+    if "costmodel" in phases:
+        costmodel_phase(torch, results)
     if "hybrid" in phases:
         hybrid_phase(torch, results)
 

@@ -39,9 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.benchmarks import BUILD
 from repro_torch.benchmarks._card import describe, sync
 
-OUT = Path(__file__).resolve().parents[3] / "build" / "batch_factors.json"
+OUT = BUILD / "batch_factors.json"
 
 
 def measure(buckets: Sequence[int], batches: Sequence[int],
