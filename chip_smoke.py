@@ -83,7 +83,29 @@ Phases, each fatal on failure (nothing is caught):
      card vs CPU logits for a float32 copy at full
      width and 7 layers (one section + a 1-layer tail), prefill plus 4
      decode steps, within 5e-4 of the largest |logit|;
-  7. print the ``kernels`` JSON line, then the final device line.
+  7. ``train``: HSTU training and decode at full ``hstu-gr`` width.
+     ``HSTUAttnFunction`` (the ``hstu_attn`` kernel forward, a float32
+     backward) at S 1..4096 x D 32 / 64 against float64 autograd over
+     the plain twin, within 1e-5 of each gradient's largest |g|; the
+     kernel and the plain backward timed at 8 x 4096 beside their
+     bounds; loss and every gradient at 2 layers, 2 x 1024, on the card
+     against the port on the CPU in float64 (1e-5 relative, 1e-4 of each
+     leaf's largest |g|); then the main path: 8 layers, B 8 x S 4096
+     (``train_4k``'s length), 20 AdamW steps through ``make_train_step``
+     with the launcher's schedule on ``train_batches(seed=0)``, the
+     launch counters zeroed just before and read just after (only
+     ``hstu_attn``, two launches a layer and step: the forward and its
+     recompute), a finite loss whose last-5 mean is 0.5 below step 0's,
+     median ms/step by CUDA events, tokens/s, peak memory (at most 12
+     GiB), and one profiled step broken into unembed/CE, the attention
+     kernel, its backward, other GEMMs, the optimizer, the embedding and
+     the rest; a checkpoint saved, restored
+     bit for bit into a fresh model, and two more steps from both within
+     1e-6; HSTU ``decode_step`` at B 2 over a 2048-token psi through
+     ``make_serve_step`` (graph replays, ``prefix_rank_attn`` counted),
+     equal to the eager step bit for bit and within 1e-4 of the largest
+     |logit| of the CPU's;
+  8. print the ``kernels`` JSON line, then the final device line.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
 the full run takes no arguments.  Per-shape timings are also written to
@@ -685,7 +707,8 @@ def profile_fn(torch, label, fn, iters):
         torch.cuda.synchronize()
     by_kernel, by_host = {}, {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:   # kernels only
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):              # kernels only
             t = getattr(e, "self_device_time_total", None)
             if t is None:
                 t = e.self_cuda_time_total
@@ -1281,10 +1304,430 @@ def hybrid_phase(torch, results):
     results["_hybrid"]["card_vs_cpu_rel"] = worst
 
 
+# --- phase 7: HSTU training and decode -----------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4096, 20   # train_4k's length, B of one card
+TRAIN_GRAD_REL = 1e-5    # HSTUAttnFunction grads vs float64, of the largest |g|
+TRAIN_CPU_LOSS_REL = 1e-5      # card vs CPU float64: the loss, relative
+TRAIN_CPU_GRAD_REL = 1e-4      # ... each leaf's gradient, of its largest |g|
+TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_L = 2, 1024, 2
+TRAIN_LOSS_DROP = 0.5    # last-5 mean below step 0's by at least this (nats)
+TRAIN_PEAK_GIB = 12.0    # max_memory_allocated of the 20 steps
+CKPT_REL = 1e-6          # restored run's next losses vs the uninterrupted run's
+DEC_B, DEC_P, DEC_STEPS = 2, 2048, 4
+DEC_REL = 1e-4           # card vs CPU decode logits, of the largest |logit|
+TRAIN_PARTS = ("unembed/CE", "attention kernel", "attention backward",
+               "other GEMMs", "optimizer", "embedding", "other")
+
+
+def _train_part(evt, kernel, vp):
+    """The part of a train step that ``kernel`` (launched under CPU op
+    ``evt``) belongs to, from the op's ancestors: the ``adamw`` and
+    ``hstu_attn_backward`` ranges, the rank kernel by name, the token
+    gather and its backward, ops on a vocab-wide tensor (the unembed
+    product and the CE, forward, recompute and backward), GEMMs."""
+    chain = []
+    while evt is not None:
+        chain.append(evt)
+        evt = evt.cpu_parent
+    names = [e.name for e in chain]
+    if "adamw" in names:
+        return "optimizer"
+    if "hstu_attn_backward" in names:
+        return "attention backward"
+    if "hstu_rank" in kernel.name:
+        return "attention kernel"
+    if any("IndexBackward" in n or "embedding" in n or n == "aten::index"
+           for n in names):
+        return "embedding"
+    if any(vp in (s if isinstance(s, (list, tuple)) else ())
+           for e in chain for s in (e.input_shapes or ())):
+        return "unembed/CE"
+    if any(w in kernel.name.lower() for w in ("gemm", "xmma", "cutlass")) or \
+            any(n in ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul")
+                for n in names):
+        return "other GEMMs"
+    return "other"
+
+
+def train_profile(torch, fn, vp):
+    """One train step under torch.profiler: device ms by part
+    (``_train_part``), wall by CUDA events, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    attributed, device = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            for k in e.kernels:
+                parts[_train_part(e, k, vp)] += k.duration / 1e3
+                attributed[k.name] = attributed.get(k.name, 0.0) \
+                    + k.duration / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            # device activity; a record_function range's device span
+            # (gpu_user_annotation) is not
+            device[e.name] = device.get(e.name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+    busy = sum(device.values())
+    parts["unattributed"] = busy - sum(attributed.values())
+    gaps = sorted(((device[n] - attributed.get(n, 0.0), n) for n in device),
+                  reverse=True)[:5]
+    return dict(wall_ms=wall, busy_ms=busy,
+                idle_share=max(0.0, 1 - busy / wall), parts=parts,
+                unattributed_top=[(n[:80], ms) for ms, n in gaps if ms > 0])
+
+
+def attn_grad_checks(torch, results):
+    """``HSTUAttnFunction`` (the kernel forward, the float32 backward) on
+    the card against float64 autograd over the plain twin, within
+    TRAIN_GRAD_REL of each gradient's largest |g|; then the kernel at the
+    train shape (B 8 x S 4096) against its twin, timed beside its bounds,
+    and the plain backward timed beside its own.  These launches are
+    comparisons, outside the main path's counts."""
+    from repro_torch.kernels import hstu_attn as hk
+    from repro_torch.kernels import ref
+    out = results["_train"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {}
+    for S in (1, 17, 128, 1000, 4096):
+        for Dh in (32, 64):
+            q, k, v, dout = (torch.randn(2, H, S, Dh, generator=gen,
+                                         device="cuda") for _ in range(4))
+            f32 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            got = hk.hstu_attn(*f32)
+            assert type(got.grad_fn).__name__.startswith("HSTUAttnFunction")
+            got.backward(dout)
+            f64 = [t.double().requires_grad_(True) for t in (q, k, v)]
+            hk.hstu_attn_plain(*f64).backward(dout.double())
+            for name, a, b in zip("qkv", f32, f64):
+                rel = ((a.grad.double() - b.grad).abs().max()
+                       / b.grad.abs().max()).item()
+                assert rel <= TRAIN_GRAD_REL, (
+                    f"d{name} S={S} D={Dh}: {rel:.2e} of the largest |g| "
+                    f"(limit {TRAIN_GRAD_REL})")
+                worst[f"d{name}"] = max(worst.get(f"d{name}", 0.0), rel)
+            del f32, f64, got
+    out["attn_grad_rel"] = worst
+    log(f"HSTUAttnFunction grads vs float64 (S 1..4096, D 32 / 64): worst "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" of the largest |g| (limit {TRAIN_GRAD_REL})")
+
+    B, S = TRAIN_B, TRAIN_S
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=gen, device="cuda")
+                     for _ in range(4))
+    got = hk.hstu_attn(q, k, v)
+    want = hk.hstu_attn_plain(q, k, v)
+    err = (got - want).abs()
+    assert bool((err <= TOL + TOL * want.abs()).all()), "hstu_attn at 8 x 4096"
+    e = err.max().item()
+    results["hstu_attn"]["max_abs_err"] = max(
+        results["hstu_attn"]["max_abs_err"], e)
+    # and against float64, a batch row at a time ((S, S) float64 scores)
+    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    diff = top = 0.0
+    for b in range(B):
+        ref64 = ref.silu_attn_f64(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal,
+                                  n_total=S)
+        diff = max(diff, (got[b:b + 1].double() - ref64).abs().max().item())
+        top = max(top, ref64.abs().max().item())
+    f64 = diff / top
+    assert f64 <= F64_REL, (
+        f"hstu_attn at {B} x {S}: |kernel - float64| {f64:.2e} of max |out| "
+        f"over {F64_REL}")
+    results["hstu_attn"].setdefault("f64_rel", {})[f"train {B}x{S}"] = dict(
+        kernel=f64)
+    del got, want, err, causal, ref64
+    pairs = B * H * S * (S + 1) // 2
+    t = _rank_times(torch, lambda: hk.hstu_attn(q, k, v),
+                    lambda: hk.hstu_attn_plain(q, k, v), 4 * D * pairs,
+                    4 * 4 * B * H * S * D)
+    results["hstu_attn"]["shapes"].append(dict(B=B, S=S, main=False,
+                                               train=True, max_abs_err=e, **t))
+    # the backward recomputes s and does four more products, ten
+    # multiply-adds a kept pair per head-dim element; reads q, k, v, dout,
+    # writes dq, dk, dv
+    bwd_ms = _time_ms(torch, lambda: hk.hstu_attn_backward(q, k, v, dout, S),
+                      iters=3)
+    bwd_bound, bwd_by = _bound(10 * D * pairs, 7 * 4 * B * H * S * D)
+    out["attn_train_shape"] = dict(B=B, S=S, fwd=t, bwd_ms=bwd_ms,
+                                   bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+    log(f"hstu_attn B={B} S={S}: err {e:.2e}, {f64:.2e} of max |out| vs "
+        f"float64 (limit {F64_REL}); kernel {t['ms']:.4f} ms (graph "
+        f"{t['graph_ms']:.4f}) plain {t['plain_ms']:.4f} ms bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 "
+        f"{t['bound_tf32_ms']:.4f} ms; plain backward {bwd_ms:.4f} ms, bound "
+        f"{bwd_bound:.4f} ms ({bwd_by})")
+
+
+def train_card_vs_cpu(torch, out):
+    """Loss and every gradient at full width, 2 layers, B 2 x S 1024: the
+    card (float32) against the port on the CPU in float64."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config("hstu-gr"), n_layers=TRAIN_CPU_L)
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.double()
+    batch = next(UserBehaviorStore(WorkloadConfig(vocab=cfg.vocab))
+                 .train_batches(TRAIN_CPU_B, TRAIN_CPU_S, seed=1))
+    t0 = time.perf_counter()
+    losses = {}
+    for name, m in (("card", gpu), ("cpu", cpu)):
+        m.requires_grad_(True)
+        loss, _ = m.loss(batch)
+        loss.backward()
+        losses[name] = loss.item()
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    assert rel <= TRAIN_CPU_LOSS_REL, (
+        f"card vs CPU loss {losses}: {rel:.2e} relative")
+    grads = {}
+    own = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        want = own[name].grad
+        if want is None:
+            assert p.grad is None, name
+            continue
+        grads[name] = ((p.grad.cpu().double() - want).abs().max()
+                       / want.abs().max()).item()
+        assert grads[name] <= TRAIN_CPU_GRAD_REL, (
+            f"card vs CPU d{name}: {grads[name]:.2e} of the largest |g|")
+    out["card_vs_cpu"] = dict(loss=losses, loss_rel=rel, grad_rel=grads)
+    log(f"train card vs CPU float64 (full width, {TRAIN_CPU_L} layers, "
+        f"{TRAIN_CPU_B} x {TRAIN_CPU_S}, {time.perf_counter() - t0:.1f} s): "
+        f"loss {losses['card']:.6f} ({rel:.2e} relative), worst gradient "
+        f"{max(grads.values()):.2e} of the largest |g| (limits "
+        f"{TRAIN_CPU_LOSS_REL}, {TRAIN_CPU_GRAD_REL})")
+
+
+def decode_kernel_check(torch, results):
+    """``prefix_rank_attn`` at HSTU decode's own shape (one query, n_incr
+    1, no items, a DEC_P-token psi) against its plain twin within TOL and
+    float64 within F64_REL of the largest |out|.  These launches are
+    comparisons, outside the main path's counts.  Returns the float64
+    error."""
+    from repro_torch.kernels import prefix_rank_attn as rk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, kn, vn = (torch.randn(DEC_B, H, 1, D, generator=gen, device="cuda")
+                 for _ in range(3))
+    kp, vp = (torch.randn(DEC_B, H, DEC_P, D, generator=gen, device="cuda")
+              for _ in range(2))
+    got = rk.prefix_rank_attn_split(q, kp, vp, kn, vn, n_incr=1)
+    k, v = torch.cat([kp, kn], 2), torch.cat([vp, vn], 2)
+    plain = rk.prefix_rank_attn_plain(q, k, v, n_prefix=DEC_P, n_incr=1)
+    err = (got - plain).abs()
+    assert torch.isfinite(got).all(), "prefix_rank_attn at decode: non-finite"
+    assert bool((err <= TOL + TOL * plain.abs()).all()), (
+        f"prefix_rank_attn at decode: |kernel - plain| "
+        f"{err.max().item():.3e} over {TOL} + {TOL}|plain|")
+    e = err.max().item()
+    results["prefix_rank_attn"]["max_abs_err"] = max(
+        results["prefix_rank_attn"]["max_abs_err"], e)
+    want = ref.silu_attn_f64(q, k, v, ref.rank_mask_ref(DEC_P, 1, 0,
+                                                        device="cuda"),
+                             n_total=DEC_P + 1)
+    f64 = ((got.double() - want).abs().max() / want.abs().max()).item()
+    assert f64 <= F64_REL, (
+        f"prefix_rank_attn at decode: |kernel - float64| {f64:.2e} of max "
+        f"|out| over {F64_REL}")
+    results["prefix_rank_attn"].setdefault("f64_rel", {})[
+        f"decode {DEC_B}x1 over {DEC_P}"] = dict(kernel=f64)
+    log(f"prefix_rank_attn at decode ({DEC_B} x 1 query over {DEC_P}): "
+        f"vs plain {e:.2e}, vs float64 {f64:.2e} of max |out| (limits "
+        f"{TOL}, {F64_REL})")
+    return f64
+
+
+def train_phase(torch, results):
+    """HSTU training and decode at full width: ``HSTUAttnFunction``
+    against float64, card vs CPU, the full run (hstu-gr, 8 layers, B 8 x
+    S 4096, 20 AdamW steps, the launcher's schedule; ``hstu_attn``
+    counted), a profiled step, a checkpoint round trip, then
+    ``decode_step`` over a 2048-token psi (``prefix_rank_attn`` counted,
+    graphs against eager, card against CPU)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core.graphs import COUNTERS, read_counters, write_counters
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.convert import param_tree
+    from repro_torch.training import checkpoint
+    from repro_torch.training import optimizer as opt
+    from repro_torch.tree import leaves
+
+    out = results.setdefault("_train", {})
+    attn_grad_checks(torch, results)
+    train_card_vs_cpu(torch, out)
+
+    # the full run: every parameter trained, counters zeroed just before
+    cfg = get_config("hstu-gr")
+    adamw = opt.AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, adamw)
+    state = opt.init_state(step.params)
+    gen = UserBehaviorStore(WorkloadConfig(vocab=cfg.vocab)).train_batches(
+        TRAIN_B, TRAIN_S, seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                next(gen).items()} for _ in range(TRAIN_STEPS + 3)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    write_counters(dict.fromkeys(COUNTERS, 0))
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    metrics = []
+    t0 = time.perf_counter()
+    for (a, b), batch in zip(events, batches):
+        a.record()
+        metrics.append(step(state, batch))
+        b.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counters()
+    launches = counts.pop("hstu_attn")
+    assert not any(counts.values()), f"train launched other kernels: {counts}"
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in events]
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    med = statistics.median(ms)
+    # the rate over the whole window (every step's events), so a slow step
+    # shows in it; the median ms/step beside it
+    tok_s = TRAIN_STEPS * TRAIN_B * TRAIN_S * 1e3 / sum(ms)
+    log(f"train hstu-gr ({n_params / 1e6:.2f} M parameters, {cfg.n_layers} "
+        f"layers), {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps in {wall_s:.1f} "
+        f"s: median {med:.2f} ms/step (first {ms[0]:.2f}, the {TRAIN_STEPS} "
+        f"{sum(ms):.2f} ms), {tok_s:.0f} tokens/s over them, peak {peak / 2**30:.2f} GiB, hstu_attn launches "
+        f"{launches}")
+    log(f"train losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 3) for x in gnorms]}")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite loss"
+    assert statistics.mean(losses[-5:]) < losses[0] - TRAIN_LOSS_DROP, (
+        f"the loss did not fall by {TRAIN_LOSS_DROP}: {losses}")
+    assert peak <= TRAIN_PEAK_GIB * 2**30, f"peak {peak / 2**30:.2f} GiB"
+    assert launches == 2 * cfg.n_layers * TRAIN_STEPS, (
+        f"hstu_attn launched {launches} times in {TRAIN_STEPS} steps")
+    results["hstu_attn"]["launches"] += launches
+    prof = train_profile(torch, lambda: step(state, batches[TRAIN_STEPS]),
+                         cfg.vocab_padded)
+    log(f"train step profile: wall {prof['wall_ms']:.2f} ms, device busy "
+        f"{prof['busy_ms']:.2f} ms, idle share {prof['idle_share']:.3f} "
+        f"(both under the profiler, whose host cost stretches the wall); "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["parts"].items())
+        + f"; unattributed by kernel {prof['unattributed_top']}")
+
+    # checkpoint round trip: save, restore into a fresh model, bit for
+    # bit; the next two steps' losses from both within CKPT_REL
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "hstu")
+        t1 = time.perf_counter()
+        checkpoint.save(path, step.params, state, step=TRAIN_STEPS + 1)
+        twin = build_model(cfg, device="cuda")
+        tparams = param_tree(twin)
+        got, saved = checkpoint.restore(
+            path, {"params": tparams, "opt": opt.init_state(tparams)})
+        ck_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp)
+    assert saved == TRAIN_STEPS + 1
+    for (a, b) in ((step.params, got["params"]), (state, got["opt"])):
+        for x, y in zip(leaves(a), leaves(b)):
+            assert x.dtype == y.dtype and torch.equal(x.detach().cpu(),
+                                                      y.cpu()), "checkpoint"
+    with torch.no_grad():
+        for p, r in zip(leaves(tparams),
+                        leaves(got["params"])):
+            p.copy_(r)
+    step2 = make_train_step(twin, adamw)
+    state2 = got["opt"]
+    pairs = []
+    for batch in batches[TRAIN_STEPS + 1:]:
+        a, b = step(state, batch)["loss"].item(), step2(state2, batch)["loss"].item()
+        pairs.append((a, b))
+        assert abs(a - b) <= CKPT_REL * abs(a), f"restored run: {a} vs {b}"
+    log(f"checkpoint: saved and restored in {ck_s:.1f} s, bit for bit; next "
+        f"losses uninterrupted / restored {pairs}")
+    out["run"] = dict(config="hstu-gr", params=n_params, batch=TRAIN_B,
+                      seq=TRAIN_S, steps=TRAIN_STEPS, ms_per_step=ms,
+                      median_ms=med, tokens_per_s=tok_s, peak_bytes=peak,
+                      losses=losses, grad_norms=gnorms, launches=launches,
+                      profile=prof, checkpoint_s=ck_s, restored_losses=pairs)
+    del model, twin, step, step2, state, state2, got, tparams, batches
+    torch.cuda.empty_cache()
+
+    # decode: one token per row over a 2048-token psi, per-row positions
+    gpu = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    _, psi = gpu.prefill(torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                      (DEC_B, DEC_P)),
+                                         device="cuda"))
+    graphs, eager = make_serve_step(gpu), make_serve_step(gpu, graphs=False)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (DEC_STEPS, DEC_B, 1)),
+                           device="cuda")
+    pos = torch.tensor([DEC_P, DEC_P - 37], device="cuda")
+    write_counters(dict.fromkeys(COUNTERS, 0))
+    got = []
+    for i in range(DEC_STEPS):
+        logits, cache = graphs(psi, {"token": toks[i], "pos": pos})
+        assert cache is psi
+        got.append(logits)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    dec_launches = counts.pop("prefix_rank_attn")
+    assert not any(counts.values()), f"decode launched other kernels: {counts}"
+    assert dec_launches == cfg.n_layers * DEC_STEPS, dec_launches
+    results["prefix_rank_attn"]["launches"] += dec_launches
+    dec_f64 = decode_kernel_check(torch, results)
+    worst = 0.0
+    cpsi = tuple(t.cpu() for t in psi)
+    for i in range(DEC_STEPS):
+        batch = {"token": toks[i], "pos": pos}
+        want = eager(psi, batch)[0]
+        assert torch.equal(got[i], want), f"decode {i}: replay != eager"
+        ref = cpu.decode_step(cpsi, {"token": toks[i].cpu(),
+                                     "pos": pos.cpu()})[0]
+        d = ((want.cpu() - ref).abs().max() / ref.abs().max()).item()
+        assert d <= DEC_REL, f"decode {i}: card vs CPU {d:.2e} of max |logit|"
+        worst = max(worst, d)
+    batch = {"token": toks[0], "pos": pos}
+    g_ms = _time_ms(torch, lambda: graphs(psi, batch))
+    e_ms = _time_ms(torch, lambda: eager(psi, batch))
+    out["decode"] = dict(batch=DEC_B, psi=DEC_P, steps=DEC_STEPS,
+                         launches=dec_launches, kernel_f64_rel=dec_f64,
+                         card_vs_cpu_rel=worst,
+                         graph_ms=g_ms, eager_ms=e_ms)
+    log(f"hstu decode B={DEC_B} over {DEC_P} tokens: {dec_launches} "
+        f"prefix_rank_attn launches in {DEC_STEPS} graph steps, replay == "
+        f"eager bit for bit, card vs CPU {worst:.2e} of max |logit| (limit "
+        f"{DEC_REL}); {g_ms:.4f} ms a step with graphs, {e_ms:.4f} eager")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,relay,graphs,costmodel,hybrid")
+                    default="kernels,serve,relay,graphs,costmodel,hybrid,"
+                            "train")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1325,6 +1768,8 @@ def main(argv=None):
         costmodel_phase(torch, results)
     if "hybrid" in phases:
         hybrid_phase(torch, results)
+    if "train" in phases:
+        train_phase(torch, results)
 
     kernels = []
     for name, path in REPLACES.items():

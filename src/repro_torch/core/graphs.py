@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import (decode_attn, hstu_attn, paged_prefix_attn,
                                  prefix_rank_attn, ssd_chunk)
+from repro_torch.tree import leaves, tree_map
 
 # kernel name -> (wrapper module, counter attribute)
 COUNTERS = {
@@ -87,21 +88,11 @@ def add_tally(tally: Dict[str, int], times: int = 1) -> None:
 
 
 def tensor_leaves(tree) -> list:
-    if isinstance(tree, (tuple, list)):
-        return [x for t in tree for x in tensor_leaves(t)]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tensor_leaves(tree[k])]
-    if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"graph inputs are tensors, got {type(tree)}")
-    return [tree]
-
-
-def _map(tree, fn):
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(t, fn) for t in tree)
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+    out = leaves(tree)
+    for x in out:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"graph inputs are tensors, got {type(x)}")
+    return out
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -198,7 +189,7 @@ class GraphRunner:
         if key in self.graphs:
             raise KeyError(f"graph {key} is already captured")
         main = torch.cuda.current_stream(self.device)
-        static = _map(args, lambda t: t.to(self.device, copy=True))
+        static = tree_map(lambda t: t.to(self.device, copy=True), args)
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
             out = fn(*refs, *static)

@@ -15,7 +15,10 @@ import torch.nn.functional as F
 
 def _silu_scores(q, k, n_total: float):
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    # float32 scores from 16- or 32-bit inputs, float64 from float64
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    logits = logits * scale
     return F.silu(logits) / n_total
 
 

@@ -1,16 +1,17 @@
-"""Serve-step factories (port of ``repro.launch.steps``).
+"""Train / serve step factories (port of ``repro.launch.steps``).
 
-``make_prefill_step(model)`` and ``make_serve_step(model)`` return the
+``make_train_step(model, adamw)`` returns one AdamW step on a batch;
+``make_prefill_step(model)`` and ``make_serve_step(model)`` the
 callables a server drives: the prefill of a batch of prompts, and one
-decode step against the returned cache.  The parameters live in the
-model (an ``nn.Module``), so the steps take the batch (and the cache)
-only.  The training step and the shape specs for the dry-run are still
-to port (ROADMAP Queue 1, items 8 and 10).
+decode step against a cache.  The parameters live in the model (an
+``nn.Module``), so the steps take the optimizer state, the batch and the
+cache only.  The shape specs for the dry-run are still to port (ROADMAP
+Queue 1, item 10).
 
-The prefill runs eagerly: at the hybrid's prompt lengths it keeps the
-device busy (host launch time is a few percent of it).  The decode step
-is host-bound, so on a CUDA device it replays a CUDA graph per (batch,
-cache) key (``repro_torch.core.graphs``).
+The train step and the prefill run eagerly: at their lengths they keep
+the device busy.  The decode step is host-bound, so on a CUDA device it
+replays a CUDA graph per (batch, cache) key
+(``repro_torch.core.graphs``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,37 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graphs import tensor_leaves, resolve_runner
+from repro_torch.models.convert import param_tree
+from repro_torch.training import optimizer as opt
+from repro_torch.tree import leaves, tree_map
+
+
+def make_train_step(model, adamw: opt.AdamWConfig = None):
+    """``train_step(state, batch) -> metrics``: ``model.loss`` on
+    {"tokens", "labels"}, its gradient by autograd, and one
+    ``opt.apply_updates`` that changes the model's parameters and
+    ``state`` (``opt.init_state(param_tree(model))``) in place.  Metrics:
+    ``loss``, ``ce``, ``grad_norm`` (device scalars) and ``lr``.  Turns
+    the model's gradients on; ``train_step.params`` is its parameter
+    tree."""
+    adamw = adamw or opt.AdamWConfig()
+    model.requires_grad_(True)
+    params = param_tree(model)
+    grads_of = leaves(params)
+
+    def train_step(state, batch):
+        for p in grads_of:
+            p.grad = None
+        loss, metrics = model.loss(batch)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad, params)
+        with torch.profiler.record_function("adamw"):
+            _, _, om = opt.apply_updates(adamw, params, grads, state)
+        return dict({k: v.detach() for k, v in metrics.items()}, **om,
+                    loss=loss.detach())
+
+    train_step.params = params
+    return train_step
 
 
 def make_prefill_step(model):
@@ -36,12 +68,13 @@ def make_serve_step(model, graphs=None):
 
     ``graphs`` as ``LiveExecutor``'s: by default a CUDA device replays a
     CUDA graph per (batch, cache) key, False runs eagerly.  The graph's
-    body is ``decode_step`` followed by copying the new recurrent states
-    into the caller's cache, so a replay updates ``cache`` in place and
-    returns it (the attention rings are written in place either way);
-    the eager step returns new state tensors and leaves ``cache["m"]``
-    as it was.  A key holds the cache's storage, so another cache of the
-    same shapes is captured anew."""
+    body is ``decode_step`` followed by copying every cache tensor it
+    returned anew (the hybrid's recurrent states) into the caller's
+    cache, so a replay updates ``cache`` in place and returns it; what
+    ``decode_step`` writes in place or returns as it was (the hybrid's
+    attention rings, HSTU's psi) is left alone.  The eager step returns
+    what ``decode_step`` returns.  A key holds the cache's storage, so
+    another cache of the same shapes is captured anew."""
     runner = resolve_runner(graphs, model.device)
 
     def eager_step(cache, batch):
@@ -52,7 +85,7 @@ def make_serve_step(model, graphs=None):
 
     def body(cache, token, pos):
         logits, new = model.decode_step(cache, {"token": token, "pos": pos})
-        for dst, src in zip(tensor_leaves(cache["m"]), tensor_leaves(new["m"])):
+        for dst, src in zip(tensor_leaves(cache), tensor_leaves(new)):
             if dst is not src:
                 dst.copy_(src)
         return logits

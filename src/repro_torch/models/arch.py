@@ -1,9 +1,9 @@
 """Architecture assembly, in PyTorch (port of ``repro.models.arch``).
 
-The embedding / unembedding and layer stacking shared by the families,
-and the Zamba2 hybrid (``HybridModel``).  The dense / MoE / VLM
-Transformer, the plain SSM stacks and enc-dec are still to port
-(ROADMAP Queue 1, item 9).
+The embedding / unembedding, the chunked training loss and the layer
+stacking shared by the families, and the Zamba2 hybrid
+(``HybridModel``).  The dense / MoE / VLM Transformer, the plain SSM
+stacks and enc-dec are still to port (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -13,13 +13,14 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
 from . import ssm as ssm_lib
 from .config import ModelConfig
-from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
-                     ffn_specs, rms_norm)
+from .layers import (DTYPES, ParamSpec, attention, attention_specs,
+                     cross_entropy, ffn, ffn_specs, rms_norm)
 
 
 def stack_specs(specs, n: int):
@@ -45,6 +46,32 @@ def _embed(tok, tokens):
 
 def _logits(final_norm, unembed, x):
     return rms_norm(x, final_norm) @ unembed
+
+
+CE_CHUNK = 512
+
+
+def ce_loss(final_norm, unembed, x, labels, vocab: int,
+            chunk: int = CE_CHUNK):
+    """Sequence-chunked cross-entropy: the (B, S, vocab_padded) logits
+    are the largest training temporary (1.64 GB f32 per 512-token chunk
+    at B 8 for hstu-gr), so each chunk's logits are computed under a
+    ``torch.utils.checkpoint`` and only one (B, chunk, Vp) slice is
+    alive at a time, in the backward too.  The same value as the
+    unchunked mean (sum / (B S)); S <= chunk or S % chunk != 0 computes
+    it unchunked."""
+    B, S, _ = x.shape
+    if S <= chunk or S % chunk:
+        return cross_entropy(_logits(final_norm, unembed, x), labels,
+                             vocab).mean()
+
+    def one(xx, ll):
+        return cross_entropy(_logits(final_norm, unembed, xx), ll,
+                             vocab).sum()
+
+    tot = sum(checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk],
+                         use_reentrant=False) for i in range(0, S, chunk))
+    return tot / (B * S)
 
 
 def flat_specs(specs, prefix: str = "") -> Dict[str, ParamSpec]:

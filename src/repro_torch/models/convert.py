@@ -1,4 +1,5 @@
-"""The weight bridge: ``repro``'s parameter tree -> the port's state.
+"""The weight bridge: ``repro``'s parameter tree <-> the port's state,
+and a reference optimizer state -> the port's.
 
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed, so a test that holds the port against the JAX package initialises
@@ -15,7 +16,8 @@ The hybrid's tree nests deeper (``sections`` stacked twice, as
 names mirror the keys, so the same flattening maps it one to one.
 
 Shapes and layouts are identical on both sides, so the bridge is a
-rename of nested keys to ``state_dict`` names plus a device copy.
+rename of nested keys to ``state_dict`` names plus a device copy, and
+back (``param_tree`` / ``export_params``).
 Leaves of a 16-bit float type (JAX's bfloat16 arrives as an
 ``ml_dtypes`` numpy type that torch cannot read) go through float32,
 which holds every bfloat16 and float16 value exactly.
@@ -28,18 +30,13 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten, unflatten
 
-def state_from_tree(tree: Mapping[str, Any], prefix: str = ""
-                    ) -> Dict[str, np.ndarray]:
+
+def state_from_tree(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """Flatten a nested parameter tree to ``state_dict`` keys
     (``layers.uvqk``, ``task_tower.w1``, ...)."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            out.update(state_from_tree(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
+    return {k: np.asarray(v) for k, v in flatten(tree, ".").items()}
 
 
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
@@ -61,3 +58,46 @@ def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
                 arr = arr.astype(np.float32)     # float16 / bfloat16
             dst.copy_(torch.tensor(arr, dtype=dst.dtype))
     return model
+
+
+def param_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters as the reference's nested tree, the live
+    tensors themselves (what the optimizer updates in place)."""
+    return unflatten(dict(model.named_parameters()), ".")
+
+
+def export_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The reverse of ``load_jax_params``: the parameters as a nested
+    tree of numpy arrays in the reference's layout.  16-bit float leaves
+    come out as float32 (exact; numpy has no bfloat16)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype.itemsize == 2 else t).numpy()
+    return unflatten({k: host(v) for k, v in model.named_parameters()}, ".")
+
+
+def load_jax_opt_state(model: torch.nn.Module, state: Mapping[str, Any]):
+    """A reference optimizer state ``{"mu": tree, "nu": tree, "step"}``
+    (numpy leaves) as the port's, keyed like ``param_tree(model)``:
+    float32 moments on the model's device, ``step`` an int32 host
+    scalar.  Names and shapes must match the model's parameters."""
+    own = dict(model.named_parameters())
+
+    def moments(tree):
+        flat = state_from_tree(tree)
+        if set(flat) != set(own):
+            raise KeyError(f"moment names differ from the parameters: "
+                           f"missing {sorted(set(own) - set(flat))}, "
+                           f"unexpected {sorted(set(flat) - set(own))}")
+        out = {}
+        for name, arr in flat.items():
+            if tuple(arr.shape) != tuple(own[name].shape):
+                raise ValueError(f"{name}: shape {arr.shape} != "
+                                 f"{tuple(own[name].shape)}")
+            out[name] = torch.tensor(arr, dtype=torch.float32,
+                                     device=own[name].device)
+        return unflatten(out, ".")
+
+    return {"mu": moments(state["mu"]), "nu": moments(state["nu"]),
+            "step": torch.tensor(np.asarray(state["step"]),
+                                 dtype=torch.int32)}

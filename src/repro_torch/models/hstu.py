@@ -11,10 +11,16 @@ is a ``(K, V)`` pair of ``(L, B, P, H, D)`` tensors, parameters keep the
 shapes of ``repro``'s parameter tree (``models/convert.py`` moves one
 into the other).
 
-Attention goes through ``repro_torch.kernels.ops`` at all three call
-sites — causal prefill, rank with cache, rank with pages — which launch
-the CUDA kernels on CUDA tensors and run the plain versions on the CPU.
+Attention goes through ``repro_torch.kernels.ops`` at every call site —
+causal prefill and the training loss (``hstu_attn``, with a gradient
+when autograd records), rank with cache and the one-token decode
+(``prefix_rank_attn``), rank with pages or segments — which launch the
+CUDA kernels on CUDA tensors and run the plain versions on the CPU.
 The projections around attention stay ``torch.matmul``.
+
+Parameters are created without gradients; the serving entry points run
+under ``torch.no_grad`` and compute the same with gradients on or off,
+and ``launch.steps.make_train_step`` turns them on for ``loss``.
 """
 
 from __future__ import annotations
@@ -24,11 +30,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 
-from .arch import _embed, _logits, embed_specs, stack_specs
+from .arch import _embed, _logits, ce_loss, embed_specs, stack_specs
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
 
@@ -128,22 +135,70 @@ class HSTUModel(nn.Module):
             @ p["wo"][l].reshape(h * hd, d)
         return x + y, (k, v)
 
-    def _run(self, x, positions, attend, keep_kv: bool = False):
-        """All layers over x (B, S, d) at ``positions`` (1, S).  The RoPE
-        tables are built once here, shaped to broadcast over the
-        (B, S, 2, H, D/2) pairs of q and k, and shared by every layer."""
+    def _run(self, x, positions, attend, keep_kv: bool = False,
+             remat: bool = False):
+        """All layers over x (B, S, d) at ``positions`` (1, S) or (B, 1).
+        The RoPE tables are built once here, shaped to broadcast over the
+        (B, S, 2, H, D/2) pairs of q and k, and shared by every layer.
+        ``remat`` runs each layer under ``torch.utils.checkpoint``: only
+        its input is kept, and the backward runs it again (the
+        reference's ``jax.checkpoint(..., nothing_saveable)`` around the
+        scan body)."""
         rope = None
         if self.cfg.rope_theta:
             rope = tuple(t[..., None, None, :] for t in rope_tables(
                 positions, self.cfg.head_dim, self.cfg.rope_theta))
         ks, vs = [], []
         for l in range(self.cfg.n_layers):
+            if remat:
+                x = checkpoint(lambda xc, l=l: self._block(l, xc, rope,
+                                                           attend)[0],
+                               x, use_reentrant=False)
+                continue
             x, (k, v) = self._block(l, x, rope, attend)
             if keep_kv:
                 ks.append(k)
                 vs.append(v)
         kv = (torch.stack(ks), torch.stack(vs)) if keep_kv else None
         return x, kv
+
+    # --- LM-style protocol: training and one-token decode -------------------
+    def loss(self, batch):
+        """{"tokens": (B, S), "labels": (B, S)} -> (mean next-token CE,
+        {"ce": CE}).  Causal attention over the S tokens at positions
+        arange(S), every layer rematerialised, the CE chunked
+        (``arch.ce_loss``).  Gradients flow to the parameters that
+        require them (``launch.steps.make_train_step`` turns them on)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None, :]
+        x, _ = self._run(
+            x, positions,
+            lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
+            remat=True)
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
+        return ce, {"ce": ce}
+
+    @torch.no_grad()
+    def decode_step(self, cache, batch):
+        """One token per row against psi: {"token": (B, 1), "pos": (B,)}
+        with ``cache`` a (K, V) pair of (L, B, P, H, D) -> (logits
+        (B, 1, vocab_padded), cache).  The token attends to all P cached
+        tokens and itself (n_total = P + 1, the reference's ``mask=None``
+        path), rotated at its row's ``pos``; the cache is returned
+        unchanged, as in the reference."""
+        token = torch.as_tensor(batch["token"], device=self.device).long()
+        pos = torch.as_tensor(batch["pos"], device=self.device)
+        pk, pv = cache
+        n_total = pk.shape[2] + 1
+        x = _embed(self.tok, token)
+        x, _ = self._run(
+            x, pos[:, None],
+            lambda l, q, k, v: ops.rank_attention(
+                q, k, v, pk[l], pv[l], n_incr=1, n_total=n_total))
+        return _logits(self.final_norm, self.unembed, x), cache
 
     # --- RelayGR prefix / rank protocol -------------------------------------
     @torch.no_grad()
@@ -255,6 +310,12 @@ class HSTUModel(nn.Module):
               DTYPES[cfg.dtype])
         axes = ("layers", "batch", None, "heads", None)
         return (kv, kv), (axes, axes)
+
+    def init_cache(self, batch: int, seq_len: int):
+        """A zero psi of ``seq_len`` tokens: (K, V), each (L, B, S, H, D)."""
+        (kv, _), _ = self.cache_specs(batch, seq_len)
+        return tuple(torch.zeros(kv[0], dtype=kv[1], device=self.device)
+                     for _ in range(2))
 
     def kv_bytes(self, seq_len: int) -> int:
         """psi footprint per user — drives trigger admission control."""

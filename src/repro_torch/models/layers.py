@@ -2,7 +2,8 @@
 
 What the HSTU and hybrid paths need: ``ParamSpec`` (the fan-in normal
 init rule), ``rms_norm``, interleaved-pair RoPE, GQA softmax attention
-(prefill, q-chunked prefill and ring-cache decode) and the GLU FFN.
+(prefill, q-chunked prefill and ring-cache decode), the GLU FFN and
+the vocab-padded cross-entropy.
 Tensors keep the reference's layouts: (..., S, H, D) for heads.  Layers
 are functions of a parameter dict, as in the reference.
 """
@@ -50,12 +51,19 @@ class ParamSpec:
         return (x * std).to(dt)
 
 
+def _wide(dtype) -> torch.dtype:
+    """The type a reduction computes in: float32 for 16- and 32-bit
+    floats, float64 for float64 (the CPU's float64 reference)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x, weight, eps: float = 1e-6):
-    """RMS norm computed in float32 whatever the input type."""
+    """RMS norm computed in float32 (float64 for float64 input) whatever
+    the input type."""
     dt = x.dtype
-    x = x.float()
+    x = x.to(_wide(dt))
     var = x.square().mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * weight.float()
+    out = x * torch.rsqrt(var + eps) * weight.to(x.dtype)
     return out.to(dt)
 
 
@@ -239,3 +247,22 @@ def ffn(params, x, cfg):
     h = x @ params["wi"]
     h = act(x @ params["wg"]) * h if cfg.glu else act(h)
     return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """logits: (..., Vp) possibly vocab-padded; labels int (...).  Per
+    position ``logsumexp - gold`` in float32 (float64 for float64
+    logits), the padded ids masked to -1e30 first."""
+    vp = logits.shape[-1]
+    logits = logits.to(_wide(logits.dtype))
+    if vp > vocab:
+        vid = torch.arange(vp, device=logits.device)
+        logits = torch.where(vid < vocab, logits, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold

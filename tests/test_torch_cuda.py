@@ -20,7 +20,12 @@ gives each (b, kv) one split, repeat calls bit for bit, chunks shorter
 than 128, state head groups around 32 heads and steep decays; for
 ``ssd_chunk_intra``, chunks of 1 to 128 at P 32 / 64 / 128 and N 16 to
 128 with head groups that do not divide H, float64 accuracy (the limit
-single-pass TF32 fails), repeat calls and rows of a batch bit for bit.
+single-pass TF32 fails), repeat calls and rows of a batch bit for bit;
+for training, ``HSTUAttnFunction``'s gradients against float64 autograd
+(1e-5 of each gradient's largest |g|), a train step's ``hstu_attn``
+launches (two a layer under remat) and its weights against the CPU's, a
+refused launch failing the step, and HSTU ``decode_step`` replayed from
+a graph equal to the eager step.
 Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
 tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
@@ -69,7 +74,8 @@ def test_hstu_attn_kernel(dev, S, D):
 
 
 @pytest.mark.parametrize("n_prefix,n_incr,n_items", [
-    (0, 16, 64), (1, 5, 7), (100, 16, 64), (128, 0, 70), (130, 64, 512)])
+    (0, 16, 64), (1, 5, 7), (100, 16, 64), (128, 0, 70), (130, 64, 512),
+    (2048, 1, 0)])
 def test_prefix_rank_kernel(dev, n_prefix, n_incr, n_items):
     Sq = n_incr + n_items
     q = _randn(dev, 2, 4, Sq, 64, seed=1)
@@ -749,3 +755,121 @@ def test_a_failing_capture_raises(dev):
     assert read_counters() == before
     torch.cuda.synchronize()
     assert torch.isfinite(x).all()
+
+
+# --- training: the attention's gradient, the train step, HSTU decode ----------
+
+
+@pytest.mark.parametrize("S", [1, 17, 64, 130, 600])
+@pytest.mark.parametrize("D", [32, 64])
+def test_hstu_attn_function_gradients_against_float64(dev, S, D,
+                                                     monkeypatch):
+    """``HSTUAttnFunction``: one counted kernel launch forward, and dq,
+    dk, dv within 1e-5 of each gradient's largest |g| of float64
+    autograd over the plain twin (64-row blocks at S 130 and 600)."""
+    q, k, v, dout = (_randn(dev, 2, 3, S, D, seed=i) for i in range(4))
+    f32 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = hk.launches
+    out = hk.hstu_attn(*f32)
+    assert hk.launches == before + 1
+    assert type(out.grad_fn).__name__ == "HSTUAttnFunctionBackward"
+    _close(out.detach(), hk.hstu_attn_plain(q, k, v))
+    monkeypatch.setattr(hk, "BWD_BLOCK_ELEMS", 2 * 3 * 64 * S)
+    out.backward(dout)
+    assert hk.launches == before + 1           # the backward launches nothing
+    f64 = [t.double().requires_grad_(True) for t in (q, k, v)]
+    hk.hstu_attn_plain(*f64).backward(dout.double())
+    for name, a, b in zip("qkv", f32, f64):
+        rel = ((a.grad.double() - b.grad).abs().max()
+               / b.grad.abs().max()).item()
+        assert rel <= 1e-5, f"d{name}: {rel:.2e}"
+
+
+def _train_pair(dev):
+    from repro_torch.models import build_model, get_config
+    cfg = get_config("hstu-gr", smoke=True)
+    gpu = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    return cfg, gpu, cpu
+
+
+def test_train_step_counts_hstu_attn_launches(dev):
+    """One AdamW step on the card: two ``hstu_attn`` launches a layer
+    (the forward and its recompute under remat), the loss and the
+    updated weights as on the CPU (1e-5 relative, 1e-4 of each leaf's
+    largest |value|)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import optimizer as opt
+    cfg, gpu, cpu = _train_pair(dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 257))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    adamw = opt.AdamWConfig(warmup_steps=1)
+    steps = [make_train_step(m, adamw) for m in (gpu, cpu)]
+    states = [opt.init_state(s.params) for s in steps]
+    before = hk.launches
+    got = steps[0](states[0], batch)
+    assert hk.launches == before + 2 * cfg.n_layers
+    want = steps[1](states[1], batch)
+    assert got["loss"].item() == pytest.approx(want["loss"].item(), rel=1e-5)
+    for (name, a), b in zip(gpu.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=1e-4 * b.abs().max().item(),
+                                   msg=name)
+
+
+def test_a_failing_attention_launch_raises_in_training(dev, monkeypatch):
+    """No fallback: a refused kernel launch fails the train step, and a
+    head dim the kernel does not compile is refused, not run plainly."""
+    import dataclasses
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    cfg, gpu, _ = _train_pair(dev)
+    batch = {"tokens": np.zeros((1, 16), np.int32),
+             "labels": np.zeros((1, 16), np.int32)}
+    step = make_train_step(gpu)
+
+    def refuse(*a, **k):
+        raise RuntimeError("hstu_rank_attn_f32 launch failed: refused")
+
+    monkeypatch.setattr(cuda_lib, "rank_attn", refuse)
+    before = hk.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        step(opt.init_state(step.params), batch)
+    assert hk.launches == before
+    monkeypatch.undo()
+    odd = build_model(dataclasses.replace(cfg, head_dim=16, n_heads=4),
+                      device=dev).init(torch.Generator().manual_seed(0))
+    step = make_train_step(odd)
+    with pytest.raises(ValueError, match="head dim"):
+        step(opt.init_state(step.params), batch)
+
+
+def test_hstu_serve_step_replay_equals_eager(dev):
+    """HSTU ``decode_step`` through ``make_serve_step``: graph replays
+    equal the eager step bit for bit, the psi comes back untouched, one
+    ``prefix_rank_attn`` launch a layer and step, and the card's logits
+    match the CPU's (1e-4 of the largest)."""
+    from repro_torch.launch.steps import make_serve_step
+    cfg, gpu, cpu = _train_pair(dev)
+    rng = np.random.default_rng(1)
+    _, psi = gpu.prefill(torch.as_tensor(rng.integers(0, cfg.vocab, (2, 100)),
+                                         device=dev))
+    keep = [t.clone() for t in psi]
+    eager, graphed = make_serve_step(gpu, graphs=False), make_serve_step(gpu)
+    pos = torch.tensor([100, 63], device=dev)
+    for i in range(3):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)), device=dev)
+        before = rk.launches
+        lg, cache = graphed(psi, {"token": tok, "pos": pos})
+        assert cache is psi and rk.launches == before + cfg.n_layers
+        le, _ = eager(psi, {"token": tok, "pos": pos})
+        assert torch.equal(lg, le), f"step {i}"
+        want = cpu.decode_step(tuple(t.cpu() for t in psi),
+                               {"token": tok.cpu(), "pos": pos.cpu()})[0]
+        torch.testing.assert_close(le.cpu(), want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    assert all(torch.equal(a, b) for a, b in zip(psi, keep))
+    assert graphed.runner.captures == {"warmup": 0, "lazy": 1}

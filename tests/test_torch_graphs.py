@@ -178,6 +178,22 @@ def test_serve_step_is_eager_on_the_cpu():
         make_serve_step(model, graphs=True)
 
 
+def test_serve_step_drives_an_hstu_cache_on_the_cpu(smoke_model):
+    """``make_serve_step`` takes HSTU's (K, V) psi as well as the
+    hybrid's cache: eager on the CPU, ``decode_step``'s logits, the cache
+    handed back as it came."""
+    from repro_torch.launch.steps import make_serve_step
+    rng = np.random.default_rng(0)
+    _, psi = smoke_model.prefill(torch.as_tensor(rng.integers(0, 500, (2, 40))))
+    before = [t.clone() for t in psi]
+    batch = {"token": torch.as_tensor(rng.integers(0, 500, (2, 1))),
+             "pos": torch.tensor([40, 40])}
+    logits, cache = make_serve_step(smoke_model)(psi, batch)
+    assert cache is psi and all(torch.equal(a, b) for a, b in zip(psi, before))
+    assert logits.shape == (2, 1, smoke_model.cfg.vocab_padded)
+    assert torch.equal(logits, smoke_model.decode_step(psi, batch)[0])
+
+
 def test_stack_psi_into_a_static_buffer_equals_a_fresh_stack():
     from repro_torch.serving.batching import stack_psi
     rng = np.random.default_rng(0)

@@ -29,6 +29,8 @@ leaked = sorted(k for k, v in sys.modules.items()
                                       or k.startswith("repro.")))
 print(len(names), "modules;", "leaked:", leaked)
 assert not leaked, leaked
+assert {"repro_torch.training.optimizer", "repro_torch.training.checkpoint",
+        "repro_torch.launch.train"} <= set(names), names
 """
 
 
