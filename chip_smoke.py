@@ -105,7 +105,40 @@ Phases, each fatal on failure (nothing is caught):
      ``make_serve_step`` (graph replays, ``prefix_rank_attn`` counted),
      equal to the eager step bit for bit and within 1e-4 of the largest
      |logit| of the CPU's;
-  8. print the ``kernels`` JSON line, then the final device line.
+  8. ``lm``: the decoder-only Transformer family's serve path.
+     ``decode_attn`` at the family's GQA groups (G 1, 2, 4, 6, 8, 9 —
+     starcoder2_7b's 36 real heads of 48 — and 12), D 128, bf16 and
+     float32, over rings of 4096 and 8192 slots at B 2, at each served
+     run's own heads and ring (bf16), and a decode_32k-like case (qwen3_4b's heads, B 8 x 32768, bf16): against
+     the plain twin (as in phase 6) and float64 (float32 within 1e-5,
+     bf16 within 2**-8 + 1e-5 of the largest |out|: the output's rounding),
+     two calls bit for bit, timed
+     per call and by graph beside the byte bound and SDPA.  Then, bf16,
+     random weights from a seed: ``qwen3_4b`` at full width and depth
+     (36 layers, 4.41 B) — 2 prompts x 8192 tokens through
+     ``make_prefill_step`` (the plain q-chunked attention) and 32 greedy
+     steps through ``make_serve_step`` (graphs), counters zeroed just
+     before each and read just after (0 ``decode_attn`` launches in the
+     prefill, one a layer and step in the decode), then the decode again
+     eagerly and with graphs, in turns, from copies of the post-prefill
+     cache, with identical greedy tokens (the ring holds the prefill's
+     slots, every one live as in the reference, so the decode evicts the
+     oldest prompt tokens); ``decode_attn`` against its twin and float64
+     on layer 0 of the prefill's cache; prefill ms, ms per step (first,
+     later, all), tokens/s, peak memory, the graph pool and each step's
+     byte bound (every weight but the embedding table, plus the K/V
+     ring); a profiled graph step; the same for ``deepseek_moe_16b`` at
+     full width cut to 4 of 28 layers (2 x 2048, 32 steps) and
+     ``internvl2_2b`` at full width and depth (2 x (256 frontend + 2048),
+     8 steps); last, card against CPU for float32 copies of qwen3_4b and
+     deepseek_moe_16b at full width and 2 layers (2 x 256 + 4 decode
+     steps), logits within 5e-4 of the largest |logit| — 2e-3 for
+     deepseek_moe_16b at the reference init (no qk-norm: attention logits
+     of std ~128 make float32 reorderings show), where two faults planted
+     on the card (TF32 products, the shared experts dropped) must read
+     above that limit, and which is also checked with wq / wk rescaled
+     to fan-in d at 5e-4;
+  9. print the ``kernels`` JSON line, then the final device line.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
 the full run takes no arguments.  Per-shape timings are also written to
@@ -995,56 +1028,65 @@ def ssd_f64_accuracy(torch, results, Cc, Bc, xc, cum, dtc):
             f"single-pass TF32 {tf32:.2e} of max |out| (limit {F64_REL})")
 
 
+def _check(results, name, got, want, atol=TOL, rtol=TOL):
+    """``got`` within ``atol + rtol |want|`` of ``want`` everywhere, a
+    limit that an all-zero output fails; keeps the kernel's worst error
+    and the least share of outputs an all-zero kernel fails."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = atol + rtol * want.abs()
+    assert bool(got.isfinite().all()), f"{name}: non-finite output"
+    over = (want.abs() > lim).float().mean().item()
+    assert over > 0, (
+        f"{name}: the limit {atol} + {rtol}|plain| would pass all zeros")
+    results[name]["zero_fails"] = min(results[name].get("zero_fails", 1.0),
+                                      over)
+    assert bool((err <= lim).all()), (
+        f"{name}: |kernel - plain| {err.max().item():.3e} over "
+        f"{atol} + {rtol}|plain|")
+    e = err.max().item()
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    return e
+
+
+def _record(torch, results, name, shape, e, fn, plain, flops, nbytes,
+            library=None, tf32=False):
+    """Time a kernel at one shape: kernel and library call in turns (K L
+    L K, twice), the median of each (the library's time moves between
+    calls, so the two are compared only within one); then the card's
+    time per launch by CUDA-graph replay, the plain twin per call, and
+    the bounds (for a 3xTF32 kernel that one too)."""
+    runs = {"kernel": [], "library": []}
+    order = ("kernel", "library", "library", "kernel") * 2
+    for who in order:
+        f = fn if who == "kernel" else library
+        if f is not None:
+            runs[who].append(_time_ms(torch, f))
+    ms = statistics.median(runs["kernel"])
+    lib_ms = statistics.median(runs["library"]) if runs["library"] else None
+    graph_ms = _graph_ms(torch, fn)
+    plain_ms = _time_ms(torch, plain, 5)
+    bound_ms, by = _bound(flops, nbytes)
+    tf32_ms = _bound_tf32(flops, nbytes) if tf32 else None
+    results[name]["shapes"].append(dict(
+        shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+        bound_tf32_ms=tf32_ms, max_abs_err=e, runs=runs))
+    log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms (graph "
+        f"{graph_ms:.4f}) plain {plain_ms:.4f} ms library {lib_ms} ms "
+        f"bound {bound_ms:.4f} ms ({by}), 3xTF32 {tf32_ms}; turns {runs}")
+
+
 def hybrid_kernel_checks(torch, results):
+    import functools
+
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attn as dk
     from repro_torch.kernels import ssd_chunk as sk
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def check(name, got, want, atol=TOL, rtol=TOL):
-        got, want = got.float(), want.float()
-        err = (got - want).abs()
-        lim = atol + rtol * want.abs()
-        assert torch.isfinite(got).all(), f"{name}: non-finite output"
-        over = (want.abs() > lim).float().mean().item()
-        assert over > 0, (
-            f"{name}: the limit {atol} + {rtol}|plain| would pass all zeros")
-        # the least share of outputs, over the cases, an all-zero kernel fails
-        results[name]["zero_fails"] = min(results[name].get("zero_fails", 1.0),
-                                          over)
-        assert bool((err <= lim).all()), (
-            f"{name}: |kernel - plain| {err.max().item():.3e} over "
-            f"{atol} + {rtol}|plain|")
-        e = err.max().item()
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-        return e
-
-    def record(name, shape, e, fn, plain, flops, nbytes, library=None,
-               tf32=False):
-        # kernel and library call in turns (K L L K, twice), the median of
-        # each: the library's time moves between calls, so the two are
-        # compared only within one; then the card's time per launch by
-        # CUDA-graph replay, and for a 3xTF32 kernel that bound too
-        runs = {"kernel": [], "library": []}
-        order = ("kernel", "library", "library", "kernel") * 2
-        for who in order:
-            f = fn if who == "kernel" else library
-            if f is not None:
-                runs[who].append(_time_ms(torch, f))
-        ms = statistics.median(runs["kernel"])
-        lib_ms = statistics.median(runs["library"]) if runs["library"] else None
-        graph_ms = _graph_ms(torch, fn)
-        plain_ms = _time_ms(torch, plain, 5)
-        bound_ms, by = _bound(flops, nbytes)
-        tf32_ms = _bound_tf32(flops, nbytes) if tf32 else None
-        results[name]["shapes"].append(dict(
-            shape, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-            bound_tf32_ms=tf32_ms, max_abs_err=e, runs=runs))
-        log(f"{name} {shape}: err {e:.2e} kernel {ms:.4f} ms (graph "
-            f"{graph_ms:.4f}) plain {plain_ms:.4f} ms library {lib_ms} ms "
-            f"bound {bound_ms:.4f} ms ({by}), 3xTF32 {tf32_ms}; turns {runs}")
+    check = functools.partial(_check, results)
+    record = functools.partial(_record, torch, results)
 
     # SSD stages: the prefill's shape (64 chunks of 128, H = P = N = 64)
     # and one ragged chunk (Q = L = 100 < 128)
@@ -1723,11 +1765,367 @@ def train_phase(torch, results):
         f"{DEC_REL}); {g_ms:.4f} ms a step with graphs, {e_ms:.4f} eager")
 
 
+# --- phase 8: the decoder-only Transformer (dense, MoE, VLM) --------------------
+
+LM_B = 2                                  # prompts
+# (arch, layers kept (None: all), prompt tokens, decode steps)
+LM_RUNS = (("qwen3_4b", None, 8192, 32),
+           ("deepseek_moe_16b", 4, 2048, 32),
+           ("internvl2_2b", None, 2048, 8))
+LM_CPU_LAYERS, LM_CPU_S, LM_CPU_STEPS = 2, 256, 4   # card-vs-CPU check
+LM_REL = 5e-4                   # card vs CPU, of the largest |logit|
+# ... deepseek_moe_16b at the reference init: no qk-norm, and the init
+# rule's fan-in for wq / wk is the head count, so its attention logits
+# have a std of ~128: float32 reorderings reach its logits at ~5e-4 and
+# flip one prefill token's top-6 at layer 1 (a router gap of ~1e-5);
+# 9.9e-7 with wq / wk at fan-in d_model, checked at LM_REL beside it
+LM_REL_INIT = 2e-3
+# faults planted on the card at the reference init, each of which the
+# LM_REL_INIT limit must catch: float32 products in TF32, and the shared
+# experts' output dropped
+LM_PLANTED = ("TF32 on", "shared experts dropped")
+# bf16 decode vs float64, of the largest |out|: the output's rounding to
+# bf16 (half an ulp, at most 2**-8 of the largest |out|) plus F64_REL
+LM_F64_BF16 = 2 ** -8 + F64_REL
+# decode_attn at the family's groups, D 128: (config, H, KV); G = H / KV
+LM_GROUPS = (("qwen3_4b", 32, 8), ("yi_9b", 32, 4),
+             ("starcoder2_7b real heads", 36, 4), ("starcoder2_15b", 48, 4),
+             ("internvl2_2b", 16, 8), ("deepseek_moe_16b", 16, 16),
+             ("dbrx_132b", 48, 8))
+LM_RINGS = (4096, 8192)                   # the window; qwen3's prompt
+LM_LONG = (8, 32768)                      # decode_32k-like: B, S
+
+
+def _decode_check(torch, results, tag, q, k, v):
+    """One ``decode_attn`` call held against its plain twin (f32 within
+    TOL + TOL|plain|, bf16 within BF16_REL of the largest |plain|) and
+    float64 (the twin on float64 inputs, one batch row at a time; f32
+    within F64_REL, bf16 within LM_F64_BF16 of the largest |out|), and a
+    second call bit for bit.  Returns (error record, atol, rtol, the
+    float64 error)."""
+    from repro_torch.kernels import decode_attn as dk
+
+    got = dk.decode_attn(q, k, v)
+    want = dk.decode_attn_plain(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    atol, rtol = (BF16_REL * want.float().abs().max().item(), 0.0) \
+        if bf16 else (TOL, TOL)
+    e = _check(results, "decode_attn", got, want, atol, rtol)
+    assert torch.equal(dk.decode_attn(q, k, v), got), \
+        f"decode_attn {tag}: two calls differ"
+    ref64 = torch.cat([dk.decode_attn_plain(*(t[b:b + 1].double()
+                                               for t in (q, k, v)))
+                       for b in range(q.shape[0])])
+    rel = ((got.double() - ref64).abs().max() / ref64.abs().max()).item()
+    lim = LM_F64_BF16 if bf16 else F64_REL
+    assert rel <= lim, (f"decode_attn {tag}: |kernel - float64| {rel:.2e} "
+                        f"of max |out| over {lim}")
+    results["decode_attn"].setdefault("f64_rel", {})[tag] = rel
+    return e, atol, rtol, rel
+
+
+def lm_kernel_checks(torch, results):
+    """``decode_attn`` at the Transformer family's GQA groups (G 1, 2, 4,
+    6, 8, 9, 12), D 128, over rings of 4096 and 8192 slots (bf16 and
+    float32), at each served run's own heads and ring (LM_RUNS: F + S
+    slots, bf16), and a decode_32k-like case (qwen3's heads, B 8, S
+    32768, bf16), each through ``_decode_check``; timed beside the byte
+    bound and SDPA (``enable_gqa``).  Launches here are comparisons,
+    outside the main path's counts."""
+    import functools
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as dk
+    from repro_torch.models import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    record = functools.partial(_record, torch, results)
+    cases = [(name, H, KV, LM_B, S, dt) for name, H, KV in LM_GROUPS
+             for S in LM_RINGS for dt in (torch.bfloat16, torch.float32)]
+    for arch, _, S, _ in LM_RUNS:
+        cfg = get_config(arch)
+        H, KV, ring = cfg.n_heads, cfg.n_kv_heads, cfg.n_frontend_tokens + S
+        if not any(c[1:5] == (H, KV, LM_B, ring) for c in cases):
+            cases.append((f"{arch} served ring", H, KV, LM_B, ring,
+                          torch.bfloat16))
+    cases.append(("decode_32k (qwen3_4b)", 32, 8, *LM_LONG, torch.bfloat16))
+    D = 128
+    for name, H, KV, B, S, dtype in cases:
+        q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+        tag = f"{name} G {H // KV} B {B} S {S} {str(dtype)[6:]}"
+        e, atol, rtol, rel = _decode_check(torch, results, tag, q, k, v)
+        esz = k.element_size()
+        flops = 4 * B * H * S * D + 5 * B * H * S
+        nbytes = esz * (2 * B * S * KV * D + 2 * B * H * D)
+        record("decode_attn", dict(config=name, B=B, S=S, H=H, KV=KV, G=H // KV,
+                                   D=D, dtype=str(dtype), atol=atol,
+                                   rtol=rtol, f64_rel=rel, main=False), e,
+               lambda: dk.decode_attn(q, k, v),
+               lambda: dk.decode_attn_plain(q, k, v), flops, nbytes,
+               library=lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                   enable_gqa=True))
+    torch.cuda.empty_cache()
+    f64 = results["decode_attn"]["f64_rel"]
+    log(f"decode_attn at G 1-12, D 128: agrees with its twin and float64 "
+        f"(worst float64 error {max(f64.values()):.2e} of max |out|)")
+
+
+def _decode_bytes(model, cache, B):
+    """What one decode step must move at least: every weight but the
+    embedding table (and a VLM's projector, used by the prefill only) once, B embedding rows, and the whole K/V ring
+    (every layer) once; the new entries' writes are negligible."""
+    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+            if n not in ("tok", "projector"))
+    rows = B * model.tok.shape[1] * model.tok.element_size()
+    kv = sum(t.numel() * t.element_size() for t in cache)
+    return w + rows + kv
+
+
+def lm_serve(torch, results, arch, n_layers, S, steps):
+    """One config at full width: build and draw the weights (seed 0),
+    prefill LM_B prompts of S tokens (a VLM's 256 frontend embeddings
+    first), then ``steps`` greedy decode steps through
+    ``make_serve_step`` (graphs), counters zeroed just before each and
+    read just after (0 ``decode_attn`` launches in the prefill, one per
+    layer and step in the decode); the decode again eagerly and with
+    graphs, in turns, from copies of the post-prefill cache, with
+    identical greedy tokens.  ``decode_attn`` is also held against its
+    twin and float64 on layer 0 of the prefill's cache.  The ring is the
+    prefill's F + S slots and, as in the reference, every slot is live
+    (no length mask), so decode step i overwrites prompt token i: the
+    oldest prompt tokens are evicted, as a window of F + S would."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import decode_attn as dk
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    L, F_ = cfg.n_layers, cfg.n_frontend_tokens
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    build_s = time.perf_counter() - t0
+    log(f"{arch}: {L} layers, {n_params / 1e9:.3f} B parameters "
+        f"({cfg.dtype}), built and drawn in {build_s:.1f} s")
+    prefill, serve_step = make_prefill_step(model), make_serve_step(model)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, S)),
+                                       device="cuda")}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.randn(
+            (LM_B, F_, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1)).to(
+                model.projector.dtype)
+    warm = dict(batch, tokens=batch["tokens"][:, :256])
+    prefill(warm)                                 # cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    dk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    c_pre = dk.launches
+    peak_prefill = torch.cuda.max_memory_allocated()
+    log(f"{arch} prefill {LM_B} x {F_ + S}: {prefill_ms:.1f} ms, "
+        f"decode_attn launches {c_pre}, peak {peak_prefill / 2**30:.2f} GiB")
+    assert c_pre == 0, c_pre
+    assert logits.shape == (LM_B, 1, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), f"{arch} prefill: non-finite logits"
+    assert [tuple(t.shape) for t in cache] == [
+        (L, LM_B, F_ + S, cfg.n_kv_heads, cfg.head_dim)] * 2
+
+    q0 = torch.randn((LM_B, cfg.n_heads, cfg.head_dim), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(2))
+    e, atol, _, rel = _decode_check(torch, results,
+                                    f"{arch} prefill cache, layer 0",
+                                    q0.to(cache[0].dtype), cache[0][0],
+                                    cache[1][0])
+    log(f"{arch} decode_attn on layer 0 of the prefill cache: |kernel - "
+        f"twin| {e:.3e} (limit {atol:.3e}), float64 {rel:.2e} of max |out|")
+
+    clone = lambda c: tuple(t.clone() for t in c)
+    base = clone(cache)
+    eager_step = make_serve_step(model, graphs=False)
+    tok0 = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    pos = torch.full((LM_B,), F_ + S, device="cuda")
+
+    def decode(step, c, counted=False):
+        """(ms of the first step, ms per later step, ms per step over all,
+        tokens, last logits)."""
+        tok, out = tok0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            before = dk.launches
+            lg, c = step(c, {"token": tok, "pos": pos + i})
+            if counted:
+                assert dk.launches - before == L, (i, dk.launches)
+            tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            out.append(tok)
+            if i == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / (steps - 1),
+                (t2 - t0) * 1e3 / steps, torch.cat(out, 1), lg)
+
+    torch.cuda.reset_peak_memory_stats()
+    dk.launches = 0
+    first_ms, rest_ms, decode_ms, gen_toks, lg = decode(serve_step, cache,
+                                                        counted=True)
+    c_dec = dk.launches
+    peak_decode = torch.cuda.max_memory_allocated()
+    assert c_dec == L * steps, (c_dec, L * steps)
+    assert torch.isfinite(lg).all(), f"{arch} decode: non-finite logits"
+    assert ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()
+    results["decode_attn"]["launches"] += c_pre + c_dec
+    nbytes = _decode_bytes(model, cache, LM_B)
+    bound_ms = nbytes / HBM_BW * 1e3
+    log(f"{arch} decode {steps} steps (graphs): {decode_ms:.3f} ms/step "
+        f"(first {first_ms:.2f}, later {rest_ms:.4f}), "
+        f"{LM_B * 1e3 / rest_ms:.1f} tokens/s, decode_attn launches {c_dec}; "
+        f"byte bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB)")
+    turns = {"graphs": [(first_ms, rest_ms, decode_ms)], "eager": []}
+    for who in ("eager", "eager", "graphs"):
+        f, r, d, toks, _ = decode(eager_step if who == "eager" else serve_step,
+                                  clone(base))
+        assert torch.equal(toks, gen_toks), f"{arch} decode ({who}): other tokens"
+        turns[who].append((f, r, d))
+    graph_pool = serve_step.runner.pool_bytes()
+    log(f"{arch} decode ms per step (first, later, all), graphs "
+        f"{turns['graphs']}, eager {turns['eager']}; greedy tokens identical; "
+        f"graph pool {graph_pool / 2**20:.1f} MiB over "
+        f"{len(serve_step.runner.graphs)} cache keys")
+    probe = clone(base)
+    one = {"token": tok0, "pos": pos}
+    serve_step(probe, one)                        # capture
+    prof = profile_fn(torch, f"{arch} decode step (graphs)",
+                      lambda: serve_step(probe, one), 5)
+    attn_ms = sum(v for k, v in prof["kernels"].items() if "decode_attn" in k)
+    log(f"{arch} decode step: decode_attn {attn_ms:.4f} ms of "
+        f"{prof['busy_ms']:.4f} ms device busy")
+    results.setdefault("_lm", {})[arch] = dict(
+        layers=L, params=n_params, dtype=cfg.dtype, batch=LM_B,
+        frontend=F_, prompt=S, steps=steps, build_s=build_s,
+        prefill_ms=prefill_ms,
+        prefill_tok_s=LM_B * (F_ + S) * 1e3 / prefill_ms,
+        decode_ms_per_step=decode_ms, decode_first_ms=first_ms,
+        decode_later_ms=rest_ms, decode_tok_s=LM_B * 1e3 / rest_ms,
+        decode_bytes=nbytes, decode_bound_ms=bound_ms,
+        decode_turns=turns, peak_prefill_bytes=peak_prefill,
+        peak_decode_bytes=peak_decode, graph_pool_bytes=graph_pool,
+        launches_prefill=c_pre, launches_decode=c_dec,
+        profile_decode=dict(prof, decode_attn_ms=attn_ms),
+        generated=gen_toks.tolist())
+
+
+def lm_card_vs_cpu(torch, results, arch, variants):
+    """float32 at full width, LM_CPU_LAYERS layers: prefill LM_B x
+    LM_CPU_S tokens and LM_CPU_STEPS greedy decode steps (the CPU's
+    tokens fed to both) on the card and on the CPU from the same
+    weights.  ``variants``: (name, limit) in turn, "reference init" the
+    weights as drawn, "wq/wk at fan-in d" then with wq and wk rescaled
+    to fan-in d_model (the reference's rule takes the head count); the
+    logits within ``limit`` of the largest |logit|.  A name in
+    LM_PLANTED runs the reference init with that fault planted on the
+    card, and its worst reading must exceed ``limit``: the check
+    catches it."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CPU_LAYERS,
+                              dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (LM_B, LM_CPU_S)))
+    for variant, limit in variants:
+        planted = variant in LM_PLANTED
+        if variant == "wq/wk at fan-in d":
+            with torch.no_grad():
+                for w in (cpu.layers.attn.wq, cpu.layers.attn.wk):
+                    w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+        else:
+            assert planted or variant == "reference init", variant
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        if variant == "shared experts dropped":
+            with torch.no_grad():
+                gpu.layers.moe.shared_wo.zero_()
+        worst = {}
+
+        def close(step, a, b):
+            d = (a.cpu() - b).abs().max().item() / b.abs().max().item()
+            worst[step] = d
+            assert planted or d <= limit, (
+                f"{arch} ({variant}) card vs CPU at {step}: {d:.2e} of max "
+                f"|logit| over {limit}")
+
+        torch.backends.cuda.matmul.allow_tf32 = variant == "TF32 on"
+        lg, cg = make_prefill_step(gpu)({"tokens": toks.cuda()})
+        lc, cc = make_prefill_step(cpu)({"tokens": toks})
+        close("prefill", lg, lc)
+        sg, sc = make_serve_step(gpu), make_serve_step(cpu)
+        for i in range(LM_CPU_STEPS):
+            tok = lc[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+            pos = torch.full((LM_B,), LM_CPU_S + i)
+            lg, cg = sg(cg, {"token": tok.cuda(), "pos": pos.cuda()})
+            lc, cc = sc(cc, {"token": tok, "pos": pos})
+            close(f"decode {i}", lg, lc)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"{arch} card vs CPU ({variant}{', planted' if planted else ''}; "
+            f"float32, {LM_CPU_LAYERS} layers, {LM_B}x{LM_CPU_S} + "
+            f"{LM_CPU_STEPS} steps): prefill {worst['prefill']:.2e}, decode "
+            f"at most {max(v for k, v in worst.items() if k != 'prefill'):.2e}"
+            f" of max |logit| (limit {limit})")
+        if planted:
+            assert max(worst.values()) > limit, (
+                f"{arch}: the planted fault '{variant}' reads "
+                f"{max(worst.values()):.2e}, within the limit {limit}")
+        results.setdefault("_lm", {}).setdefault("card_vs_cpu_rel", {})[
+            f"{arch}, {variant}{' (planted)' if planted else ''}"] = worst
+
+
+def lm_phase(torch, results):
+    """The Transformer family's serve path: ``decode_attn`` at its
+    groups, qwen3_4b at full width and depth (2 x 8192 prefill, 32
+    decode steps), deepseek_moe_16b at full width cut to 4 layers (2 x
+    2048, 32 steps), internvl2_2b at full width and depth (2 x (256 +
+    2048), 8 steps), then card against CPU for qwen3_4b and
+    deepseek_moe_16b (the latter also with LM_PLANTED's faults, and with
+    wq / wk at fan-in d)."""
+    import gc
+
+    lm_kernel_checks(torch, results)
+    for run in LM_RUNS:
+        lm_serve(torch, results, *run)
+        gc.collect()                      # the model, its caches, its graphs
+        torch.cuda.empty_cache()
+    lm_card_vs_cpu(torch, results, "qwen3_4b", [("reference init", LM_REL)])
+    lm_card_vs_cpu(torch, results, "deepseek_moe_16b",
+                   [("reference init", LM_REL_INIT)]
+                   + [(fault, LM_REL_INIT) for fault in LM_PLANTED]
+                   + [("wq/wk at fan-in d", LM_REL)])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,relay,graphs,costmodel,hybrid,"
-                            "train")
+                            "train,lm")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1770,6 +2168,8 @@ def main(argv=None):
         hybrid_phase(torch, results)
     if "train" in phases:
         train_phase(torch, results)
+    if "lm" in phases:
+        lm_phase(torch, results)
 
     kernels = []
     for name, path in REPLACES.items():

@@ -10,6 +10,8 @@ ragged edges and takes every shape.
 
 from __future__ import annotations
 
+import torch
+
 from .decode_attn import decode_attn
 from .hstu_attn import hstu_attn
 from .paged_prefix_attn import paged_prefix_rank_attn, segment_rank_attn
@@ -63,5 +65,7 @@ def segment_rank_attention(q, k_new, v_new, pool, k_table, v_table,
 def cache_decode_attention(q, k, v):
     """Flash-decode: q (B, 1, H, D); cache k, v (B, S, KV, D) in the
     model layout, read as they are (no transpose, no fallback for an S
-    that a tile does not divide).  Returns (B, 1, H, D)."""
+    that a tile does not divide).  Returns (B, 1, H, D).  The kernel
+    maps head h to kv head ``h * KV // H``, so q holds the real heads
+    only (``attention`` never computes ``head_pad``'s padded ones)."""
     return decode_attn(q[:, 0], k, v)[:, None]

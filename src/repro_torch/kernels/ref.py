@@ -205,13 +205,15 @@ def decode_attn_ref(q, k, v):
     """Softmax flash-decode oracle (GQA), reference signature.
 
     q: (B, H, D) one query per sequence; k, v: (B, KV, S, D).  Computed
-    in float32 throughout — the softmax weights stay float32 before the
-    PV product, as in the Pallas kernel and the CUDA kernel — and
-    returned in q's type."""
+    in float32 throughout from 16- or 32-bit inputs (float64 from
+    float64, for accuracy probes) — the softmax weights stay in that
+    type before the PV product, as in the Pallas kernel and the CUDA
+    kernel — and returned in q's type."""
     B, H, D = q.shape
     KV = k.shape[1]
+    ct = torch.promote_types(q.dtype, torch.float32)
     kmap = torch.arange(H, device=k.device) * KV // H
-    ke, ve = k[:, kmap].float(), v[:, kmap].float()     # (B, H, S, D)
-    logits = torch.einsum("bhd,bhsd->bhs", q.float(), ke) / math.sqrt(D)
+    ke, ve = k[:, kmap].to(ct), v[:, kmap].to(ct)       # (B, H, S, D)
+    logits = torch.einsum("bhd,bhsd->bhs", q.to(ct), ke) / math.sqrt(D)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhs,bhsd->bhd", w, ve).to(q.dtype)

@@ -72,7 +72,8 @@ def make_serve_step(model, graphs=None):
     returned anew (the hybrid's recurrent states) into the caller's
     cache, so a replay updates ``cache`` in place and returns it; what
     ``decode_step`` writes in place or returns as it was (the hybrid's
-    attention rings, HSTU's psi) is left alone.  The eager step returns
+    attention rings, a Transformer's whole cache, (k, v) or the int8
+    4-tuple, and HSTU's psi) is left alone.  The eager step returns
     what ``decode_step`` returns.  A key holds the cache's storage, so
     another cache of the same shapes is captured anew."""
     runner = resolve_runner(graphs, model.device)

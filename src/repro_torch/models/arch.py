@@ -1,9 +1,10 @@
 """Architecture assembly, in PyTorch (port of ``repro.models.arch``).
 
 The embedding / unembedding, the chunked training loss and the layer
-stacking shared by the families, and the Zamba2 hybrid
-(``HybridModel``).  The dense / MoE / VLM Transformer, the plain SSM
-stacks and enc-dec are still to port (ROADMAP Queue 1, item 9).
+stacking shared by the families, the decoder-only Transformer (dense,
+MoE and VLM: ``TransformerModel``) and the Zamba2 hybrid
+(``HybridModel``).  The plain SSM stacks (RWKV6) and enc-dec are still
+to port (ROADMAP Queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 
 from . import ssm as ssm_lib
-from .config import ModelConfig
+from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs,
                      cross_entropy, ffn, ffn_specs, rms_norm)
+from .moe import moe_ffn, moe_specs, shared_expert_ffn
 
 
 def stack_specs(specs, n: int):
@@ -114,6 +116,216 @@ class ParamTree(nn.Module):
         return out
 
 
+def draw_params(model: nn.Module, generator: torch.Generator):
+    """Fill every parameter of ``model`` (laid out by ``add_params`` from
+    ``model.param_specs()``) on the CPU from ``generator`` (so the
+    weights do not depend on the device), in sorted-name order."""
+    params = dict(model.named_parameters())
+    specs = flat_specs(model.param_specs())
+    with torch.no_grad():
+        for name in sorted(specs):
+            params[name].copy_(specs[name].initialise(generator))
+    return model
+
+
+def zeros_from_specs(spec, device):
+    """A tree of (shape, dtype) leaves (dicts and tuples) as zeros."""
+    if isinstance(spec, dict):
+        return {k: zeros_from_specs(v, device) for k, v in spec.items()}
+    if isinstance(spec[1], torch.dtype):
+        return torch.zeros(spec[0], dtype=spec[1], device=device)
+    return tuple(zeros_from_specs(s, device) for s in spec)
+
+
+def _no_tf32():
+    """float32 products stay float32 on the card (no TF32 rounding)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# ===========================================================================
+# Dense / MoE / VLM decoder-only Transformer
+# ===========================================================================
+
+
+class TransformerModel(nn.Module):
+    """Decoder-only Transformer: dense, MoE and VLM (the vision frontend
+    stubbed as ``n_frontend_tokens`` precomputed patch embeddings,
+    projected into d_model and prepended to the tokens).
+
+    Parameters live on ``device`` from construction under the reference
+    tree's names (``layers.attn.wq`` stacked (n_layers, ...),
+    ``layers.moe.router`` float32 in any model type, ``projector`` for
+    a VLM); ``init`` fills them from a ``torch.Generator``,
+    ``convert.load_jax_params`` loads a ``repro`` tree.  Public layouts
+    are the reference's:
+
+    * cache ``(k, v)``, each (n_layers, B, S, KV, D), or under
+      ``kv_quant`` ``(k int8, v int8, k scales, v scales)`` with scales
+      (n_layers, B, S, KV, 1) float32;
+    * ``prefill({"tokens": (B, S)[, "frontend": (B, F, d)]})`` and
+      ``decode_step(cache, {"token": (B, 1), "pos": (B,)})`` return
+      (logits (B, 1, vocab_padded), cache).
+
+    ``decode_step`` writes the new K/V into the caller's cache IN PLACE
+    and returns the same tensors (the reference returns a rewritten
+    copy); each layer launches ``decode_attn`` once on a CUDA model.
+    ``prefill`` returns the K/V unquantized, as the reference does.
+    As in the reference, the sliding window masks the prefill only: a
+    decode step attends over every slot of the ring."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        _no_tf32()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        add_params(self, self.param_specs(), self.device)
+
+    @property
+    def is_moe(self):
+        return self.cfg.family == "moe"
+
+    def block_specs(self):
+        cfg = self.cfg
+        d = cfg.d_model
+        specs = {
+            "ln1": ParamSpec((d,), ("embed",), init="ones"),
+            "ln2": ParamSpec((d,), ("embed",), init="ones"),
+            "attn": attention_specs(cfg),
+        }
+        if self.is_moe:
+            specs["moe"] = moe_specs(cfg)
+        else:
+            specs["ffn"] = ffn_specs(cfg)
+        return specs
+
+    def param_specs(self):
+        cfg = self.cfg
+        specs = dict(embed_specs(cfg))
+        specs["layers"] = stack_specs(self.block_specs(), cfg.n_layers)
+        if cfg.family == "vlm":
+            # projector from the (stubbed) vision embeddings into d_model
+            specs["projector"] = ParamSpec(
+                (cfg.d_model, cfg.d_model), ("embed", None), dtype=cfg.dtype)
+        return specs
+
+    def init(self, generator: torch.Generator) -> "TransformerModel":
+        """Draw every parameter on the CPU from ``generator``, in
+        sorted-name order."""
+        return draw_params(self, generator)
+
+    # --- blocks -------------------------------------------------------------
+    def _block(self, p, x, positions, cache=None, cache_index=None,
+               window=0):
+        cfg = self.cfg
+        h, kvc = attention(p["attn"], rms_norm(x, p["ln1"]), cfg,
+                           positions=positions, cache=cache,
+                           cache_index=cache_index, window=window)
+        x = x + h
+        xn = rms_norm(x, p["ln2"])
+        if self.is_moe:
+            # the routing feeds ``moe_aux`` on the training path
+            # (ROADMAP Queue 1, item 11)
+            y, _ = moe_ffn(p["moe"], xn, cfg)
+            if cfg.n_shared_experts:
+                y = y + shared_expert_ffn(p["moe"], xn, cfg)
+        else:
+            y = ffn(p["ffn"], xn, cfg)
+        return x + y, kvc
+
+    def _run(self, x, positions, cache=None, cache_index=None, window=0):
+        """The stacked layers in turn, each a view of the stack.  With a
+        ``cache`` (decode) its layer slices are updated in place and the
+        same tuple returned; without one (prefill) every layer's K/V is
+        copied into one stacked (n_layers, B, S, KV, D) pair."""
+        L = self.cfg.n_layers
+        kv = cache
+        for l in range(L):
+            cl = None if cache is None else tuple(t[l] for t in cache)
+            x, kvc = self._block(self.layers.tree(l), x, positions, cache=cl,
+                                 cache_index=cache_index, window=window)
+            if cache is None:
+                if kv is None:
+                    kv = tuple(torch.empty((L,) + tuple(t.shape),
+                                           dtype=t.dtype, device=t.device)
+                               for t in kvc)
+                for dst, src in zip(kv, kvc):
+                    dst[l] = src
+        return x, kv
+
+    # --- public protocol ----------------------------------------------------
+    def loss(self, batch):
+        raise NotImplementedError(
+            f"{self.cfg.name}: TransformerModel.loss is not ported to "
+            f"repro_torch yet (ROADMAP Queue 1, item 11)")
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        """{"tokens": (B, S)} (a VLM also takes "frontend" (B, F, d),
+        cast to the model's type) -> (last-position logits, cache); the
+        frontend's F positions come first, positions run over F + S."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        if cfg.family == "vlm" and "frontend" in batch:
+            fe = torch.as_tensor(batch["frontend"], device=self.device)
+            fe = torch.einsum("bfd,de->bfe", fe.to(self.projector.dtype),
+                              self.projector)
+            x = torch.cat([fe.to(x.dtype), x], dim=1)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        x, kv = self._run(x, positions, window=cfg.sliding_window)
+        return _logits(self.final_norm, self.unembed, x[:, -1:]), kv
+
+    @torch.no_grad()
+    def decode_step(self, cache, batch):
+        """One token per sequence: {"token": (B, 1), "pos": (B,)} against
+        ``cache`` -> (logits (B, 1, Vp), the same cache, updated)."""
+        token = torch.as_tensor(batch["token"], device=self.device).long()
+        pos = torch.as_tensor(batch["pos"], device=self.device)
+        x = _embed(self.tok, token)
+        x, cache = self._run(x, pos[:, None], cache=tuple(cache),
+                             cache_index=pos)
+        return _logits(self.final_norm, self.unembed, x), cache
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """The cache's (shape, dtype) tuple (no sharding axes): a ring of
+        ``min(seq_len, sliding_window)`` slots (``seq_len`` without a
+        window); int8 K/V and float32 scales under ``kv_quant``."""
+        cfg = self.cfg
+        S = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+            else seq_len
+        shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            kv = (shape, torch.int8)
+            sc = (shape[:-1] + (1,), torch.float32)
+            return (kv, kv, sc, sc)
+        kv = (shape, DTYPES[cfg.dtype])
+        return (kv, kv)
+
+    def init_cache(self, batch: int, seq_len: int):
+        """Zeros of ``cache_specs`` (the reference's ``init_cache`` takes
+        the unquantized layout only; here the int8 one too, with zero
+        scales)."""
+        return zeros_from_specs(self.cache_specs(batch, seq_len),
+                                self.device)
+
+    def batch_specs(self, shape: InputShape):
+        """The entry point's batch as {name: (shape, dtype)}."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            specs = {"tokens": ((B, S), torch.int32),
+                     "labels": ((B, S), torch.int32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": ((B, S), torch.int32)}
+        else:
+            return {"token": ((B, 1), torch.int32),
+                    "pos": ((B,), torch.int32)}
+        if self.cfg.family == "vlm":
+            specs["frontend"] = ((B, self.cfg.n_frontend_tokens,
+                                  self.cfg.d_model), DTYPES[self.cfg.dtype])
+        return specs
+
+
 # ===========================================================================
 # Hybrid (Zamba2): mamba2 backbone + shared attention blocks
 # ===========================================================================
@@ -142,9 +354,7 @@ class HybridModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        # float32 products stay float32 on the card (no TF32 rounding)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _no_tf32()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_sections = cfg.n_layers // cfg.attn_every
@@ -176,15 +386,10 @@ class HybridModel(nn.Module):
         }
         return specs
 
-    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "HybridModel":
-        """Draw every parameter on the CPU from ``generator`` (so the
-        weights do not depend on the device), in sorted-name order."""
-        params = dict(self.named_parameters())
-        specs = flat_specs(self.param_specs())
-        for name in sorted(specs):
-            params[name].copy_(specs[name].initialise(generator))
-        return self
+        """Draw every parameter on the CPU from ``generator``, in
+        sorted-name order."""
+        return draw_params(self, generator)
 
     # --- blocks -------------------------------------------------------------
     def _mamba_stack(self, stacked: ParamTree, idx, n, x, states, decode):
@@ -278,10 +483,5 @@ class HybridModel(nn.Module):
                 "a": (kv, kv)}
 
     def init_cache(self, batch: int, seq_len: int):
-        def zeros(spec):
-            if isinstance(spec, dict):
-                return {k: zeros(v) for k, v in spec.items()}
-            if isinstance(spec[1], torch.dtype):
-                return torch.zeros(spec[0], dtype=spec[1], device=self.device)
-            return tuple(zeros(s) for s in spec)
-        return zeros(self.cache_specs(batch, seq_len))
+        return zeros_from_specs(self.cache_specs(batch, seq_len),
+                                self.device)

@@ -12,8 +12,12 @@ tree arrives as numpy arrays — the port never imports JAX:
      "task_tower": {"w1": (d, 4d), "w2": (4d, n_tasks)}}
 
 The hybrid's tree nests deeper (``sections`` stacked twice, as
-``(n_sections, attn_every, ...)``; ``shared_attn.attn.wq``); its module
-names mirror the keys, so the same flattening maps it one to one.
+``(n_sections, attn_every, ...)``; ``shared_attn.attn.wq``), and a
+Transformer's holds ``layers.attn`` / ``layers.ffn`` or ``layers.moe``
+(its ``router`` float32 in a model of any type) and a VLM's
+``projector``; their module names mirror the keys, so the same
+flattening maps each one to one.  Each leaf is copied into the
+parameter's own type.
 
 Shapes and layouts are identical on both sides, so the bridge is a
 rename of nested keys to ``state_dict`` names plus a device copy, and

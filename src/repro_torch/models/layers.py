@@ -1,9 +1,10 @@
 """Core layers, in PyTorch (port of ``repro.models.layers``).
 
-What the HSTU and hybrid paths need: ``ParamSpec`` (the fan-in normal
-init rule), ``rms_norm``, interleaved-pair RoPE, GQA softmax attention
-(prefill, q-chunked prefill and ring-cache decode), the GLU FFN and
-the vocab-padded cross-entropy.
+What the HSTU, hybrid and Transformer paths need: ``ParamSpec`` (the
+fan-in normal init rule), ``rms_norm``, interleaved-pair RoPE, GQA
+softmax attention (prefill, q-chunked prefill and ring-cache decode,
+with padded heads and the int8 KV cache), the GLU or plain FFN and the
+vocab-padded cross-entropy.
 Tensors keep the reference's layouts: (..., S, H, D) for heads.  Layers
 are functions of a parameter dict, as in the reference.
 """
@@ -106,20 +107,29 @@ def _act(name: str):
 # ---------------------------------------------------------------------------
 
 
-def _unported(cfg):
-    """Options of the reference's attention whose families are not
-    ported yet."""
-    if cfg.head_pad > cfg.n_heads:
-        raise NotImplementedError("head_pad is not ported to repro_torch yet")
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant) is not "
-                                  "ported to repro_torch yet")
+# int8 KV cache: symmetric, a dynamic scale per token and kv head
+
+
+def quantize_kv(x):
+    """x (..., D) -> (int8 values, float32 scales (..., 1)): scale
+    ``max|x| / 127 + 1e-8``, values rounded half to even (as
+    ``jnp.round``) and clipped to +-127."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype):
+    return (q.float() * s).to(dtype)
 
 
 def attention_specs(cfg, d_in=None) -> Dict[str, ParamSpec]:
-    _unported(cfg)
+    """wq / wo carry ``max(n_heads, head_pad)`` heads: the padded ones
+    are zeroed before ``wo`` (Megatron-style head padding)."""
     d = d_in or cfg.d_model
     h, kv, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype
+    h = max(h, cfg.head_pad)
     specs = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", None), dtype=dt),
         "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", None), dtype=dt),
@@ -134,8 +144,8 @@ def attention_specs(cfg, d_in=None) -> Dict[str, ParamSpec]:
 
 def _sdpa(q, k, v, mask, scale):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  GQA: q head h reads kv
-    head h * KV // H.  Logits and softmax in float32, the weights cast to
-    v's type before the PV product, as in the reference."""
+    head ``h * KV // H``.  Logits and softmax in float32, the weights
+    cast to v's type before the PV product, as in the reference."""
     H, KV = q.shape[2], k.shape[2]
     if H != KV:
         kmap = torch.arange(H, device=k.device) * KV // H
@@ -180,17 +190,28 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
 
     * prefill (``cache`` None): causal (or bidirectional) self-attention
       over ``x`` (B, S, d); q-chunked when ``S >= 4 * attn_q_chunk``.
-      Returns (out, (k, v)) with k, v (B, S, KV, D).
-    * decode (``cache`` = (k, v), each (B, Sc, KV, D), ``cache_index``
-      (B,) int): the new K/V go to ring slot ``cache_index % Sc`` and
-      one query attends over the whole ring through the ``decode_attn``
-      kernel (no length mask: every slot is live).
+      Returns (out, (k, v)) with k, v (B, S, KV, D), unquantized under
+      ``kv_quant`` too, as in the reference.
+    * decode (``cache`` = (k, v), each (B, Sc, KV, D), or under
+      ``kv_quant`` (k int8, v int8, k scales, v scales (B, Sc, KV, 1)),
+      ``cache_index`` (B,) int): the new K/V go to ring slot
+      ``cache_index % Sc`` and one query attends over the whole ring
+      through the ``decode_attn`` kernel (no length mask: every slot is
+      live).  An int8 ring is dequantized whole to the model's type
+      first, as the reference does before its ``_sdpa``.
 
-    Cross-attention (``kv_override``), int8 KV and ``head_pad`` belong
-    to families not ported yet and raise ``NotImplementedError``."""
-    _unported(cfg)
+    With ``head_pad`` > ``n_heads`` only the real heads' slices of
+    ``wq`` and ``wo`` are used: the reference zeroes the padded heads'
+    outputs before ``wo``, so they add nothing, and computing the real
+    heads alone keeps head h on kv head ``h * KV // n_heads`` in every
+    path.  Cross-attention (``kv_override``) belongs to enc-dec, not
+    ported yet (ROADMAP Queue 1, item 9)."""
     B, S, d = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    h = cfg.n_heads
+    wq, wo = params["wq"], params["wo"]
+    if wq.shape[1] > h:
+        wq, wo = wq[:, :h], wo[:h]
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if cfg.qk_norm:
@@ -202,7 +223,7 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     if cache is not None:
-        ck, cv = cache
+        ck, cv = cache[:2]
         if cache_index is not None:
             # The reference rewrites the whole cache with a one-hot
             # ``where``; here the new entry is written IN PLACE into the
@@ -210,10 +231,19 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
             # difference that saves a full copy of the cache per step.
             rows = torch.arange(B, device=x.device)
             slot = (cache_index.to(x.device).long() % ck.shape[1])
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
+            if cfg.kv_quant:
+                for dst, scl, new in ((ck, cache[2], k), (cv, cache[3], v)):
+                    qv, qs = quantize_kv(new[:, 0])
+                    dst[rows, slot] = qv
+                    scl[rows, slot] = qs
+            else:
+                ck[rows, slot] = k[:, 0].to(ck.dtype)
+                cv[rows, slot] = v[:, 0].to(cv.dtype)
+        if cfg.kv_quant:
+            ck = dequantize_kv(ck, cache[2], k.dtype)
+            cv = dequantize_kv(cv, cache[3], v.dtype)
         out = ops.cache_decode_attention(q, ck, cv)
-        new_cache = (ck, cv)
+        new_cache = cache
     else:
         qc = cfg.attn_q_chunk
         if qc and S >= 4 * qc and S % qc == 0 and causal:
@@ -224,7 +254,7 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
                     if causal else None)
             out = _sdpa(q, k, v, mask, scale)
         new_cache = (k, v)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    y = torch.einsum("bshk,hkd->bsd", out, wo)
     return y, new_cache
 
 

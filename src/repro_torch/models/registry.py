@@ -1,27 +1,43 @@
 """Model registry: family name -> model class; config id -> ModelConfig.
 
-The port carries the ``hstu`` and ``hybrid`` families so far; every other
-family of ``repro.models.registry`` is still to port (ROADMAP Queue 1,
-item 9).
+The port carries the ``dense``, ``moe``, ``vlm``, ``hybrid`` and ``hstu``
+families; ``ssm_rwkv6`` / ``ssm_mamba2`` (``SSMModel``) and ``encdec`` are
+still to port (ROADMAP Queue 1, item 9) and raise ``NotImplementedError``,
+as do their config ids.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from .arch import HybridModel
+from .arch import HybridModel, TransformerModel
 from .config import ModelConfig
 from .hstu import HSTUModel
 
 _FAMILY = {
+    "dense": TransformerModel,
+    "moe": TransformerModel,
+    "vlm": TransformerModel,
     "hybrid": HybridModel,
     "hstu": HSTUModel,
 }
 
-ARCH_IDS = ["zamba2_1p2b", "hstu_gr"]
+# the reference's ids, in its order, less rwkv6_1p6b and
+# seamless_m4t_large_v2 (not ported yet)
+ARCH_IDS = [
+    "starcoder2_15b", "zamba2_1p2b", "qwen3_4b", "starcoder2_7b", "yi_9b",
+    "internvl2_2b", "deepseek_moe_16b", "dbrx_132b", "hstu_gr",
+]
 
 ALIASES = {
+    "starcoder2-15b": "starcoder2_15b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "qwen3-4b": "qwen3_4b",
+    "starcoder2-7b": "starcoder2_7b",
+    "yi-9b": "yi_9b",
+    "internvl2-2b": "internvl2_2b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "dbrx-132b": "dbrx_132b",
     "hstu-gr": "hstu_gr",
 }
 

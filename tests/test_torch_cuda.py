@@ -25,7 +25,11 @@ for training, ``HSTUAttnFunction``'s gradients against float64 autograd
 (1e-5 of each gradient's largest |g|), a train step's ``hstu_attn``
 launches (two a layer under remat) and its weights against the CPU's, a
 refused launch failing the step, and HSTU ``decode_step`` replayed from
-a graph equal to the eager step.
+a graph equal to the eager step; for the Transformer family,
+``decode_attn`` at its GQA groups (G 1 to 12) and D 128 from one key to
+32768, the ``head_pad`` launch on the real heads, and a full-width
+decode step (dense, MoE, and the int8 cache) replayed from a graph
+equal to the eager step.
 Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
 tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
@@ -872,4 +876,114 @@ def test_hstu_serve_step_replay_equals_eager(dev):
         torch.testing.assert_close(le.cpu(), want, rtol=0,
                                    atol=1e-4 * want.abs().max().item())
     assert all(torch.equal(a, b) for a, b in zip(psi, keep))
+    assert graphed.runner.captures == {"warmup": 0, "lazy": 1}
+
+
+# --- the decoder-only Transformer family ------------------------------------------
+
+
+# (H, KV) of the family's configs: G = 1 (deepseek_moe_16b), 2 (internvl2),
+# 4 (qwen3), 6 (dbrx), 8 (yi), 9 (starcoder2_7b's real heads), 12
+# (starcoder2_15b); S on the 16 / 32-key tiles at D 128, a 64-key split,
+# a last split holding one key, deepseek_moe_16b's and internvl2_2b's
+# served rings (2048, 256 + 2048), the 4096 window, decode_32k's length
+@pytest.mark.parametrize("S", [1, 33, 65, 321, 2048, 2304, 4096, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV", [(16, 16), (16, 8), (32, 8), (48, 8),
+                                  (32, 4), (36, 4), (48, 4)])
+def test_decode_attn_transformer_groups(dev, H, KV, dtype, S):
+    B, D = 2, 128
+    q = _randn(dev, B, H, D, seed=21).to(dtype)
+    k = _randn(dev, B, S, KV, D, seed=22).to(dtype)
+    v = _randn(dev, B, S, KV, D, seed=23).to(dtype)
+    before = dk.launches
+    got = dk.decode_attn(q, k, v)
+    assert dk.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, D)
+    _decode_close(got, dk.decode_attn_plain(q, k, v))
+    assert torch.equal(dk.decode_attn(q, k, v), got)
+
+
+def test_head_pad_decode_launches_on_the_real_heads(dev):
+    """starcoder2_7b's decode attention: 36 real heads padded to 48 over 4
+    kv heads, at full width in float32.  One launch on the real heads
+    (G 9: real head h reads kv head h // 9, not h // 12), equal to the
+    CPU's plain path on the same weights and ring."""
+    import dataclasses
+    from repro_torch.models import get_config, layers
+    cfg = dataclasses.replace(get_config("starcoder2_7b"), dtype="float32")
+    assert (cfg.n_heads, cfg.head_pad, cfg.n_kv_heads) == (36, 48, 4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = {k: _randn(dev, *s.shape, seed=24 + i) / s.shape[0] ** 0.5
+              for i, (k, s) in enumerate(
+                  sorted(layers.attention_specs(cfg).items()))}
+    x = _randn(dev, 2, 1, cfg.d_model, seed=27)
+    pos = torch.tensor([4096, 5000], device=dev)
+    cache = tuple(_randn(dev, 2, 4096, 4, 128, seed=s) for s in (28, 29))
+
+    def run(d):
+        kv = tuple(t.to(d, copy=True) for t in cache)
+        return layers.attention({k: w.to(d) for k, w in params.items()},
+                                x.to(d), cfg, positions=pos.to(d)[:, None],
+                                cache=kv, cache_index=pos.to(d))[0]
+
+    before = dk.launches
+    got = run(dev)
+    assert dk.launches == before + 1
+    want = run("cpu")
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+
+
+_LM = {}
+
+
+def _lm_model(dev, arch):
+    """A full-width config cut to 2 layers, bf16, weights from seed 0."""
+    import dataclasses
+    from repro_torch.models import build_model, get_config
+    if arch not in _LM:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        _LM[arch] = build_model(cfg, device=dev).init(
+            torch.Generator().manual_seed(0))
+    return _LM[arch]
+
+
+@pytest.mark.parametrize("arch,quant", [("qwen3_4b", False),
+                                        ("deepseek_moe_16b", False),
+                                        ("qwen3_4b", True)])
+def test_transformer_decode_graph_equals_eager(dev, arch, quant):
+    """A Transformer decode step at full width (2 layers) replayed from a
+    graph: logits and the cache, written in place, equal the eager
+    step's bit for bit over 4 steps; each step launches ``decode_attn``
+    once a layer.  ``quant``: the int8 4-tuple cache (the prefill's K/V
+    quantized), under a ``kv_quant`` copy of the config."""
+    import dataclasses
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import quantize_kv
+    model = _lm_model(dev, arch)
+    if quant:
+        qm = build_model(dataclasses.replace(model.cfg, kv_quant=True),
+                         device=dev)
+        qm.load_state_dict(model.state_dict())
+        model = qm
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 192)), device=dev)
+    _, cache = make_prefill_step(model)({"tokens": toks})
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv(cache[0]), quantize_kv(cache[1])
+        cache = (kq, vq, ks, vs)
+    ce, cg = tuple(t.clone() for t in cache), tuple(t.clone() for t in cache)
+    eager, graphed = make_serve_step(model, graphs=False), make_serve_step(model)
+    for i in range(4):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)), device=dev)
+        pos = torch.tensor([192 + i, 7 + i], device=dev)
+        le, ce = eager(ce, {"token": tok, "pos": pos})
+        before = dk.launches
+        lg, cg2 = graphed(cg, {"token": tok, "pos": pos})
+        assert cg2 is cg and dk.launches == before + cfg.n_layers
+        assert torch.equal(lg, le), f"step {i}"
+        assert _equal(cg, ce), f"step {i}: cache"
     assert graphed.runner.captures == {"warmup": 0, "lazy": 1}

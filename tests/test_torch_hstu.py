@@ -193,13 +193,18 @@ def test_bridge_names_and_sizes_match_reference():
 
 
 def test_registry_ports_only_hstu():
+    """The ids and families still to port (RWKV6, enc-dec) raise, naming
+    their ROADMAP item; hstu-gr's config is the reference's."""
     from repro_torch.models.config import ModelConfig
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        get_config("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        build_model(ModelConfig(name="x", family="dense", n_layers=1,
-                                d_model=8, vocab=16, n_heads=1),
-                    device="cpu")
+    for arch in ("rwkv6_1p6b", "rwkv6-1.6b", "seamless_m4t_large_v2",
+                 "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+            get_config(arch)
+    for family in ("ssm_rwkv6", "ssm_mamba2", "encdec"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+            build_model(ModelConfig(name="x", family=family, n_layers=1,
+                                    d_model=8, vocab=16, n_heads=1),
+                        device="cpu")
     full = get_config("hstu-gr")
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab_padded, full.dtype) == (8, 256, 4, 64, 100096,

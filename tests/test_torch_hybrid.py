@@ -366,9 +366,16 @@ def test_attention_decode_matches_reference(n_kv):
 
 @pytest.mark.parametrize("option", ["kv_quant", "head_pad"])
 def test_attention_refuses_unported_options(option):
-    _, tcfg = _attn_cfg(**{option: True if option == "kv_quant" else 8})
-    with pytest.raises(NotImplementedError, match=option):
-        layers.attention_specs(tcfg)
+    """Both options are ported: each one's ``attention_specs`` has the
+    reference's keys, shapes and types (``head_pad`` 8 over 4 heads pads
+    wq / wo to 8; ``kv_quant`` changes only the cache)."""
+    jcfg, tcfg = _attn_cfg(**{option: True if option == "kv_quant" else 8})
+    want = jlayers.attention_specs(jcfg)
+    got = layers.attention_specs(tcfg)
+    assert set(got) == set(want)
+    for k, spec in got.items():
+        assert (spec.shape, spec.dtype) == (want[k].shape, want[k].dtype), k
+    assert got["wq"].shape[1] == (8 if option == "head_pad" else 4)
 
 
 @pytest.mark.parametrize("act,glu", [("silu", True), ("gelu", True),

@@ -528,6 +528,24 @@ def test_decode_attn_matches_ref_and_pallas(S, KV, H, dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(oracle), **tol)
 
 
+def test_decode_attn_ref_keeps_float64():
+    """Given float64, the oracle computes in float64 (the accuracy probe
+    of ``chip_smoke.py``): within 1e-12 of a numpy float64 softmax, GQA
+    head h on kv head h // 3; float32 in, float32 out."""
+    rng = np.random.default_rng(9)
+    q, k, v = _mk(rng, 2, 6, 32), _mk(rng, 2, 2, 50, 32), _mk(rng, 2, 2, 50, 32)
+    t = [torch.from_numpy(a).double() for a in (q, k, v)]
+    got = ref.decode_attn_ref(*t)
+    assert got.dtype == torch.float64
+    kk = np.repeat(k.astype(np.float64), 3, axis=1)
+    vv = np.repeat(v.astype(np.float64), 3, axis=1)
+    lg = np.einsum("bhd,bhsd->bhs", q.astype(np.float64), kk) / np.sqrt(32)
+    w = np.exp(lg - lg.max(-1, keepdims=True))
+    want = np.einsum("bhs,bhsd->bhd", w / w.sum(-1, keepdims=True), vv)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    assert ref.decode_attn_ref(*(a.float() for a in t)).dtype == torch.float32
+
+
 @pytest.mark.parametrize("S", [8192, 100])
 def test_cache_decode_attention_model_layout(S):
     """ops.cache_decode_attention on a ring in the model layout equals the
