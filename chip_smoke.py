@@ -6,7 +6,8 @@
 Phases, each fatal on failure (nothing is caught):
 
   1. require ``torch.cuda.is_available()``; print the card's name and
-     power limit as ``nvidia-smi`` reports them;
+     power limit as ``nvidia-smi`` reports them, and log its UUID and
+     SM clocks (now and at most) beside them;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
      cached in ``build/kernels/`` by a hash of the sources);
   3. hold each kernel against its plain-PyTorch version on the card at
@@ -71,7 +72,8 @@ Phases, each fatal on failure (nothing is caught):
      single-pass TF32 misses) — timed per wrapper call beside their
      bound (and row 6's 3xTF32 one), per launch by CUDA-graph replay,
      and, in turns with the kernel, the one PyTorch call that computes
-     the same function; then 2 prompts x 8192 tokens through
+     the same function; then, after a warm-up prefill at the same shape,
+     2 prompts x 8192 tokens through
      ``make_prefill_step`` (eager) and 32
      greedy steps through ``make_serve_step`` (a CUDA-graph replay per
      step after the first), counters zeroed
@@ -115,7 +117,8 @@ Phases, each fatal on failure (nothing is caught):
      two calls bit for bit, timed
      per call and by graph beside the byte bound and SDPA.  Then, bf16,
      random weights from a seed: ``qwen3_4b`` at full width and depth
-     (36 layers, 4.41 B) — 2 prompts x 8192 tokens through
+     (36 layers, 4.41 B) — after a warm-up prefill at the same shape,
+     2 prompts x 8192 tokens through
      ``make_prefill_step`` (the plain q-chunked attention) and 32 greedy
      steps through ``make_serve_step`` (graphs), counters zeroed just
      before each and read just after (0 ``decode_attn`` launches in the
@@ -127,7 +130,8 @@ Phases, each fatal on failure (nothing is caught):
      on layer 0 of the prefill's cache; prefill ms, ms per step (first,
      later, all), tokens/s, peak memory, the graph pool and each step's
      byte bound (every weight but the embedding table, plus the K/V
-     ring); a profiled graph step; the same for ``deepseek_moe_16b`` at
+     ring); a profiled graph step split by kernel class; the same for
+     ``deepseek_moe_16b`` at
      full width cut to 4 of 28 layers (2 x 2048, 32 steps) and
      ``internvl2_2b`` at full width and depth (2 x (256 frontend + 2048),
      8 steps); last, card against CPU for float32 copies of qwen3_4b and
@@ -138,7 +142,37 @@ Phases, each fatal on failure (nothing is caught):
      on the card (TF32 products, the shared experts dropped) must read
      above that limit, and which is also checked with wq / wk rescaled
      to fan-in d at 5e-4;
-  9. print the ``kernels`` JSON line, then the final device line.
+  9. ``ssm``: the attention-free stacks.  ``rwkv6_1p6b`` at full width
+     and depth (24 layers, 1.48 B), bf16: 2 prompts x 2048 tokens
+     through ``make_prefill_step`` (after a warm-up at that shape; ms
+     per token and layer: the WKV scan is a plain loop over time, as in
+     the reference) and 32 greedy steps through ``make_serve_step``
+     (graphs), every launch counter zeroed just before each and read
+     just after (all 0: RWKV6 reaches no kernel); the decode again
+     eagerly and with graphs, in turns, from copies of the post-prefill
+     state, with identical greedy tokens; a profiled graph step split
+     by kernel class beside its byte bound; the relay property in bf16
+     (prefill(P) + decode(token P) within 2**-5 of the largest |logit|
+     of prefill(P + 1)); card vs CPU in float32 at 2 layers (2 x 256 +
+     4 steps, 5e-4 of the largest |logit|); then an ``ssm_mamba2``
+     stack at zamba2_1p2b's widths, 2 layers, float32, 2 x 1024 on the
+     card (one ``ssd_chunk_intra`` and one ``ssd_chunk_state`` launch a
+     layer) against the CPU (5e-4);
+ 10. ``encdec``: ``decode_attn`` at seamless's shapes (G 1, D 64, bf16,
+     B 2, self ring 2048 and cross 1536 slots) against its twin and
+     float64, timed per call and by graph beside SDPA and the byte
+     bound; ``seamless_m4t_large_v2`` at full width and depth (24 + 24
+     layers, 2.04 B), bf16: 2 x (1536 frames + 2048 tokens) and 32
+     greedy steps as in phase 9 (0 ``decode_attn`` launches in the
+     prefill, 48 a step: self and cross, every layer), the kernel on
+     layer 0 of the prefill's own self and cross cache; card vs CPU in
+     float32 at 2 + 2 layers (2 x (1536 + 256) + 4 steps) at the
+     reference init (0.1: its attention logits have a std of ~64, so the
+     softmax over 1536 frames is near one-hot; a fault planted on the
+     card, TF32 products, must read above it) and with wq / wk at
+     fan-in d (5e-4);
+ 11. print the ``kernels`` JSON line, then the final device line; the
+     whole run's wall is logged before them.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
 the full run takes no arguments.  Per-shape timings are also written to
@@ -691,7 +725,7 @@ def relay_phase(torch, results):
     incr = rng.integers(0, cfg.vocab, (1, N_INCR))
     items = rng.integers(0, cfg.vocab, (1, N_ITEMS))
     on = lambda a, m: torch.as_tensor(a, device=m.device)
-    _, psi = gpu.prefill(on(prefix, gpu))
+    _, psi = gpu.prefill({"tokens": on(prefix, gpu)})
     relay = gpu.rank_with_cache(psi, on(incr, gpu), on(items, gpu))
     full = gpu.full_rank(on(prefix, gpu), on(incr, gpu), on(items, gpu))
     eps = (relay - full).abs().max().item()
@@ -782,7 +816,7 @@ def graphs_phase(torch, results, requests):
     model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     on = lambda a: torch.as_tensor(a, device="cuda")
-    _, psi = model.prefill(on(rng.integers(0, cfg.vocab, (1, 1024))))
+    _, psi = model.prefill({"tokens": on(rng.integers(0, cfg.vocab, (1, 1024)))})
     incr = on(rng.integers(0, cfg.vocab, (1, N_INCR)))
     items = on(rng.integers(0, cfg.vocab, (1, N_ITEMS)))
     runner = GraphRunner("cuda")
@@ -1204,7 +1238,8 @@ def hybrid_phase(torch, results):
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (HYB_B, HYB_S)),
                               device="cuda")
-    prefill({"tokens": prompts[:, :256]})          # warm-up: cuBLAS, allocator
+    prefill({"tokens": prompts})       # warm-up at the timed shape (cuBLAS,
+                                       # allocator, first-shape costs)
     torch.cuda.synchronize()
 
     counters = lambda: {"ssd_chunk_intra": sk.launches_intra,
@@ -1721,9 +1756,8 @@ def train_phase(torch, results):
     gpu = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(5)
-    _, psi = gpu.prefill(torch.as_tensor(rng.integers(0, cfg.vocab,
-                                                      (DEC_B, DEC_P)),
-                                         device="cuda"))
+    _, psi = gpu.prefill({"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (DEC_B, DEC_P)), device="cuda")})
     graphs, eager = make_serve_step(gpu), make_serve_step(gpu, graphs=False)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (DEC_STEPS, DEC_B, 1)),
                            device="cuda")
@@ -1873,103 +1907,98 @@ def lm_kernel_checks(torch, results):
         f"(worst float64 error {max(f64.values()):.2e} of max |out|)")
 
 
-def _decode_bytes(model, cache, B):
-    """What one decode step must move at least: every weight but the
-    embedding table (and a VLM's projector, used by the prefill only) once, B embedding rows, and the whole K/V ring
-    (every layer) once; the new entries' writes are negligible."""
+def _kernel_classes(kernels):
+    """A profile's device ms by kernel class: cuBLAS / CUTLASS products
+    (GEMV and GEMM), ``decode_attn``, and the rest (elementwise, norms,
+    casts, copies)."""
+    out = {"GEMV/GEMM": 0.0, "decode_attn": 0.0, "elementwise": 0.0}
+    for name, ms in kernels.items():
+        if "decode_attn" in name:
+            out["decode_attn"] += ms
+        elif re.search(r"gemm|gemv|nvjet|xmma|cutlass|splitK", name, re.I):
+            out["GEMV/GEMM"] += ms
+        else:
+            out["elementwise"] += ms
+    return out
+
+
+def _step_bytes(model, cache, B):
+    """What one decode step must move at least: every weight the decode
+    reads (all but the embedding table, a VLM's projector and an
+    enc-dec's encoder) once, B embedding rows, and the cache once; an
+    SSM's state is also written anew once."""
+    from repro_torch.core.graphs import tensor_leaves
+    from repro_torch.models.arch import SSMModel
+
     w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
-            if n not in ("tok", "projector"))
+            if n not in ("tok", "projector", "enc_norm")
+            and not n.startswith("encoder."))
     rows = B * model.tok.shape[1] * model.tok.element_size()
-    kv = sum(t.numel() * t.element_size() for t in cache)
-    return w + rows + kv
+    state = sum(t.numel() * t.element_size() for t in tensor_leaves(cache))
+    return w + rows + state * (2 if isinstance(model, SSMModel) else 1)
 
 
-def lm_serve(torch, results, arch, n_layers, S, steps):
-    """One config at full width: build and draw the weights (seed 0),
-    prefill LM_B prompts of S tokens (a VLM's 256 frontend embeddings
-    first), then ``steps`` greedy decode steps through
-    ``make_serve_step`` (graphs), counters zeroed just before each and
-    read just after (0 ``decode_attn`` launches in the prefill, one per
-    layer and step in the decode); the decode again eagerly and with
-    graphs, in turns, from copies of the post-prefill cache, with
-    identical greedy tokens.  ``decode_attn`` is also held against its
-    twin and float64 on layer 0 of the prefill's cache.  The ring is the
-    prefill's F + S slots and, as in the reference, every slot is live
-    (no length mask), so decode step i overwrites prompt token i: the
-    oldest prompt tokens are evicted, as a window of F + S would."""
-    import dataclasses
-
-    import numpy as np
-    from repro_torch.kernels import decode_attn as dk
+def model_serve(torch, results, tag, model, batch, steps, step_counts,
+                pos0=None):
+    """One model's serve path at full width: a warm-up prefill at the
+    timed shape, then ``make_prefill_step`` on ``batch`` and ``steps``
+    greedy steps through ``make_serve_step`` (graphs) from position
+    ``pos0`` (the prompt's length unless given), every launch
+    counter zeroed just before each and read just after (the prefill
+    launches no ``decode_attn``; a decode step launches ``step_counts``,
+    by kernel); the decode again eagerly and with graphs, in turns, from
+    copies of the post-prefill cache, with identical greedy tokens; one
+    profiled graph step split by kernel class, beside the step's byte
+    bound.  Returns (record, the post-prefill cache's copy, the prompt's
+    logits)."""
+    from repro_torch.core.graphs import read_counters, write_counters
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import build_model, get_config
+    from repro_torch.tree import tree_map
 
-    cfg = get_config(arch)
-    if n_layers:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    L, F_ = cfg.n_layers, cfg.n_frontend_tokens
-    t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda").init(
-        torch.Generator().manual_seed(0))
-    n_params = sum(p.numel() for p in model.parameters())
-    build_s = time.perf_counter() - t0
-    log(f"{arch}: {L} layers, {n_params / 1e9:.3f} B parameters "
-        f"({cfg.dtype}), built and drawn in {build_s:.1f} s")
+    cfg = model.cfg
     prefill, serve_step = make_prefill_step(model), make_serve_step(model)
-    rng = np.random.default_rng(0)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, S)),
-                                       device="cuda")}
-    if cfg.family == "vlm":
-        batch["frontend"] = torch.randn(
-            (LM_B, F_, cfg.d_model), device="cuda",
-            generator=torch.Generator(device="cuda").manual_seed(1)).to(
-                model.projector.dtype)
-    warm = dict(batch, tokens=batch["tokens"][:, :256])
-    prefill(warm)                                 # cuBLAS, allocator
+    eager_step = make_serve_step(model, graphs=False)
+    prefill(batch)                              # warm-up at the timed shape
     torch.cuda.synchronize()
+    zero = lambda: write_counters({n: 0 for n in read_counters()})
+    counted = lambda: {n: c for n, c in read_counters().items() if c}
 
-    dk.launches = 0
+    zero()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, cache = prefill(batch)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    c_pre = dk.launches
+    c_pre = counted()
     peak_prefill = torch.cuda.max_memory_allocated()
-    log(f"{arch} prefill {LM_B} x {F_ + S}: {prefill_ms:.1f} ms, "
-        f"decode_attn launches {c_pre}, peak {peak_prefill / 2**30:.2f} GiB")
-    assert c_pre == 0, c_pre
+    S = batch["tokens"].shape[1] if pos0 is None else pos0   # positions
+    log(f"{tag} prefill {LM_B} x {S}: {prefill_ms:.1f} ms "
+        f"({prefill_ms / (S * cfg.n_layers):.4f} ms per position and "
+        f"decoder layer), launches {c_pre}, peak "
+        f"{peak_prefill / 2**30:.2f} GiB")
+    assert "decode_attn" not in c_pre, c_pre
     assert logits.shape == (LM_B, 1, cfg.vocab_padded), logits.shape
-    assert torch.isfinite(logits).all(), f"{arch} prefill: non-finite logits"
-    assert [tuple(t.shape) for t in cache] == [
-        (L, LM_B, F_ + S, cfg.n_kv_heads, cfg.head_dim)] * 2
+    assert torch.isfinite(logits).all(), f"{tag} prefill: non-finite logits"
 
-    q0 = torch.randn((LM_B, cfg.n_heads, cfg.head_dim), device="cuda",
-                     generator=torch.Generator(device="cuda").manual_seed(2))
-    e, atol, _, rel = _decode_check(torch, results,
-                                    f"{arch} prefill cache, layer 0",
-                                    q0.to(cache[0].dtype), cache[0][0],
-                                    cache[1][0])
-    log(f"{arch} decode_attn on layer 0 of the prefill cache: |kernel - "
-        f"twin| {e:.3e} (limit {atol:.3e}), float64 {rel:.2e} of max |out|")
-
-    clone = lambda c: tuple(t.clone() for t in c)
+    clone = lambda c: tree_map(lambda t: t.clone(), c)
     base = clone(cache)
-    eager_step = make_serve_step(model, graphs=False)
     tok0 = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-    pos = torch.full((LM_B,), F_ + S, device="cuda")
+    pos = torch.full((LM_B,), S, device="cuda")
 
-    def decode(step, c, counted=False):
+    def decode(step, c, check=False):
         """(ms of the first step, ms per later step, ms per step over all,
         tokens, last logits)."""
         tok, out = tok0, []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(steps):
-            before = dk.launches
+            before = read_counters()
             lg, c = step(c, {"token": tok, "pos": pos + i})
-            if counted:
-                assert dk.launches - before == L, (i, dk.launches)
+            if check:
+                after = read_counters()
+                got = {n: after[n] - before[n] for n in after
+                       if after[n] != before[n]}
+                assert got == step_counts, (tag, i, got, step_counts)
             tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
             out.append(tok)
             if i == 0:
@@ -1980,123 +2009,195 @@ def lm_serve(torch, results, arch, n_layers, S, steps):
         return ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / (steps - 1),
                 (t2 - t0) * 1e3 / steps, torch.cat(out, 1), lg)
 
+    zero()
     torch.cuda.reset_peak_memory_stats()
-    dk.launches = 0
     first_ms, rest_ms, decode_ms, gen_toks, lg = decode(serve_step, cache,
-                                                        counted=True)
-    c_dec = dk.launches
+                                                        check=True)
+    c_dec = counted()
     peak_decode = torch.cuda.max_memory_allocated()
-    assert c_dec == L * steps, (c_dec, L * steps)
-    assert torch.isfinite(lg).all(), f"{arch} decode: non-finite logits"
+    assert c_dec == {n: c * steps for n, c in step_counts.items()}, c_dec
+    assert torch.isfinite(lg).all(), f"{tag} decode: non-finite logits"
     assert ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()
-    results["decode_attn"]["launches"] += c_pre + c_dec
-    nbytes = _decode_bytes(model, cache, LM_B)
+    for n in set(c_pre) | set(c_dec):
+        results[n]["launches"] += c_pre.get(n, 0) + c_dec.get(n, 0)
+    nbytes = _step_bytes(model, cache, LM_B)
     bound_ms = nbytes / HBM_BW * 1e3
-    log(f"{arch} decode {steps} steps (graphs): {decode_ms:.3f} ms/step "
-        f"(first {first_ms:.2f}, later {rest_ms:.4f}), "
-        f"{LM_B * 1e3 / rest_ms:.1f} tokens/s, decode_attn launches {c_dec}; "
-        f"byte bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB)")
     turns = {"graphs": [(first_ms, rest_ms, decode_ms)], "eager": []}
     for who in ("eager", "eager", "graphs"):
         f, r, d, toks, _ = decode(eager_step if who == "eager" else serve_step,
                                   clone(base))
-        assert torch.equal(toks, gen_toks), f"{arch} decode ({who}): other tokens"
+        assert torch.equal(toks, gen_toks), f"{tag} decode ({who}): other tokens"
         turns[who].append((f, r, d))
     graph_pool = serve_step.runner.pool_bytes()
-    log(f"{arch} decode ms per step (first, later, all), graphs "
-        f"{turns['graphs']}, eager {turns['eager']}; greedy tokens identical; "
-        f"graph pool {graph_pool / 2**20:.1f} MiB over "
-        f"{len(serve_step.runner.graphs)} cache keys")
+    log(f"{tag} decode {steps} steps: graphs {turns['graphs']}, eager "
+        f"{turns['eager']} ms per step (first, later, all); greedy tokens "
+        f"identical; launches {c_dec}; byte bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e9:.3f} GB); graph pool {graph_pool / 2**20:.1f} MiB")
     probe = clone(base)
     one = {"token": tok0, "pos": pos}
     serve_step(probe, one)                        # capture
-    prof = profile_fn(torch, f"{arch} decode step (graphs)",
+    prof = profile_fn(torch, f"{tag} decode step (graphs)",
                       lambda: serve_step(probe, one), 5)
-    attn_ms = sum(v for k, v in prof["kernels"].items() if "decode_attn" in k)
-    log(f"{arch} decode step: decode_attn {attn_ms:.4f} ms of "
-        f"{prof['busy_ms']:.4f} ms device busy")
-    results.setdefault("_lm", {})[arch] = dict(
-        layers=L, params=n_params, dtype=cfg.dtype, batch=LM_B,
-        frontend=F_, prompt=S, steps=steps, build_s=build_s,
-        prefill_ms=prefill_ms,
-        prefill_tok_s=LM_B * (F_ + S) * 1e3 / prefill_ms,
-        decode_ms_per_step=decode_ms, decode_first_ms=first_ms,
-        decode_later_ms=rest_ms, decode_tok_s=LM_B * 1e3 / rest_ms,
-        decode_bytes=nbytes, decode_bound_ms=bound_ms,
-        decode_turns=turns, peak_prefill_bytes=peak_prefill,
-        peak_decode_bytes=peak_decode, graph_pool_bytes=graph_pool,
-        launches_prefill=c_pre, launches_decode=c_dec,
-        profile_decode=dict(prof, decode_attn_ms=attn_ms),
-        generated=gen_toks.tolist())
+    split = _kernel_classes(prof["kernels"])
+    log(f"{tag} decode step by class: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + f" of {prof['busy_ms']:.4f} ms device busy")
+    rec = dict(layers=cfg.n_layers, params=sum(p.numel()
+                                                for p in model.parameters()),
+               dtype=cfg.dtype, batch=LM_B, prompt=S, steps=steps,
+               prefill_ms=prefill_ms,
+               prefill_ms_per_position_layer=prefill_ms / (S * cfg.n_layers),
+               decode_ms_per_step=decode_ms, decode_first_ms=first_ms,
+               decode_later_ms=rest_ms, decode_turns=turns,
+               decode_bytes=nbytes, decode_bound_ms=bound_ms,
+               peak_prefill_bytes=peak_prefill, peak_decode_bytes=peak_decode,
+               graph_pool_bytes=graph_pool, launches_prefill=c_pre,
+               launches_decode=c_dec, profile_decode=dict(prof, classes=split),
+               generated=gen_toks.tolist())
+    return rec, base, logits, eager_step
 
 
-def lm_card_vs_cpu(torch, results, arch, variants):
-    """float32 at full width, LM_CPU_LAYERS layers: prefill LM_B x
-    LM_CPU_S tokens and LM_CPU_STEPS greedy decode steps (the CPU's
-    tokens fed to both) on the card and on the CPU from the same
-    weights.  ``variants``: (name, limit) in turn, "reference init" the
-    weights as drawn, "wq/wk at fan-in d" then with wq and wk rescaled
-    to fan-in d_model (the reference's rule takes the head count); the
-    logits within ``limit`` of the largest |logit|.  A name in
-    LM_PLANTED runs the reference init with that fault planted on the
-    card, and its worst reading must exceed ``limit``: the check
-    catches it."""
+def card_vs_cpu(torch, tag, cfg, variants, batch_of=None, init=None,
+                counts=None):
+    """float32 copies of ``cfg`` on the card and the CPU from the same
+    weights (seed 2, then ``init(model)``): the prefill of
+    ``batch_of(device)`` (LM_B x LM_CPU_S tokens by default) and
+    LM_CPU_STEPS greedy decode steps (the CPU's tokens fed to both),
+    logits within ``limit`` of the largest |logit| for each (variant,
+    limit): "reference init" the weights as drawn, "wq/wk at fan-in d"
+    every attention's wq and wk then rescaled to fan-in d_model (the
+    reference's rule takes the head count).  A variant in LM_PLANTED
+    runs the weights as they stand with that fault planted on the card
+    (TF32 products; a MoE's shared experts dropped), and its reading
+    must exceed ``limit``: the check catches it.  Every variant is read
+    before any is judged.  ``counts``: the card prefill's launches by
+    kernel, checked.  Returns {variant: {step: reading}}."""
     import dataclasses
 
     import numpy as np
+    from repro_torch.core.graphs import read_counters
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import build_model, get_config
+    from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=LM_CPU_LAYERS,
-                              dtype="float32")
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if batch_of is None:
+        batch_of = lambda dev: {"tokens": torch.as_tensor(
+            np.random.default_rng(3).integers(0, cfg.vocab,
+                                              (LM_B, LM_CPU_S)), device=dev)}
     cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(2))
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab, (LM_B, LM_CPU_S)))
+    if init:
+        init(cpu)
+    readings = {}
     for variant, limit in variants:
-        planted = variant in LM_PLANTED
         if variant == "wq/wk at fan-in d":
             with torch.no_grad():
-                for w in (cpu.layers.attn.wq, cpu.layers.attn.wk):
-                    w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+                for n, w in cpu.named_parameters():
+                    if n.endswith(("attn.wq", "attn.wk")):
+                        w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
         else:
-            assert planted or variant == "reference init", variant
+            assert variant == "reference init" or variant in LM_PLANTED, \
+                variant
         gpu = build_model(cfg, device="cuda")
         gpu.load_state_dict(cpu.state_dict())
         if variant == "shared experts dropped":
             with torch.no_grad():
                 gpu.layers.moe.shared_wo.zero_()
-        worst = {}
+        worst = readings[variant] = {}
 
         def close(step, a, b):
-            d = (a.cpu() - b).abs().max().item() / b.abs().max().item()
-            worst[step] = d
-            assert planted or d <= limit, (
-                f"{arch} ({variant}) card vs CPU at {step}: {d:.2e} of max "
-                f"|logit| over {limit}")
+            worst[step] = (a.cpu() - b).abs().max().item() / \
+                b.abs().max().item()
 
         torch.backends.cuda.matmul.allow_tf32 = variant == "TF32 on"
-        lg, cg = make_prefill_step(gpu)({"tokens": toks.cuda()})
-        lc, cc = make_prefill_step(cpu)({"tokens": toks})
-        close("prefill", lg, lc)
-        sg, sc = make_serve_step(gpu), make_serve_step(cpu)
-        for i in range(LM_CPU_STEPS):
-            tok = lc[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
-            pos = torch.full((LM_B,), LM_CPU_S + i)
-            lg, cg = sg(cg, {"token": tok.cuda(), "pos": pos.cuda()})
-            lc, cc = sc(cc, {"token": tok, "pos": pos})
-            close(f"decode {i}", lg, lc)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        log(f"{arch} card vs CPU ({variant}{', planted' if planted else ''}; "
-            f"float32, {LM_CPU_LAYERS} layers, {LM_B}x{LM_CPU_S} + "
+        try:
+            before = read_counters()
+            lg, cg = make_prefill_step(gpu)(batch_of("cuda"))
+            after = read_counters()
+            if counts is not None:
+                got = {n: after[n] - before[n] for n in after
+                       if after[n] != before[n]}
+                assert got == counts, (tag, got, counts)
+            cb = batch_of("cpu")
+            lc, cc = make_prefill_step(cpu)(cb)
+            close("prefill", lg, lc)
+            sg, sc = make_serve_step(gpu), make_serve_step(cpu)
+            S = cb["tokens"].shape[1]
+            for i in range(LM_CPU_STEPS):
+                tok = lc[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+                pos = torch.full((tok.shape[0],), S + i)
+                lg, cg = sg(cg, {"token": tok.cuda(), "pos": pos.cuda()})
+                lc, cc = sc(cc, {"token": tok, "pos": pos})
+                close(f"decode {i}", lg, lc)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        log(f"{tag} card vs CPU ({variant}"
+            f"{', planted' if variant in LM_PLANTED else ''}; float32, "
+            f"{cfg.n_layers} layers, {tuple(cb['tokens'].shape)} + "
             f"{LM_CPU_STEPS} steps): prefill {worst['prefill']:.2e}, decode "
             f"at most {max(v for k, v in worst.items() if k != 'prefill'):.2e}"
             f" of max |logit| (limit {limit})")
-        if planted:
-            assert max(worst.values()) > limit, (
-                f"{arch}: the planted fault '{variant}' reads "
-                f"{max(worst.values()):.2e}, within the limit {limit}")
-        results.setdefault("_lm", {}).setdefault("card_vs_cpu_rel", {})[
-            f"{arch}, {variant}{' (planted)' if planted else ''}"] = worst
+        del gpu, cg, sg
+        torch.cuda.empty_cache()
+    for variant, limit in variants:
+        top = max(readings[variant].values())
+        if variant in LM_PLANTED:
+            assert top > limit, (f"{tag}: the planted fault '{variant}' "
+                                 f"reads {top:.2e}, within the limit {limit}")
+        else:
+            assert top <= limit, (f"{tag} ({variant}) card vs CPU: {top:.2e} "
+                                  f"of max |logit| over {limit}")
+    return readings
+
+
+def lm_serve(torch, results, arch, n_layers, S, steps):
+    """One config at full width: build and draw the weights (seed 0),
+    then ``model_serve`` on LM_B prompts of S tokens (a VLM's 256
+    frontend embeddings first), one ``decode_attn`` launch a layer and
+    step; ``decode_attn`` is also held against its twin and float64 on
+    layer 0 of the prefill's cache.  The ring is the prefill's F + S
+    slots and, as in the reference, every slot is live (no length mask),
+    so decode step i overwrites prompt token i: the oldest prompt tokens
+    are evicted, as a window of F + S would."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    L, F_ = cfg.n_layers, cfg.n_frontend_tokens
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    log(f"{arch}: {L} layers, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters ({cfg.dtype}), built and drawn in {build_s:.1f} s")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, S)),
+                                       device="cuda")}
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.randn(
+            (LM_B, F_, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1)).to(
+                model.projector.dtype)
+    rec, base, _, _ = model_serve(torch, results, arch, model, batch, steps,
+                                  {"decode_attn": L}, pos0=F_ + S)
+    assert [tuple(t.shape) for t in base] == [
+        (L, LM_B, F_ + S, cfg.n_kv_heads, cfg.head_dim)] * 2
+    q0 = torch.randn((LM_B, cfg.n_heads, cfg.head_dim), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(2))
+    e, atol, _, rel = _decode_check(torch, results,
+                                    f"{arch} prefill cache, layer 0",
+                                    q0.to(base[0].dtype), base[0][0],
+                                    base[1][0])
+    log(f"{arch} decode_attn on layer 0 of the prefill cache: |kernel - "
+        f"twin| {e:.3e} (limit {atol:.3e}), float64 {rel:.2e} of max |out|")
+    rec.update(build_s=build_s, frontend=F_,
+               prefill_tok_s=LM_B * (F_ + S) * 1e3 / rec["prefill_ms"],
+               decode_tok_s=LM_B * 1e3 / rec["decode_later_ms"])
+    results.setdefault("_lm", {})[arch] = rec
 
 
 def lm_phase(torch, results):
@@ -2107,6 +2208,7 @@ def lm_phase(torch, results):
     2048), 8 steps), then card against CPU for qwen3_4b and
     deepseek_moe_16b (the latter also with LM_PLANTED's faults, and with
     wq / wk at fan-in d)."""
+    import dataclasses
     import gc
 
     lm_kernel_checks(torch, results)
@@ -2114,18 +2216,219 @@ def lm_phase(torch, results):
         lm_serve(torch, results, *run)
         gc.collect()                      # the model, its caches, its graphs
         torch.cuda.empty_cache()
-    lm_card_vs_cpu(torch, results, "qwen3_4b", [("reference init", LM_REL)])
-    lm_card_vs_cpu(torch, results, "deepseek_moe_16b",
-                   [("reference init", LM_REL_INIT)]
-                   + [(fault, LM_REL_INIT) for fault in LM_PLANTED]
-                   + [("wq/wk at fan-in d", LM_REL)])
+    from repro_torch.models import get_config
+
+    def cut(arch):
+        return dataclasses.replace(get_config(arch), n_layers=LM_CPU_LAYERS)
+
+    cvc = results.setdefault("_lm", {}).setdefault("card_vs_cpu_rel", {})
+    cvc["qwen3_4b"] = card_vs_cpu(torch, "qwen3_4b", cut("qwen3_4b"),
+                                  [("reference init", LM_REL)])
+    cvc["deepseek_moe_16b"] = card_vs_cpu(
+        torch, "deepseek_moe_16b", cut("deepseek_moe_16b"),
+        [("reference init", LM_REL_INIT)]
+        + [(fault, LM_REL_INIT) for fault in LM_PLANTED]
+        + [("wq/wk at fan-in d", LM_REL)])
+
+
+# --- phases 9-10: the SSM stacks (RWKV6, Mamba2) and the enc-dec --------------------
+
+SSM_STEPS = 32                           # greedy decode steps
+RWKV_S = 2048                            # rwkv6_1p6b's prompt tokens
+MAMBA_LAYERS, MAMBA_S = 2, 1024          # ssm_mamba2 at zamba2_1p2b's widths
+ED_S = 2048                              # seamless's prompt tokens (+ 1536 frames)
+# rwkv6_1p6b's relay property in bf16 (prefill(P) + decode(token P) against
+# prefill(P + 1)'s last logits), of the largest |logit|: the two run their
+# GEMMs at other shapes (L = 1 against L = P + 1), so cuBLAS rounds the
+# bf16 products at other places, and 24 layers carry a few bf16 ulps
+# (2**-8 each) into the logits
+RELAY_BF16 = 2 ** -5
+# ... seamless at the reference init: no qk-norm, wq / wk's fan-in the head
+# count (16), so its attention logits have a std of ~64 and the softmax over
+# 1536 frames is near one-hot: a float32 reordering can move a row's pick
+# (5.4e-2 of the largest |logit| read at the prefill on an H100).  Held at
+# ED_REL_INIT, which a planted fault (TF32 products on the card) must
+# exceed, and at LM_REL with wq / wk at fan-in d
+ED_REL_INIT = 0.1
+
+
+def ssm_phase(torch, results):
+    """The attention-free stacks' serve path.  ``rwkv6_1p6b`` at full
+    width and depth, bf16: 2 x 2048 prefill and 32 greedy steps
+    (``model_serve``: every counter 0, RWKV6 reaches no kernel), the
+    relay property in bf16, card vs CPU in float32 at 2 layers; then an
+    ``ssm_mamba2`` stack at zamba2_1p2b's widths, 2 layers, float32,
+    2 x 1024 on the card (one ``ssd_chunk_intra`` and one
+    ``ssd_chunk_state`` launch a layer) against the CPU."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config("rwkv6_1p6b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    log(f"rwkv6_1p6b: {cfg.n_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}), built and drawn in {build_s:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (LM_B, RWKV_S)),
+                              device="cuda")
+    rec, base, logits, eager_step = model_serve(
+        torch, results, "rwkv6_1p6b", model, {"tokens": prompts}, SSM_STEPS,
+        {})
+    log("rwkv6_1p6b: every launch counter read 0 in the prefill and the "
+        "decode (RWKV6 reaches no kernel: its WKV scan is plain PyTorch, as "
+        "in the reference)")
+    rec["build_s"] = build_s
+
+    # the relay property: prefill(P) then decode(token P) == prefill(P + 1)
+    tok0 = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
+    step, _ = eager_step(base, {"token": tok0,
+                                "pos": torch.full((LM_B,), RWKV_S,
+                                                  device="cuda")})
+    full, _ = model.prefill({"tokens": torch.cat([prompts, tok0], 1)})
+    relay = ((step.float() - full.float()).abs().max()
+             / full.float().abs().max()).item()
+    log(f"rwkv6_1p6b relay: prefill({RWKV_S}) + decode vs prefill("
+        f"{RWKV_S + 1}): {relay:.2e} of max |logit| (limit {RELAY_BF16})")
+    assert relay <= RELAY_BF16, relay
+    rec["relay_rel"] = relay
+    del model, base, eager_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec["card_vs_cpu_rel"] = card_vs_cpu(
+        torch, "rwkv6_1p6b", dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS),
+        [("reference init", LM_REL)])
+
+    mcfg = dataclasses.replace(get_config("zamba2_1p2b"), family="ssm_mamba2",
+                               n_layers=MAMBA_LAYERS)
+
+    def live_ssm(model):
+        g = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for n in ("A_log", "dt_bias"):
+                p = getattr(model.layers.mixer, n)
+                p.copy_(0.5 * torch.randn(p.shape, generator=g))
+
+    mamba = card_vs_cpu(
+        torch, "ssm_mamba2 (zamba2_1p2b widths)", mcfg,
+        [("reference init", HYB_REL)],
+        batch_of=lambda dev: {"tokens": torch.as_tensor(
+            np.random.default_rng(5).integers(0, mcfg.vocab, (LM_B, MAMBA_S)),
+            device=dev)}, init=live_ssm,
+        counts={"ssd_chunk_intra": MAMBA_LAYERS,
+                "ssd_chunk_state": MAMBA_LAYERS})
+    for n in ("ssd_chunk_intra", "ssd_chunk_state"):
+        results[n]["launches"] += MAMBA_LAYERS
+    log(f"ssm_mamba2: {MAMBA_LAYERS} ssd_chunk_intra and {MAMBA_LAYERS} "
+        f"ssd_chunk_state launches in the card's prefill ({LM_B} x "
+        f"{MAMBA_S}), one of each a layer")
+    results["_ssm"] = {"rwkv6_1p6b": rec, "ssm_mamba2": dict(
+        layers=MAMBA_LAYERS, prompt=MAMBA_S, card_vs_cpu_rel=mamba)}
+
+
+def encdec_phase(torch, results):
+    """The enc-dec's serve path.  ``decode_attn`` at seamless's two new
+    shapes (G 1, D 64, bf16, B 2: the self ring of 2048 slots and the
+    1536 cross slots) against its twin and float64, timed per call and
+    by graph beside SDPA and the byte bound; ``seamless_m4t_large_v2``
+    at full width and depth, bf16: 2 x (1536 frames + 2048 tokens), 32
+    greedy steps (``model_serve``: 0 ``decode_attn`` launches in the
+    prefill, 48 a step), the kernel on layer 0 of the prefill's own self
+    and cross cache; card vs CPU in float32 at 2 + 2 layers, at the
+    reference init and with wq / wk at fan-in d."""
+    import dataclasses
+    import functools
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attn as dk
+    from repro_torch.models import build_model, get_config
+
+    cfg = get_config("seamless_m4t_large_v2")
+    H, KV, D, Fr = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.n_frontend_tokens
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    record = functools.partial(_record, torch, results)
+    for name, S in (("seamless self ring", ED_S), ("seamless cross", Fr)):
+        q = torch.randn((LM_B, H, D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((LM_B, S, KV, D), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        tag = f"{name} G {H // KV} B {LM_B} S {S} bfloat16"
+        e, atol, rtol, rel = _decode_check(torch, results, tag, q, k, v)
+        record("decode_attn", dict(config=name, B=LM_B, S=S, H=H, KV=KV,
+                                   G=H // KV, D=D, dtype=str(q.dtype),
+                                   atol=atol, rtol=rtol, f64_rel=rel,
+                                   main=False), e,
+               lambda: dk.decode_attn(q, k, v),
+               lambda: dk.decode_attn_plain(q, k, v),
+               4 * LM_B * H * S * D + 5 * LM_B * H * S,
+               2 * (2 * LM_B * S * KV * D + 2 * LM_B * H * D),
+               library=lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)))
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    log(f"seamless_m4t_large_v2: {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters "
+        f"({cfg.dtype}), built and drawn in {build_s:.1f} s")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab,
+                                                    (LM_B, ED_S)),
+                                       device="cuda"),
+             "frames": torch.randn((LM_B, Fr, cfg.d_model), generator=gen,
+                                   device="cuda").to(torch.bfloat16)}
+    rec, base, _, _ = model_serve(torch, results, "seamless_m4t_large_v2",
+                                  model, batch, SSM_STEPS,
+                                  {"decode_attn": 2 * cfg.n_layers})
+    rec["build_s"] = build_s
+    q0 = torch.randn((LM_B, H, D), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    for part in ("self", "cross"):
+        ck, cv = base[part]
+        e, atol, _, rel = _decode_check(
+            torch, results, f"seamless prefill {part} cache, layer 0", q0,
+            ck[0], cv[0])
+        log(f"seamless decode_attn on layer 0 of the prefill's {part} cache "
+            f"({tuple(ck[0].shape)}): |kernel - twin| {e:.3e} (limit "
+            f"{atol:.3e}), float64 {rel:.2e} of max |out|")
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cpu_cfg = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS,
+                                  n_enc_layers=LM_CPU_LAYERS)
+
+    def cpu_batch(device):
+        r = np.random.default_rng(3)
+        return {"tokens": torch.as_tensor(r.integers(0, cfg.vocab,
+                                                     (LM_B, LM_CPU_S)),
+                                          device=device),
+                "frames": torch.as_tensor(r.normal(size=(
+                    LM_B, Fr, cfg.d_model)).astype(np.float32),
+                    device=device)}
+
+    rec["card_vs_cpu_rel"] = card_vs_cpu(
+        torch, "seamless_m4t_large_v2", cpu_cfg,
+        [("reference init", ED_REL_INIT), ("TF32 on", ED_REL_INIT),
+         ("wq/wk at fan-in d", LM_REL)], batch_of=cpu_batch)
+    results["_encdec"] = {"seamless_m4t_large_v2": rec}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,relay,graphs,costmodel,hybrid,"
-                            "train,lm")
+                            "train,lm,ssm,encdec")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2140,6 +2443,13 @@ def main(argv=None):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,uuid,power.limit,clocks.sm,"
+         "clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card (name, uuid, power limit, SM clock, max SM clock): "
+        f"{card.splitlines()[0]}")
+    wall0 = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False    # plain twins in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2170,6 +2480,10 @@ def main(argv=None):
         train_phase(torch, results)
     if "lm" in phases:
         lm_phase(torch, results)
+    if "ssm" in phases:
+        ssm_phase(torch, results)
+    if "encdec" in phases:
+        encdec_phase(torch, results)
 
     kernels = []
     for name, path in REPLACES.items():
@@ -2191,8 +2505,12 @@ def main(argv=None):
         })
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "build_log": cuda_lib.BUILD_LOG,
+        json.dump({"card": smi, "card_ids": card,
+                   "build_log": cuda_lib.BUILD_LOG,
+                   "wall_s": time.perf_counter() - wall0,
                    "results": results}, f, indent=1)
+    log(f"phases {sorted(phases)}: {time.perf_counter() - wall0:.1f} s of "
+        f"wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Per-architecture configs.  The port carries only the paper's HSTU-GR."""
+"""Per-architecture configs: a copy of each of the reference's, one module per id."""

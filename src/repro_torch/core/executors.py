@@ -359,7 +359,7 @@ class LiveExecutor:
 
     def _prefill_launch(self, toks):
         return (("prefill", toks.shape[0], toks.shape[1]),
-                self.model.prefill, (toks,))
+                self.model.prefill, ({"tokens": toks},))
 
     def _dense_launch(self, psis, bucket: int, incr, items):
         """Rank over dense psi: each member's (K, V) zero-padded to

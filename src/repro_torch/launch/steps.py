@@ -53,7 +53,9 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
 
 
 def make_prefill_step(model):
-    """``prefill_step({"tokens": (B, S)}) -> (logits, cache)``."""
+    """``prefill_step(batch) -> (logits, cache)``: ``batch`` is the
+    model's prefill batch, {"tokens": (B, S)} plus a VLM's "frontend" or
+    an enc-dec's "frames" (B, F, d)."""
 
     def prefill_step(batch):
         return model.prefill(batch)
@@ -69,13 +71,16 @@ def make_serve_step(model, graphs=None):
     ``graphs`` as ``LiveExecutor``'s: by default a CUDA device replays a
     CUDA graph per (batch, cache) key, False runs eagerly.  The graph's
     body is ``decode_step`` followed by copying every cache tensor it
-    returned anew (the hybrid's recurrent states) into the caller's
-    cache, so a replay updates ``cache`` in place and returns it; what
-    ``decode_step`` writes in place or returns as it was (the hybrid's
-    attention rings, a Transformer's whole cache, (k, v) or the int8
-    4-tuple, and HSTU's psi) is left alone.  The eager step returns
-    what ``decode_step`` returns.  A key holds the cache's storage, so
-    another cache of the same shapes is captured anew."""
+    returned anew (the hybrid's recurrent states, an SSM stack's whole
+    state, RWKV6's token shift included) into the caller's cache, leaf
+    by leaf in ``tensor_leaves`` order (dict keys sorted), so a replay
+    updates ``cache`` in place and returns it; what ``decode_step``
+    writes in place or returns as it was (the hybrid's attention rings,
+    a Transformer's whole cache, (k, v) or the int8 4-tuple, an
+    enc-dec's self ring and cross K/V, and HSTU's psi) is left alone.
+    The eager step returns what ``decode_step`` returns.  A key holds
+    the cache's storage, so another cache of the same shapes is
+    captured anew."""
     runner = resolve_runner(graphs, model.device)
 
     def eager_step(cache, batch):

@@ -2,9 +2,9 @@
 
 The embedding / unembedding, the chunked training loss and the layer
 stacking shared by the families, the decoder-only Transformer (dense,
-MoE and VLM: ``TransformerModel``) and the Zamba2 hybrid
-(``HybridModel``).  The plain SSM stacks (RWKV6) and enc-dec are still
-to port (ROADMAP Queue 1, item 9).
+MoE and VLM: ``TransformerModel``), the attention-free SSM stacks
+(RWKV6 and Mamba2: ``SSMModel``) and the Zamba2 hybrid
+(``HybridModel``).  The encoder-decoder is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -135,6 +135,18 @@ def zeros_from_specs(spec, device):
     if isinstance(spec[1], torch.dtype):
         return torch.zeros(spec[0], dtype=spec[1], device=device)
     return tuple(zeros_from_specs(s, device) for s in spec)
+
+
+def base_batch_specs(shape: InputShape):
+    """The reference's ``BaseModel.batch_specs``: an entry point's batch
+    as {name: (shape, dtype)}."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": ((B, S), torch.int32),
+                "labels": ((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": ((B, S), torch.int32)}
+    return {"token": ((B, 1), torch.int32), "pos": ((B,), torch.int32)}
 
 
 def _no_tf32():
@@ -311,19 +323,138 @@ class TransformerModel(nn.Module):
 
     def batch_specs(self, shape: InputShape):
         """The entry point's batch as {name: (shape, dtype)}."""
-        B, S = shape.global_batch, shape.seq_len
-        if shape.kind == "train":
-            specs = {"tokens": ((B, S), torch.int32),
-                     "labels": ((B, S), torch.int32)}
-        elif shape.kind == "prefill":
-            specs = {"tokens": ((B, S), torch.int32)}
-        else:
-            return {"token": ((B, 1), torch.int32),
-                    "pos": ((B,), torch.int32)}
-        if self.cfg.family == "vlm":
-            specs["frontend"] = ((B, self.cfg.n_frontend_tokens,
+        specs = base_batch_specs(shape)
+        if self.cfg.family == "vlm" and shape.kind != "decode":
+            specs["frontend"] = ((shape.global_batch,
+                                  self.cfg.n_frontend_tokens,
                                   self.cfg.d_model), DTYPES[self.cfg.dtype])
         return specs
+
+
+# ===========================================================================
+# SSM stacks (Mamba2 / RWKV6)
+# ===========================================================================
+
+
+class SSMModel(nn.Module):
+    """Attention-free stack (``ssm_rwkv6`` or ``ssm_mamba2``): each
+    block is ln1 -> mixer -> residual, ln2 -> FFN -> residual; the
+    decode state is O(1) in the sequence length.
+
+    Parameters live on ``device`` from construction under the reference
+    tree's names (``layers.mixer.mu``, stacked (n_layers, ...));
+    ``init`` fills them from a ``torch.Generator``,
+    ``convert.load_jax_params`` loads a ``repro`` tree.  Public layouts
+    are the reference's:
+
+    * state, each leaf stacked (n_layers, ...): RWKV6 ``(wkv (L, B, H,
+      64, 64) float32, shift (L, B, 1, d))``, Mamba2 ``(ssm (L, B, H, N,
+      P) float32, conv (L, B, K-1, C))``;
+    * ``prefill({"tokens": (B, S)})`` and
+      ``decode_step(state, {"token": (B, 1), "pos": (B,)})`` return
+      (logits (B, 1, vocab_padded), new state).
+
+    ``decode_step`` returns new state tensors and leaves the caller's
+    as they were (``make_serve_step``'s graph copies them back).  The
+    Mamba2 prefill launches ``ssd_chunk_intra`` and ``ssd_chunk_state``
+    once a layer on a CUDA model; RWKV6 reaches no kernel (its WKV scan
+    is plain PyTorch, as in the reference)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        _no_tf32()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        add_params(self, self.param_specs(), self.device)
+
+    @property
+    def is_mamba(self):
+        return self.cfg.family == "ssm_mamba2"
+
+    def block_specs(self):
+        cfg = self.cfg
+        d = cfg.d_model
+        mixer = (ssm_lib.mamba2_specs(cfg) if self.is_mamba
+                 else ssm_lib.rwkv6_specs(cfg))
+        return {
+            "ln1": ParamSpec((d,), ("embed",), init="ones"),
+            "ln2": ParamSpec((d,), ("embed",), init="ones"),
+            "mixer": mixer,
+            "ffn": ffn_specs(cfg),
+        }
+
+    def param_specs(self):
+        specs = dict(embed_specs(self.cfg))
+        specs["layers"] = stack_specs(self.block_specs(), self.cfg.n_layers)
+        return specs
+
+    def init(self, generator: torch.Generator) -> "SSMModel":
+        """Draw every parameter on the CPU from ``generator``, in
+        sorted-name order."""
+        return draw_params(self, generator)
+
+    def _mix(self, p, x, state, decode):
+        cfg = self.cfg
+        if self.is_mamba:
+            fwd = ssm_lib.mamba2_decode if decode else ssm_lib.mamba2_forward
+            return fwd(p, x, cfg, state)
+        return ssm_lib.rwkv6_forward(p, x, cfg, state)
+
+    def _run(self, x, state, decode=False):
+        """The stacked layers in turn, layer l with (state[0][l],
+        state[1][l]); returns x and the new state, stacked."""
+        cfg = self.cfg
+        new = ([], [])
+        for l in range(cfg.n_layers):
+            pl = self.layers.tree(l)
+            h, s2 = self._mix(pl["mixer"], rms_norm(x, pl["ln1"]),
+                              (state[0][l], state[1][l]), decode)
+            x = x + h
+            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+            for acc, t in zip(new, s2):
+                acc.append(t)
+        return x, tuple(torch.stack(t) for t in new)
+
+    # --- public protocol ----------------------------------------------------
+    def loss(self, batch):
+        raise NotImplementedError(
+            f"{self.cfg.name}: SSMModel.loss is not ported to repro_torch "
+            f"yet (ROADMAP Queue 1, item 11)")
+
+    @torch.no_grad()
+    def prefill(self, batch):
+        """{"tokens": (B, S)} -> (last-position logits, state), from a
+        zero state."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        x, state = self._run(x, self.init_cache(x.shape[0], 0))
+        return _logits(self.final_norm, self.unembed, x[:, -1:]), state
+
+    @torch.no_grad()
+    def decode_step(self, cache, batch):
+        """One token per sequence: {"token": (B, 1), "pos": (B,)} (``pos``
+        unused: the state carries the position) against ``cache`` ->
+        (logits (B, 1, Vp), new state)."""
+        token = torch.as_tensor(batch["token"], device=self.device).long()
+        x = _embed(self.tok, token)
+        x, state = self._run(x, cache, decode=True)
+        return _logits(self.final_norm, self.unembed, x), state
+
+    def cache_specs(self, batch: int, seq_len: int):
+        """The state's (shape, dtype) tuple (no sharding axes); it does
+        not depend on ``seq_len``."""
+        cfg = self.cfg
+        per = (ssm_lib.mamba2_state_specs(cfg, batch) if self.is_mamba
+               else ssm_lib.rwkv6_state_specs(cfg, batch))
+        return tuple(((cfg.n_layers,) + shape, dt) for shape, dt in per)
+
+    def init_cache(self, batch: int, seq_len: int):
+        return zeros_from_specs(self.cache_specs(batch, seq_len),
+                                self.device)
+
+    def batch_specs(self, shape: InputShape):
+        """The entry point's batch as {name: (shape, dtype)}."""
+        return base_batch_specs(shape)
 
 
 # ===========================================================================

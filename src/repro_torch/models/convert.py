@@ -15,7 +15,10 @@ The hybrid's tree nests deeper (``sections`` stacked twice, as
 ``(n_sections, attn_every, ...)``; ``shared_attn.attn.wq``), and a
 Transformer's holds ``layers.attn`` / ``layers.ffn`` or ``layers.moe``
 (its ``router`` float32 in a model of any type) and a VLM's
-``projector``; their module names mirror the keys, so the same
+``projector``, an SSM stack's ``layers.mixer`` (RWKV6's ``mu``, ``w0``,
+``u`` float32 in a model of any type; or Mamba2's), and an enc-dec's
+``encoder.attn``, ``decoder.attn`` / ``decoder.xattn`` / ``decoder.lnx``
+and ``enc_norm``; their module names mirror the keys, so the same
 flattening maps each one to one.  Each leaf is copied into the
 parameter's own type.
 

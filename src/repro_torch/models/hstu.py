@@ -202,9 +202,10 @@ class HSTUModel(nn.Module):
 
     # --- RelayGR prefix / rank protocol -------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens):
-        """Pre-inference: tokens (B, S) -> (last-position logits,
+    def prefill(self, batch):
+        """Pre-inference: {"tokens": (B, S)} -> (last-position logits,
         psi = per-layer (K, V), each (L, B, S, H, D))."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = _embed(self.tok, tokens.long())
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
@@ -300,7 +301,7 @@ class HSTUModel(nn.Module):
     def full_rank(self, prefix_tokens, incr_tokens, item_tokens):
         """Baseline: full inference with the long prefix on the critical
         path (no cache)."""
-        _, kv = self.prefill(prefix_tokens)
+        _, kv = self.prefill({"tokens": prefix_tokens})
         return self.rank_with_cache(kv, incr_tokens, item_tokens)
 
     def cache_specs(self, batch: int, seq_len: int):

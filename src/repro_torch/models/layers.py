@@ -1,10 +1,10 @@
 """Core layers, in PyTorch (port of ``repro.models.layers``).
 
-What the HSTU, hybrid and Transformer paths need: ``ParamSpec`` (the
-fan-in normal init rule), ``rms_norm``, interleaved-pair RoPE, GQA
-softmax attention (prefill, q-chunked prefill and ring-cache decode,
-with padded heads and the int8 KV cache), the GLU or plain FFN and the
-vocab-padded cross-entropy.
+What every family needs: ``ParamSpec`` (the fan-in normal init rule),
+``rms_norm``, interleaved-pair RoPE, GQA softmax attention (prefill,
+q-chunked prefill, ring-cache decode with padded heads and the int8 KV
+cache, and cross-attention over given K/V), the GLU or plain FFN and
+the vocab-padded cross-entropy.
 Tensors keep the reference's layouts: (..., S, H, D) for heads.  Layers
 are functions of a parameter dict, as in the reference.
 """
@@ -185,7 +185,8 @@ def _sdpa_q_chunked(q, k, v, scale, chunk, *, prefix_len=0, window=0):
 
 
 def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
-              window: int = 0, causal: bool = True, prefix_len: int = 0):
+              kv_override=None, window: int = 0, causal: bool = True,
+              prefix_len: int = 0):
     """Attention, as ``repro.models.layers.attention``.
 
     * prefill (``cache`` None): causal (or bidirectional) self-attention
@@ -200,29 +201,50 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
       live).  An int8 ring is dequantized whole to the model's type
       first, as the reference does before its ``_sdpa``.
 
+    * cross-attention (``kv_override`` = (k, v), each (B, F, KV, D)):
+      k and v are taken as given (no ``k_norm``; ``q_norm`` still
+      applies), neither q nor k is rotated, nothing is cached and
+      nothing masked.  S queries go through the plain ``_sdpa``; one
+      query (the enc-dec decode) through the ``decode_attn`` kernel,
+      which over F live slots computes the reference's ``_sdpa`` with
+      ``mask=None``.  Returns (out, (k, v)) as given.
+
     With ``head_pad`` > ``n_heads`` only the real heads' slices of
     ``wq`` and ``wo`` are used: the reference zeroes the padded heads'
     outputs before ``wo``, so they add nothing, and computing the real
     heads alone keeps head h on kv head ``h * KV // n_heads`` in every
-    path.  Cross-attention (``kv_override``) belongs to enc-dec, not
-    ported yet (ROADMAP Queue 1, item 9)."""
+    path."""
     B, S, d = x.shape
     h = cfg.n_heads
     wq, wo = params["wq"], params["wo"]
     if wq.shape[1] > h:
         wq, wo = wq[:, :h], wo[:h]
     q = torch.einsum("bsd,dhk->bshk", x, wq)
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
-    if cfg.rope_theta:
+        if kv_override is None:
+            k = rms_norm(k, params["k_norm"])
+    if cfg.rope_theta and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    if cache is not None:
+    if kv_override is not None:
+        out = (ops.cache_decode_attention(q, k, v) if S == 1
+               else _sdpa(q, k, v, None, scale))
+        new_cache = (k, v)
+    elif cache is not None:
+        if cfg.kv_quant and len(cache) != 4:
+            raise ValueError(
+                f"kv_quant decode needs the int8 ring (k int8, v int8, "
+                f"k scales, v scales), each (B, S, KV, D) / (B, S, KV, 1); "
+                f"got a {len(cache)}-tuple (a prefill returns (k, v) "
+                f"unquantized: quantize it with quantize_kv first)")
         ck, cv = cache[:2]
         if cache_index is not None:
             # The reference rewrites the whole cache with a one-hot

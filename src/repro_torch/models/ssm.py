@@ -1,6 +1,7 @@
-"""Mamba2 (SSD) in PyTorch (port of the Mamba2 half of ``repro.models.ssm``).
+"""State-space sequence layers in PyTorch: Mamba2 (SSD) and RWKV6 (Finch)
+(port of ``repro.models.ssm``).
 
-The chunked SSD formulation: within a chunk of ``MAMBA_CHUNK`` tokens the
+Mamba2 uses the chunked SSD formulation: within a chunk of ``MAMBA_CHUNK`` tokens the
 work is two masked contractions, and only the recurrence across chunks
 is sequential.  The two contractions are the kernels of
 ``repro_torch.kernels.ssd_chunk`` — ``ssd_chunk_intra`` (the intra-chunk
@@ -9,7 +10,14 @@ launch CUDA on CUDA tensors and run their plain twins on the CPU.  The
 inter-chunk recurrence and ``y_inter`` stay plain PyTorch in float32.
 
 The recurrent state (``ssm`` (B, H, N, P) float32, ``conv`` (B, K-1, C))
-is the decode cache.  RWKV6 is not ported yet.
+is the decode cache.
+
+RWKV6's WKV recurrence is a per-token scan over a (B, H, 64, 64) float32
+state, as in the reference (a ``lax.scan`` in plain jnp there, with no
+Pallas kernel): here a plain loop over time in float32.  Its state
+(``wkv`` (B, H, 64, 64) float32, ``shift`` (B, 1, d), the last token's
+normed input) is the decode cache, and the decode is ``rwkv6_forward``
+at L = 1, as in the reference.
 """
 
 from __future__ import annotations
@@ -148,3 +156,90 @@ def mamba2_state_specs(cfg, batch: int):
     C = cfg.d_inner + 2 * cfg.ssm_state
     return (((B, H, N, P), torch.float32),
             ((B, cfg.ssm_conv - 1, C), DTYPES[cfg.dtype]))
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch): data-dependent decay
+# ---------------------------------------------------------------------------
+
+RWKV_HEAD = 64
+RWKV_LORA = 64
+
+
+def rwkv6_specs(cfg) -> Dict[str, ParamSpec]:
+    d, dt = cfg.d_model, cfg.dtype
+    H = d // RWKV_HEAD
+    return {
+        "mu": ParamSpec((5, d), (None, "embed"), init="value", value=0.5),
+        "w0": ParamSpec((d,), ("embed",), init="value", value=-4.0),
+        "w_lora_a": ParamSpec((d, RWKV_LORA), ("embed", None), dtype=dt),
+        "w_lora_b": ParamSpec((RWKV_LORA, d), (None, "embed"),
+                              init="zeros", dtype=dt),
+        "wr": ParamSpec((d, d), ("embed", "heads"), dtype=dt),
+        "wk": ParamSpec((d, d), ("embed", "heads"), dtype=dt),
+        "wv": ParamSpec((d, d), ("embed", "heads"), dtype=dt),
+        "wg": ParamSpec((d, d), ("embed", "heads"), dtype=dt),
+        "u": ParamSpec((H, RWKV_HEAD), ("rwkv_heads", None),
+                       init="value", value=0.5),
+        "ln_out": ParamSpec((d,), ("embed",), init="ones"),
+        "w_out": ParamSpec((d, d), ("heads", "embed"), dtype=dt),
+    }
+
+
+def _rwkv_mix(params, x, x_prev):
+    """Token-shift mixing for r, k, v, w, g.  x: (B, L, d); x_prev
+    (B, 1, d).  ``mu`` is float32: the mix is computed in float32 and
+    cast back to x's type.  Returns (5, B, L, d) in the order r, k, v,
+    w, g."""
+    xx = torch.cat([x_prev.to(x.dtype), x[:, :-1]], dim=1)
+    mixed = x[None] + (xx - x)[None] * params["mu"][:, None, None, :]
+    return mixed.to(x.dtype)
+
+
+def _rwkv_wkv_scan(r, k, v, w, u, state):
+    """r, k, v: (B, L, H, N); w: (B, L, H, N) decay in (0, 1); u (H, N);
+    state (B, H, N, N).  Per token: y = r (S + u kv), S <- w S + kv with
+    kv = k v^T.  Returns (y (B, L, H, N), final state)."""
+    B, L, H, N = r.shape
+    y = r.new_empty((B, L, H, N))
+    uu = u[None, :, :, None]
+    S = state
+    for t in range(L):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, N, N)
+        y[:, t] = torch.matmul(r[:, t, :, None, :], S + uu * kv)[..., 0, :]
+        S = w[:, t, :, :, None] * S + kv
+    return y, S
+
+
+def rwkv6_forward(params, x, cfg, state=None):
+    """x: (B, L, d); state: (wkv (B, H, N, N) float32, shift (B, 1, d)).
+    Returns (y, (wkv, shift)); the new shift is ``x[:, -1:]``."""
+    B, L, d = x.shape
+    H, N = d // RWKV_HEAD, RWKV_HEAD
+    if state is None:
+        wkv0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
+        shift0 = x.new_zeros((B, 1, d))
+    else:
+        wkv0, shift0 = state
+    xr, xk, xv, xw, xg = _rwkv_mix(params, x, shift0)
+    r = (xr @ params["wr"]).reshape(B, L, H, N)
+    k = (xk @ params["wk"]).reshape(B, L, H, N)
+    v = (xv @ params["wv"]).reshape(B, L, H, N)
+    g = F.silu(xg @ params["wg"])
+    # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), float32
+    lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
+    wlog = params["w0"].float() + lora.float()
+    w = torch.exp(-torch.exp(wlog)).reshape(B, L, H, N)
+    y, wkv = _rwkv_wkv_scan(r.float(), k.float(), v.float(), w,
+                            params["u"].float(), wkv0.float())
+    y = y.reshape(B, L, d).to(x.dtype)
+    y = rms_norm(y, params["ln_out"]) * g
+    return y @ params["w_out"], (wkv, x[:, -1:, :])
+
+
+def rwkv6_state_specs(cfg, batch: int):
+    """((shape, dtype) of wkv, (shape, dtype) of shift) for one layer."""
+    d = cfg.d_model
+    H, N = d // RWKV_HEAD, RWKV_HEAD
+    return (((batch, H, N, N), torch.float32),
+            ((batch, 1, d), DTYPES[cfg.dtype]))

@@ -29,7 +29,9 @@ a graph equal to the eager step; for the Transformer family,
 ``decode_attn`` at its GQA groups (G 1 to 12) and D 128 from one key to
 32768, the ``head_pad`` launch on the real heads, and a full-width
 decode step (dense, MoE, and the int8 cache) replayed from a graph
-equal to the eager step.
+equal to the eager step; for the SSM stacks (RWKV6, Mamba2) and the
+enc-dec, a full-width decode step replayed from a graph equal to the
+eager step, and the cross-attention decode launching ``decode_attn``.
 Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
 tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
@@ -593,7 +595,8 @@ def _graph_cases(model, dev, B, seed):
         B, npb).contiguous()
     pval = (lens[:, None] - ppos).clamp(0, pt).int()
     return {
-        "prefill": (("prefill", B, P), model.prefill, (tok(B, P),), ()),
+        "prefill": (("prefill", B, P), model.prefill, ({"tokens": tok(B, P)},),
+                    ()),
         "rank": (("rank", B, P, 16, 64), model.rank_with_cache,
                  (psi, incr, items), ()),
         "full": (("full", B, P, 16, 64), model.full_rank,
@@ -859,8 +862,8 @@ def test_hstu_serve_step_replay_equals_eager(dev):
     from repro_torch.launch.steps import make_serve_step
     cfg, gpu, cpu = _train_pair(dev)
     rng = np.random.default_rng(1)
-    _, psi = gpu.prefill(torch.as_tensor(rng.integers(0, cfg.vocab, (2, 100)),
-                                         device=dev))
+    _, psi = gpu.prefill({"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (2, 100)), device=dev)})
     keep = [t.clone() for t in psi]
     eager, graphed = make_serve_step(gpu, graphs=False), make_serve_step(gpu)
     pos = torch.tensor([100, 63], device=dev)
@@ -987,3 +990,94 @@ def test_transformer_decode_graph_equals_eager(dev, arch, quant):
         assert torch.equal(lg, le), f"step {i}"
         assert _equal(cg, ce), f"step {i}: cache"
     assert graphed.runner.captures == {"warmup": 0, "lazy": 1}
+
+
+def _ssm_encdec_model(dev, arch, family=None):
+    """A full-width config cut to 2 layers (2 + 2 for the enc-dec), bf16,
+    weights from seed 0; ``family`` replaces the config's."""
+    import dataclasses
+    from repro_torch.models import build_model, get_config
+    key = (arch, family)
+    if key not in _LM:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        if cfg.family == "encdec":
+            cfg = dataclasses.replace(cfg, n_enc_layers=2)
+        if family:
+            cfg = dataclasses.replace(cfg, family=family)
+        _LM[key] = build_model(cfg, device=dev).init(
+            torch.Generator().manual_seed(0))
+    return _LM[key]
+
+
+@pytest.mark.parametrize("arch,family", [("rwkv6_1p6b", None),
+                                         ("zamba2_1p2b", "ssm_mamba2"),
+                                         ("seamless_m4t_large_v2", None)])
+def test_ssm_and_encdec_decode_graph_equals_eager(dev, arch, family):
+    """An SSM stack (RWKV6; Mamba2 at zamba2's widths) and the enc-dec at
+    full width, 2 layers: a decode step replayed from a graph gives the
+    eager step's logits and state bit for bit over 4 steps, the graph
+    copying an SSM's new state (RWKV6's token shift included) into the
+    caller's and writing the enc-dec's self ring in place.  Each
+    enc-dec step launches ``decode_attn`` twice a layer (self ring and
+    cross K/V); the SSM steps launch no kernel."""
+    from repro_torch.core.graphs import read_counters, tensor_leaves
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    model = _ssm_encdec_model(dev, arch, family)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                                       device=dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                                      device=dev).to(torch.bfloat16)
+    _, cache = make_prefill_step(model)(batch)
+    clone = lambda c: ({k: tuple(t.clone() for t in v) for k, v in c.items()}
+                       if isinstance(c, dict) else tuple(t.clone() for t in c))
+    ce, cg = clone(cache), clone(cache)
+    eager, graphed = make_serve_step(model, graphs=False), make_serve_step(model)
+    per_step = 2 * cfg.n_layers if cfg.family == "encdec" else 0
+    for i in range(4):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 1)), device=dev)
+        pos = torch.tensor([128 + i, 9 + i], device=dev)
+        le, ce = eager(ce, {"token": tok, "pos": pos})
+        before = read_counters()
+        lg, cg2 = graphed(cg, {"token": tok, "pos": pos})
+        after = read_counters()
+        assert cg2 is cg
+        assert {n: after[n] - before[n] for n in after
+                if after[n] != before[n]} == \
+            ({"decode_attn": per_step} if per_step else {})
+        assert torch.equal(lg, le), f"step {i}"
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tensor_leaves(cg), tensor_leaves(ce))), f"step {i}"
+    assert graphed.runner.captures == {"warmup": 0, "lazy": 1}
+
+
+def test_cross_attention_decode_launches_decode_attn(dev):
+    """``attention`` with ``kv_override`` and one query launches the
+    ``decode_attn`` kernel once, within the bf16 limit of the reference
+    math (the plain ``_sdpa`` with no mask, on float32 copies); S > 1
+    queries run the plain ``_sdpa`` and launch nothing."""
+    from repro_torch.models import get_config, layers
+    cfg = get_config("seamless_m4t_large_v2")
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = {k: (torch.randn(s.shape, generator=g, device=dev)
+             / s.shape[0] ** 0.5).to(torch.bfloat16)
+         for k, s in layers.attention_specs(cfg).items()}
+    ek, ev = (torch.randn((2, cfg.n_frontend_tokens, cfg.n_kv_heads,
+                           cfg.head_dim), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    for S, launched in ((1, 1), (5, 0)):
+        x = torch.randn((2, S, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16)
+        pos = torch.arange(S, device=dev)[None, :] + 40
+        before = dk.launches
+        y, _ = layers.attention(p, x, cfg, positions=pos,
+                                kv_override=(ek, ev), causal=False)
+        assert dk.launches - before == launched, S
+        q = torch.einsum("bsd,dhk->bshk", x.float(), p["wq"].float())
+        want = layers._sdpa(q, ek.float(), ev.float(), None,
+                            cfg.head_dim ** -0.5)
+        want = torch.einsum("bshk,hkd->bsd", want, p["wo"].float())
+        err = (y.float() - want).abs().max() / want.abs().max()
+        assert err.item() < 2 ** -6, (S, err.item())

@@ -184,7 +184,8 @@ def test_serve_step_drives_an_hstu_cache_on_the_cpu(smoke_model):
     handed back as it came."""
     from repro_torch.launch.steps import make_serve_step
     rng = np.random.default_rng(0)
-    _, psi = smoke_model.prefill(torch.as_tensor(rng.integers(0, 500, (2, 40))))
+    _, psi = smoke_model.prefill(
+        {"tokens": torch.as_tensor(rng.integers(0, 500, (2, 40)))})
     before = [t.clone() for t in psi]
     batch = {"token": torch.as_tensor(rng.integers(0, 500, (2, 1))),
              "pos": torch.tensor([40, 40])}

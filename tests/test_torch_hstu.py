@@ -73,7 +73,7 @@ def test_prefill_psi_matches(pair):
     jm, params, tm = pair
     pre, _, _ = _tokens(0)
     jl, (jk, jv) = jm.prefill(params, {"tokens": jnp.asarray(pre)})
-    tl, (tk, tv) = tm.prefill(torch.as_tensor(pre))
+    tl, (tk, tv) = tm.prefill({"tokens": torch.as_tensor(pre)})
     assert tk.shape == tuple(jk.shape) == (tm.cfg.n_layers, 2, 96,
                                            tm.cfg.n_heads, tm.cfg.head_dim)
     _close(tk, jk)
@@ -85,7 +85,7 @@ def test_rank_with_cache_and_full_rank_match(pair):
     jm, params, tm = pair
     pre, incr, items = _tokens(1)
     _, jkv = jm.prefill(params, {"tokens": jnp.asarray(pre)})
-    _, tkv = tm.prefill(torch.as_tensor(pre))
+    _, tkv = tm.prefill({"tokens": torch.as_tensor(pre)})
     js = jm.rank_with_cache(params, jkv, jnp.asarray(incr), jnp.asarray(items))
     ts = tm.rank_with_cache(tkv, torch.as_tensor(incr), torch.as_tensor(items))
     assert ts.shape == (2, 24, 1)
@@ -132,7 +132,7 @@ def test_rank_with_pages_matches_reference_gather(pair, page_tokens):
     jm, params, tm = pair
     pre, incr, items = _tokens(3, P=128)
     lens = [128, 70]
-    _, kv = tm.prefill(torch.as_tensor(pre))
+    _, kv = tm.prefill({"tokens": torch.as_tensor(pre)})
     n_pages = 128 // page_tokens
     pool, tables = _pool_from_psi(kv, page_tokens, n_pages, lens)
     kvj = _gather_psi(jnp, jnp.asarray(pool), jnp.asarray(tables))
@@ -152,7 +152,7 @@ def test_relay_equals_full_inference_eps():
     prefix = torch.as_tensor(rng.integers(0, 500, (1, 128)))
     incr = torch.as_tensor(rng.integers(0, 500, (1, 16)))
     items = torch.as_tensor(rng.integers(0, 500, (1, 32)))
-    _, psi = tm.prefill(prefix)
+    _, psi = tm.prefill({"tokens": prefix})
     relay = tm.rank_with_cache(psi, incr, items)
     full = tm.full_rank(prefix, incr, items)
     assert relay.shape == (1, 32, 1)
@@ -193,22 +193,42 @@ def test_bridge_names_and_sizes_match_reference():
 
 
 def test_registry_ports_only_hstu():
-    """The ids and families still to port (RWKV6, enc-dec) raise, naming
-    their ROADMAP item; hstu-gr's config is the reference's."""
+    """The registry now carries every family and id of the reference:
+    the ids that were still to port (RWKV6, enc-dec) resolve, by id and
+    by alias, to the reference's configs and build their models;
+    hstu-gr's config is the reference's."""
+    from repro_torch.models.arch import SSMModel
     from repro_torch.models.config import ModelConfig
+    from repro_torch.models.encdec import EncDecModel
     for arch in ("rwkv6_1p6b", "rwkv6-1.6b", "seamless_m4t_large_v2",
                  "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            get_config(arch)
-    for family in ("ssm_rwkv6", "ssm_mamba2", "encdec"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-            build_model(ModelConfig(name="x", family=family, n_layers=1,
-                                    d_model=8, vocab=16, n_heads=1),
-                        device="cpu")
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget(arch))
+    for family, cls in (("ssm_rwkv6", SSMModel), ("ssm_mamba2", SSMModel),
+                        ("encdec", EncDecModel)):
+        model = build_model(ModelConfig(name="x", family=family, n_layers=1,
+                                        d_model=64, vocab=16, n_heads=1,
+                                        n_enc_layers=1, ssm_state=8,
+                                        d_ff=32), device="cpu")
+        assert type(model) is cls, family
     full = get_config("hstu-gr")
     assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
             full.vocab_padded, full.dtype) == (8, 256, 4, 64, 100096,
                                                "float32")
+
+
+def test_make_prefill_step_takes_the_reference_batch(pair):
+    """``make_prefill_step`` on HSTU: ``prefill_step({"tokens": ...})``
+    is the reference's ``prefill(params, {"tokens": ...})``: logits and
+    psi."""
+    from repro_torch.launch.steps import make_prefill_step
+    jm, params, tm = pair
+    pre, _, _ = _tokens(7)
+    jl, (jk, jv) = jm.prefill(params, {"tokens": jnp.asarray(pre)})
+    tl, (tk, tv) = make_prefill_step(tm)({"tokens": torch.as_tensor(pre)})
+    _close(tl, jl)
+    _close(tk, jk)
+    _close(tv, jv)
 
 
 def test_model_sets_full_f32_and_refuses_missing_cuda():

@@ -103,11 +103,18 @@ def test_config_copy_matches_reference(smoke):
 
 
 def test_other_families_still_raise():
-    with pytest.raises(NotImplementedError):
-        get_config("rwkv6_1p6b")
+    """Every family now builds, but training the hybrid's neighbours
+    still raises, naming ROADMAP Queue 1, item 11; an unknown family
+    raises."""
+    for family in ("ssm_rwkv6", "ssm_mamba2"):
+        cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
+                                  family=family)
+        with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
+            build_model(cfg, device="cpu").loss(
+                {"tokens": torch.zeros((1, 4), dtype=torch.long)})
     cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
-                              family="ssm_rwkv6")
-    with pytest.raises(NotImplementedError):
+                              family="no_such_family")
+    with pytest.raises(KeyError):
         build_model(cfg, device="cpu")
 
 

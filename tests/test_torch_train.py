@@ -280,7 +280,7 @@ def test_decode_step_and_init_cache_match_reference(pair):
     pre = rng.integers(0, VOCAB, (2, 48))
     token = rng.integers(0, VOCAB, (2, 1)).astype(np.int32)
     pos = np.array([48, 31], np.int32)
-    _, kv = tm.prefill(torch.as_tensor(pre))
+    _, kv = tm.prefill({"tokens": torch.as_tensor(pre)})
     jl, jc = jm.decode_step(params, tuple(jnp.asarray(t.numpy()) for t in kv),
                             {"token": jnp.asarray(token),
                              "pos": jnp.asarray(pos)})

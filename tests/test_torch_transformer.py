@@ -333,6 +333,71 @@ def test_kv_quant_decode_matches_reference():
     _close(tc[3], jc[3])
 
 
+def test_kv_quant_decode_refuses_an_unquantized_cache():
+    """Under ``kv_quant`` a decode handed the prefill's unquantized
+    (k, v) raises a ValueError naming the int8 4-tuple layout (the
+    reference silently runs unquantized on it)."""
+    _, _, tm = _pair("qwen3_4b", kv_quant=True)
+    _, kv = tm.prefill({"tokens": torch.zeros((2, 12), dtype=torch.long)})
+    assert len(kv) == 2
+    with pytest.raises(ValueError, match=r"int8 ring \(k int8, v int8, "
+                                         r"k scales, v scales\)"):
+        tm.decode_step(kv, {"token": torch.zeros((2, 1), dtype=torch.long),
+                            "pos": torch.tensor([12, 12])})
+
+
+def _int8_ring(k, v, slots, quantize):
+    """``tests/test_perf_features.py::test_kv_quant_decode_within_
+    tolerance``'s construction, in numpy for both sides: a ring of ``slots`` with the prefill's P entries quantized
+    into its first P slots, zero int8 and unit scales after them."""
+    L, B, P, KV, D = k.shape
+    (kq, ks), (vq, vs) = quantize(k), quantize(v)
+    ring = []
+    for t, fill, dt in ((kq, 0, np.int8), (vq, 0, np.int8),
+                        (ks, 1, np.float32), (vs, 1, np.float32)):
+        r = np.full((L, B, slots) + tuple(t.shape[3:]), fill, dt)
+        r[:, :, :P] = np.asarray(t)
+        ring.append(r)
+    return tuple(ring)
+
+
+def test_kv_quant_ring_from_a_prefill_matches_reference():
+    """The int8 ring built from each side's own prefill (15 tokens into
+    16 slots, as the reference's kv_quant test builds it): the int8 K/V
+    equal, the scales within REL; one decode step at position 15 gives
+    the reference's logits and stays within the reference test's 2% of
+    the unquantized decode."""
+    jm, params, tm = _pair("qwen3_4b", kv_quant=True)
+    jplain, _, tplain = _pair("qwen3_4b")
+    toks = np.random.default_rng(12).integers(0, 500, (2, 16))
+    _, (jk, jv) = jm.prefill(params, {"tokens": jnp.asarray(toks[:, :15])})
+    _, (tk, tv) = tm.prefill({"tokens": torch.as_tensor(toks[:, :15])})
+    jring = _int8_ring(np.asarray(jk), np.asarray(jv), 16,
+                       lambda t: tuple(map(np.asarray, jlayers.quantize_kv(
+                           jnp.asarray(t)))))
+    tring = _int8_ring(tk.numpy(), tv.numpy(), 16,
+                       lambda t: tuple(x.numpy() for x in layers.quantize_kv(
+                           torch.as_tensor(t))))
+    assert np.array_equal(tring[0], jring[0])
+    assert np.array_equal(tring[1], jring[1])
+    _close(tring[2], jring[2])
+    _close(tring[3], jring[3])
+    batch = {"token": toks[:, 15:], "pos": np.full((2,), 15, np.int32)}
+    jl, _ = jm.decode_step(params, tuple(map(jnp.asarray, jring)),
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tc = tm.decode_step(tuple(map(torch.as_tensor, tring)),
+                            {k: torch.as_tensor(v) for k, v in batch.items()})
+    _close(tl, jl)
+    assert len(tc) == 4 and tc[0].dtype == torch.int8
+    ring = tuple(torch.zeros((t.shape[0], 2, 16) + tuple(t.shape[3:]))
+                 for t in (tk, tv))
+    for dst, src in zip(ring, (tk, tv)):
+        dst[:, :, :15] = src
+    lf, _ = tplain.decode_step(ring, {k: torch.as_tensor(v)
+                                      for k, v in batch.items()})
+    assert ((lf - tl).abs().max() / lf.abs().max()).item() < 0.02
+
+
 @pytest.mark.parametrize("family", ["dense", "moe", "vlm"])
 def test_bfloat16_prefill_and_decode_match_reference(family):
     """The config's own bf16, at BF16_REL: prefill logits and two decode
