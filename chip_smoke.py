@@ -171,7 +171,43 @@ Phases, each fatal on failure (nothing is caught):
      softmax over 1536 frames is near one-hot; a fault planted on the
      card, TF32 products, must read above it) and with wq / wk at
      fan-in d (5e-4);
- 11. print the ``kernels`` JSON line, then the final device line; the
+ 11. ``lmtrain``: LM training for every family.  The SSD Functions
+     (``ssd_chunk_intra`` / ``ssd_chunk_state``: the kernel forward, a
+     float32 backward) against float64 autograd of the twins' einsums at
+     the zamba2 train step's shape per layer (B 2, L 4096, Q 128, H = P
+     = N = 64) and a ragged one (chunks of 100), every input's gradient
+     within 1e-5 of its largest |g|, each backward timed beside its
+     forward kernel; then the main path: ``zamba2_1p2b`` at full width
+     and depth (38 layers, 3.02 B, bf16), B 2 x 4096 (``train_4k``'s
+     sequence, its batch of 256 cut to 2), the launcher's schedule on
+     its synthetic batches (AdamW with the global-norm clip off, see
+     LMT_ADAMW), 2 warm-up and 10 timed AdamW steps through
+     ``make_train_step``, the counters zeroed between and read after
+     (76 launches of each SSD kernel a step: 38 forward, 38 in the
+     checkpoint's recompute; the backward launches none), ms/step,
+     tokens/s, peak memory (under 75 GiB), a finite loss that falls
+     (the last 3 steps' mean below the first 3's, and on the first
+     batch after the last step below before the first), every gradient
+     present and finite, what a clip of 1.0 would freeze, and one
+     profiled step split into forward and backward GEMMs, the SSD
+     kernels, the SSD backward, the plain attention (forward and
+     backward), unembed/CE, the layer-slice gradients of the stacked
+     weights, AdamW and the elementwise rest; card vs CPU for the hybrid
+     at zamba2's widths and 2 layers, float32, 1 x 256 (the loss 1e-5
+     relative, each gradient 1e-3 of its largest |g| at the reference
+     init, whose near one-hot shared attention makes float32 reorderings
+     show, and 1e-4 with wq / wk at fan-in d), and with the intra
+     wrapper planted on the bare launch (no gradient through it), which
+     must read above 1e-4; then every other family at full width, cut
+     in depth only, 3-4 AdamW steps each on one batch with a finite,
+     falling loss and every gradient present: ``qwen3_4b`` 4 of 36 layers, 2 x 4096;
+     ``deepseek_moe_16b`` 2 of 28, 2 x 2048 (aux logged); ``internvl2_2b``
+     4 of 24, 2 x (256 + 2048); ``rwkv6_1p6b`` 2 of 24, 2 x 512 (the
+     plain WKV loop); ``seamless_m4t_large_v2`` 2 + 2 layers, 2 x (1536
+     frames + 512); an ``ssm_mamba2`` stack at zamba2's widths, 2
+     layers, 2 x 1024 (two launches of each SSD kernel a layer and
+     step);
+ 12. print the ``kernels`` JSON line, then the final device line; the
      whole run's wall is logged before them.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
@@ -2424,11 +2460,518 @@ def encdec_phase(torch, results):
     results["_encdec"] = {"seamless_m4t_large_v2": rec}
 
 
+# --- phase 11: LM training (every family; the SSD kernels' gradients) ---------------
+
+SSD_GRAD_REL = 1e-5     # SSD Functions' float32 gradients vs float64, of each input's largest |g|
+LMT_B, LMT_S = 2, 4096  # zamba2_1p2b: train_4k's sequence, its batch of 256 cut to 2
+LMT_WARM, LMT_STEPS = 2, 10              # warm-up and timed AdamW steps
+LMT_PEAK_GIB = 75.0                      # max_memory_allocated of the timed steps
+LMT_CPU_B, LMT_CPU_S, LMT_CPU_L = 1, 256, 2   # card vs CPU: one section of 2
+LMT_LOSS_REL, LMT_GRAD_REL = 1e-5, 1e-4  # ... the loss relative; each leaf of its largest |g|
+# ... at the reference init: the shared attention's wq / wk take their
+# fan-in from the head count (32), so q and k are sqrt(2048 / 32) = 8
+# times a unit scale and its softmax is near one-hot; a float32
+# reordering moved wk's gradient by 2.65e-4 of its largest |g| (H100).
+# Held at this limit, and at LMT_GRAD_REL with wq / wk at fan-in d
+LMT_GRAD_REL_INIT = 1e-3
+# the other families at full width, cut in depth only: (arch, layers kept,
+# B, S; a VLM's 256 frontend embeddings and the enc-dec's 1536 frames
+# besides, every layer of its encoder kept as of its decoder, steps)
+LMT_RUNS = (("qwen3_4b", 4, 2, 4096, 4),
+            ("deepseek_moe_16b", 2, 2, 2048, 4),
+            ("internvl2_2b", 4, 2, 2048, 4),
+            ("rwkv6_1p6b", 2, 2, 512, 3),
+            ("seamless_m4t_large_v2", 2, 2, 512, 4),
+            ("ssm_mamba2", 2, 2, 1024, 4))
+# AdamW as the launcher's, but with the global-norm clip off: at the
+# reference init the embedding (drawn at 1 / sqrt(vocab)) reaches ln1
+# ~180x amplified, so its gradient is ~90% of a 7.1e5 norm; clipped to 1,
+# every unembed element's update then falls below eps (1e-8) and the loss
+# does not move in 12 steps (10.8403 -> 10.8414 on the first batch, H100).
+# Each step logs the share of the norm and the unembed's frozen share.
+LMT_ADAMW = dict(lr=3e-4, grad_clip=float("inf"))
+LMT_PARTS = ("GEMMs", "SSD kernels", "SSD backward", "attention",
+             "unembed/CE", "layer-slice grads", "AdamW", "elementwise")
+LMT_GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+                "aten::matmul", "aten::linear")
+LMT_EVAL = "autograd::engine::evaluate_function: "
+
+
+def _state_f64(Bc, xc, cum, dtc):
+    """``ssd_chunk_state_ref``'s einsum, in float64 (the float64 twin of
+    ``ssd_chunk_intra`` is ``kernels.ref.ssd_chunk_intra_f64``)."""
+    import torch
+    return torch.einsum("bcqn,bcqh,bcqhp->bchnp", Bc.double(),
+                        (cum[:, :, -1:] - cum).double().exp() * dtc.double(),
+                        xc.double())
+
+
+def ssd_grad_checks(torch, results):
+    """The SSD Functions (the kernel forward, the float32 backward) against
+    float64 autograd of the twins' einsums, at the zamba2 train step's
+    shape per layer (B 2, L 4096, Q 128, H = P = N = 64) and a ragged
+    one (3 chunks of 100): every input's gradient within SSD_GRAD_REL of
+    its largest |g|; each backward timed beside its kernel's forward
+    and its bound.  These launches are comparisons, outside the main
+    path's counts."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as sk
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = results.setdefault("_lmtrain", {}).setdefault("ssd_grad", {})
+    for B, nc, Q in ((LMT_B, LMT_S // 128, 128), (LMT_B, 3, 100)):
+        ins = _ssd_inputs(torch, gen, B, nc, Q)
+        H, P, N = ins[2].shape[3], ins[2].shape[4], ins[1].shape[3]
+        dy = torch.randn((B, nc, Q, H, P), generator=gen, device="cuda")
+        dS = torch.randn((B, nc, H, N, P), generator=gen, device="cuda")
+        kept = Q * (Q + 1) // 2
+        for name, fn, f64, bwd, names, args, dout, flops, nbytes in (
+                ("ssd_chunk_intra", sk.ssd_chunk_intra,
+                 ref.ssd_chunk_intra_f64, sk.ssd_chunk_intra_backward,
+                 "C B x cum dt", ins, dy,
+                 # s = C B^T, G = dy x^T, dx = M^T dy, dC and dB; ~12
+                 # elementwise operations per kept (q, t, h)
+                 B * nc * (3 * 2 * Q * Q * N + H * kept * (4 * P + 12)),
+                 4 * (2 * 2 * B * nc * Q * N + 3 * B * nc * Q * H * P
+                      + 4 * B * nc * Q * H)),
+                ("ssd_chunk_state", sk.ssd_chunk_state, _state_f64,
+                 sk.ssd_chunk_state_backward, "B x cum dt", ins[1:], dS,
+                 # B dS, dB and x . (B dS), ~6 per (t, h)
+                 B * nc * (2 * 2 * Q * N * H * P + 2 * Q * H * P
+                           + 6 * Q * H),
+                 4 * (2 * B * nc * Q * N + 2 * B * nc * Q * H * P
+                      + 4 * B * nc * Q * H + B * nc * H * N * P))):
+            f32 = [t.detach().clone().requires_grad_(True) for t in args]
+            y = fn(*f32)
+            assert type(y.grad_fn).__name__.startswith("SSDChunk"), \
+                f"{name}: no Function on a CUDA tensor"
+            y.backward(dout)
+            d64 = [t.detach().double().requires_grad_(True) for t in args]
+            f64(*d64).backward(dout.double())
+            rels = {}
+            for n, a, b in zip(names.split(), f32, d64):
+                assert torch.isfinite(a.grad).all(), f"{name} d{n}: non-finite"
+                top = b.grad.abs().max().item()
+                err = (a.grad.double() - b.grad).abs().max().item()
+                rels[f"d{n}"] = err / top if top else err
+                assert rels[f"d{n}"] <= SSD_GRAD_REL, (
+                    f"{name} d{n} at {B} x {nc * Q} (Q {Q}): {rels[f'd{n}']:.2e}"
+                    f" of the largest |g| (limit {SSD_GRAD_REL})")
+            del f32, d64, y
+            fwd_ms = _time_ms(torch, lambda: fn(*args))
+            bwd_ms = _time_ms(torch, lambda: bwd(*args, dout), iters=5)
+            bound_ms, by = _bound(flops, nbytes)
+            key = f"{name} B {B} L {nc * Q} Q {Q}"
+            out[key] = dict(grad_rel=rels, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                            bwd_bound_ms=bound_ms, bwd_bound_by=by)
+            log(f"{key}: gradients vs float64 " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rels.items())
+                + f" of the largest |g| (limit {SSD_GRAD_REL}); kernel forward "
+                f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms (bound "
+                f"{bound_ms:.4f} ms, {by})")
+        del ins, dy, dS
+    torch.cuda.empty_cache()
+
+
+def _ancestors(evt):
+    chain = []
+    while evt is not None:
+        chain.append(evt)
+        evt = evt.cpu_parent
+    return chain
+
+
+def _lm_part(chain, kernel, vp, attn_nodes):
+    """The part of an LM train step that ``kernel`` belongs to, from its
+    CPU op's ancestors (``chain``): the ``adamw`` range, the SSD
+    backward's ranges, the SSD kernels by name; the ``sdpa`` range (the
+    plain attention, forward and recompute), or a backward node whose
+    forward op ran in it (``attn_nodes``: (sequence number, thread) of
+    the ops under ``sdpa``); ops on a vocab-wide tensor (the unembed and
+    the CE, each way); the gradient of a layer's slice of a stacked
+    weight (written into a full-size zero tensor, ``SelectBackward0``)
+    and its accumulation into ``.grad``; GEMMs forward, recomputed and
+    backward (by op or kernel name); the rest (elementwise)."""
+    names = [e.name for e in chain]
+    if "adamw" in names:
+        return "AdamW"
+    if any(n in ("ssd_chunk_intra_backward", "ssd_chunk_state_backward")
+           for n in names):
+        return "SSD backward"
+    if "ssd_" in kernel.name:
+        return "SSD kernels"
+    if "sdpa" in names:
+        return "attention"
+    if any(vp in (s if isinstance(s, (list, tuple)) else ())
+           for e in chain for s in (e.input_shapes or ())):
+        return "unembed/CE"
+    node = next((e for e in chain if e.name.startswith(LMT_EVAL)), None)
+    if node is not None:
+        if (node.sequence_nr, node.fwd_thread) in attn_nodes:
+            return "attention"
+        if node.name[len(LMT_EVAL):] in ("SelectBackward0",
+                                         "torch::autograd::AccumulateGrad"):
+            return "layer-slice grads"
+    if any(n in LMT_GEMM_OPS for n in names) or any(
+            w in kernel.name.lower() for w in ("gemm", "nvjet", "xmma",
+                                               "cutlass")):
+        return "GEMMs"
+    return "elementwise"
+
+
+def lmtrain_profile(torch, fn, vp):
+    """One LM train step under torch.profiler: device ms by part
+    (``_lm_part``), wall by CUDA events, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    events = prof.events()
+    attn_nodes = {(e.sequence_nr, e.thread) for e in events
+                  if e.sequence_nr >= 0 and e.name.startswith("aten::")
+                  and "sdpa" in [a.name for a in _ancestors(e)]}
+    parts = dict.fromkeys(LMT_PARTS, 0.0)
+    attributed = device = 0.0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            for k in e.kernels:
+                parts[_lm_part(_ancestors(e), k, vp, attn_nodes)] += \
+                    k.duration / 1e3
+                attributed += k.duration / 1e3
+        elif e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            device += (e.time_range.end - e.time_range.start) / 1e3
+    parts["unattributed"] = device - attributed
+    return dict(wall_ms=wall, busy_ms=device,
+                idle_share=max(0.0, 1 - device / wall), parts=parts)
+
+
+def _lm_batches(torch, cfg, B, S, n, seed=0):
+    """n synthetic LM batches (the launcher's ``train_batches``) on the
+    card, with a VLM's frontend or an enc-dec's frames drawn N(0, 1) in
+    the model's type."""
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    from repro_torch.models.layers import DTYPES
+    gen = UserBehaviorStore(WorkloadConfig(vocab=cfg.vocab)).train_batches(
+        B, S, seed=seed)
+    stub = {"vlm": "frontend", "encdec": "frames"}.get(cfg.family)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        b = {k: torch.as_tensor(v, device="cuda") for k, v in next(gen).items()}
+        if stub:
+            b[stub] = torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                                  generator=g, device="cuda").to(
+                                      DTYPES[cfg.dtype])
+        out.append(b)
+    return out
+
+
+def _train_steps(torch, model, adamw, batches, warm):
+    """``make_train_step`` over ``batches`` (the first ``warm`` untimed),
+    counters zeroed after the warm-up and read after the last; returns
+    (metrics of every step, ms of each timed step, launches by kernel,
+    peak bytes of the timed steps, the step function, its state).
+    Every parameter must end with a gradient that is finite."""
+    from repro_torch.core.graphs import COUNTERS, read_counters, write_counters
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training import optimizer as opt
+    step = make_train_step(model, adamw)
+    state = opt.init_state(step.params)
+    metrics = [step(state, b) for b in batches[:warm]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    write_counters(dict.fromkeys(COUNTERS, 0))
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in batches[warm:]]
+    for (a, b), batch in zip(events, batches[warm:]):
+        a.record()
+        metrics.append(step(state, batch))
+        b.record()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), (
+            f"{name}: gradient {'missing' if p.grad is None else 'non-finite'}")
+    return (metrics, [a.elapsed_time(b) for a, b in events], counts, peak,
+            step, state)
+
+
+def _losses(tag, metrics):
+    losses = [m["loss"].item() for m in metrics]
+    assert all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}"
+    return losses
+
+
+def lmtrain_zamba2(torch, results):
+    """The main path: ``zamba2_1p2b`` at full width and depth (38 layers,
+    d 2048, bf16), B 2 x 4096, the launcher's schedule on its synthetic
+    batches (AdamW with the global clip off: LMT_ADAMW): 2 warm-up and
+    10 timed steps, the counters zeroed between (each SSD kernel: a
+    forward and a recompute launch a Mamba2 layer and step), the loss on
+    the first batch before the first step and after the last, then one
+    profiled step."""
+    import gc
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training import optimizer as opt
+
+    cfg = get_config("zamba2_1p2b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n = LMT_WARM + LMT_STEPS
+    adamw = opt.AdamWConfig(warmup_steps=20, total_steps=n, **LMT_ADAMW)
+    batches = _lm_batches(torch, cfg, LMT_B, LMT_S, n + 1)
+    # the loss on the first batch before the first step and after the
+    # last: a new batch a step adds its own spread to the per-step losses
+    # (~0.02 nats), more than 12 warm-up steps move them
+    with torch.no_grad():
+        probe = [model.loss(batches[0])[0].item()]
+    t1 = time.perf_counter()
+    metrics, ms, counts, peak, step, state = _train_steps(
+        torch, model, adamw, batches[:n], LMT_WARM)
+    run_s = time.perf_counter() - t1
+    losses = _losses("zamba2_1p2b", metrics)
+    launches = {k: counts.pop(k) for k in ("ssd_chunk_intra", "ssd_chunk_state")}
+    assert not any(counts.values()), f"zamba2 train launched {counts}"
+    want = 2 * cfg.n_layers * LMT_STEPS
+    assert launches == dict.fromkeys(launches, want), (
+        f"SSD launches {launches} in {LMT_STEPS} steps, expected {want} each "
+        f"(2 a Mamba2 layer and step: the forward and its recompute)")
+    for k, v in launches.items():
+        results[k]["launches"] += v
+    assert peak < LMT_PEAK_GIB * 2**30, f"peak {peak / 2**30:.2f} GiB"
+    with torch.no_grad():
+        probe.append(model.loss(batches[0])[0].item())
+    assert all(math.isfinite(x) for x in probe) and probe[1] < probe[0], (
+        f"zamba2_1p2b: the loss on the first batch did not fall: {probe}")
+    assert statistics.mean(losses[-3:]) < statistics.mean(losses[:3]), (
+        f"zamba2_1p2b: the loss did not fall: {losses}")
+    # what the launcher's clip at 1.0 would do to the last step's gradient
+    sq = {n: p.grad.float().square().sum().item()
+          for n, p in model.named_parameters()}
+    gnorm = math.sqrt(sum(sq.values()))
+    frozen = ((model.unembed.grad.float().abs() / max(gnorm, 1.0)) < adamw.eps
+              ).float().mean().item()
+    top = sorted(sq, key=sq.get, reverse=True)[:3]
+    clip_note = dict(grad_norm=gnorm, top_share={k: sq[k] / gnorm ** 2
+                                                 for k in top},
+                     unembed_frozen_at_clip_1=frozen)
+    med = statistics.median(ms)
+    tok_s = LMT_STEPS * LMT_B * LMT_S * 1e3 / sum(ms)
+    log(f"lmtrain zamba2_1p2b ({n_params / 1e9:.3f} B parameters, "
+        f"{cfg.n_layers} layers, {cfg.dtype}; built and drawn in "
+        f"{build_s:.1f} s): {LMT_B} x {LMT_S}, {LMT_WARM} warm-up + "
+        f"{LMT_STEPS} timed steps in {run_s:.1f} s; ms/step {[round(x, 2) for x in ms]}"
+        f", median {med:.2f}; {tok_s:.0f} tokens/s over the timed steps; "
+        f"peak {peak / 2**30:.2f} GiB (limit {LMT_PEAK_GIB}); SSD launches "
+        f"{launches} ({want // LMT_STEPS} a step each: {cfg.n_layers} forward "
+        f"+ {cfg.n_layers} recompute); every gradient present and finite")
+    log(f"lmtrain zamba2_1p2b losses {[round(x, 4) for x in losses]} "
+        f"(first {losses[0]:.4f} -> last {losses[-1]:.4f}; on the first "
+        f"batch {probe[0]:.4f} before the first step -> {probe[1]:.4f} after "
+        f"the last); at a clip of 1.0 the last gradient (norm {gnorm:.4g}, "
+        + ", ".join(f"{k} {v:.3f}" for k, v in clip_note["top_share"].items())
+        + f" of its square) would leave {frozen:.3f} of the unembed's updates "
+        f"below eps; grad norms "
+        f"{[round(m['grad_norm'].item(), 3) for m in metrics]}")
+    prof = lmtrain_profile(torch, lambda: step(state, batches[n]),
+                           cfg.vocab_padded)
+    log(f"lmtrain zamba2_1p2b profiled step: wall {prof['wall_ms']:.2f} ms, "
+        f"device busy {prof['busy_ms']:.2f} ms, idle share "
+        f"{prof['idle_share']:.3f} (under the profiler); "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["parts"].items()))
+    results.setdefault("_lmtrain", {})["zamba2_1p2b"] = dict(
+        params=n_params, layers=cfg.n_layers, batch=LMT_B, seq=LMT_S,
+        warm=LMT_WARM, steps=LMT_STEPS, ms_per_step=ms, median_ms=med,
+        tokens_per_s=tok_s, peak_bytes=peak, losses=losses,
+        first_batch_loss=probe, clip_note=clip_note, launches=launches,
+        profile=prof,
+        build_s=build_s, run_s=run_s)
+    del model, step, state, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lmtrain_card_vs_cpu(torch, results):
+    """The hybrid at zamba2's widths, 2 layers (one section), float32, B
+    1 x 256 (two chunks): the loss and every gradient on the card
+    against the CPU's, at the reference init (LMT_LOSS_REL,
+    LMT_GRAD_REL_INIT of each leaf's largest |g|) and with the shared
+    attention's wq / wk at fan-in d (LMT_LOSS_REL, LMT_GRAD_REL); then,
+    on the latter weights, with a fault planted on the card: the intra
+    wrapper routed to the bare launch (no Function, so no gradient
+    through it), which must read above LMT_GRAD_REL.  Every variant is
+    read before any is judged."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import UserBehaviorStore, WorkloadConfig
+    from repro_torch.kernels import ssd_chunk as sk
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config("zamba2_1p2b"), n_layers=LMT_CPU_L,
+                              attn_every=LMT_CPU_L, dtype="float32")
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    with torch.no_grad():              # the LoRA path live (lora_b is 0 at init)
+        cpu.shared_attn.lora_b.normal_(
+            std=0.02, generator=torch.Generator().manual_seed(6))
+    batch = next(UserBehaviorStore(WorkloadConfig(vocab=cfg.vocab))
+                 .train_batches(LMT_CPU_B, LMT_CPU_S, seed=1))
+
+    def grads(model):
+        model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(batch)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+    t0 = time.perf_counter()
+    readings = {}
+    planted = "bare intra launch (planted)"
+    for variant, limit in (("reference init", LMT_GRAD_REL_INIT),
+                           ("wq/wk at fan-in d", LMT_GRAD_REL),
+                           (planted, LMT_GRAD_REL)):
+        if variant == "wq/wk at fan-in d":
+            with torch.no_grad():
+                for w in (cpu.shared_attn.attn.wq, cpu.shared_attn.attn.wk):
+                    w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+        if variant != planted:
+            lc, gc_ = grads(cpu)
+        gpu = build_model(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        routed = sk.ssd_chunk_intra
+        if variant == planted:
+            sk.ssd_chunk_intra = lambda *a: sk._launch_intra(*a)
+        try:
+            lg, gg = grads(gpu)
+        finally:
+            sk.ssd_chunk_intra = routed
+        worst = (0.0, "")
+        for name, want in gc_.items():
+            got = gg[name]
+            assert got is not None and bool(torch.isfinite(got).all()), name
+            err = (got.cpu() - want).abs().max().item()
+            top = want.abs().max().item()
+            worst = max(worst, (err / top if top else err, name))
+        readings[variant] = dict(loss=lg, cpu_loss=lc,
+                                 loss_rel=abs(lg - lc) / abs(lc),
+                                 grad_rel=worst[0], worst_leaf=worst[1],
+                                 limit=limit)
+        log(f"lmtrain card vs CPU ({variant}; hybrid at zamba2 widths, "
+            f"{cfg.n_layers} layers, float32, {LMT_CPU_B} x {LMT_CPU_S}): "
+            f"loss {lg:.6f} vs {lc:.6f} ({readings[variant]['loss_rel']:.2e} "
+            f"relative), worst gradient {worst[0]:.2e} of its largest |g| "
+            f"({worst[1]}) (limits {LMT_LOSS_REL}, {limit})")
+        del gpu, gg
+    for variant, r in readings.items():
+        assert r["loss_rel"] <= LMT_LOSS_REL, (variant, r)
+        if variant == planted:
+            assert r["grad_rel"] > r["limit"], (
+                f"the planted bare launch reads {r['grad_rel']:.2e}, within "
+                f"the limit {r['limit']}")
+        else:
+            assert r["grad_rel"] <= r["limit"], (variant, r)
+    results.setdefault("_lmtrain", {})["card_vs_cpu"] = dict(
+        readings, seconds=time.perf_counter() - t0)
+    del cpu, gc_
+    torch.cuda.empty_cache()
+
+
+def lmtrain_run(torch, results, arch, layers, B, S, steps):
+    """One other family at full width cut to ``layers``: ``steps`` AdamW
+    steps (LMT_ADAMW, warm-up cut to one step) on one synthetic batch, so
+    the loss on it must fall from the first step to the last (a step on
+    a new batch would add that batch's own spread); every loss finite,
+    every gradient present and finite, launch counts (an ``ssm_mamba2``
+    stack: 2 of each SSD kernel a layer and step; every other family
+    none)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training import optimizer as opt
+
+    if arch == "ssm_mamba2":
+        cfg = dataclasses.replace(get_config("zamba2_1p2b"),
+                                  family="ssm_mamba2", n_layers=layers)
+    else:
+        full = get_config(arch)
+        cut = dict(n_layers=layers)
+        if full.family == "encdec":
+            cut["n_enc_layers"] = layers
+        cfg = dataclasses.replace(full, **cut)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    adamw = opt.AdamWConfig(warmup_steps=1, total_steps=steps, **LMT_ADAMW)
+    batches = _lm_batches(torch, cfg, B, S, 1) * steps
+    metrics, ms, counts, peak, _, _ = _train_steps(torch, model, adamw,
+                                                   batches, 0)
+    losses = _losses(arch, metrics)
+    assert losses[-1] < losses[0], f"{arch}: the loss did not fall: {losses}"
+    want = dict.fromkeys(counts, 0)
+    if cfg.family == "ssm_mamba2":
+        want.update(ssd_chunk_intra=2 * layers * steps,
+                    ssd_chunk_state=2 * layers * steps)
+    assert counts == want, f"{arch}: launches {counts}, expected {want}"
+    for k in ("ssd_chunk_intra", "ssd_chunk_state"):
+        results[k]["launches"] += counts[k]
+    F = cfg.n_frontend_tokens if cfg.family in ("vlm", "encdec") else 0
+    tok_s = steps * B * S * 1e3 / sum(ms)
+    aux = [m["aux"].item() for m in metrics] if "aux" in metrics[0] else None
+    full_layers = get_config("zamba2_1p2b" if arch == "ssm_mamba2"
+                             else arch).n_layers
+    log(f"lmtrain {arch}: {cfg.n_layers} of {full_layers} layers"
+        f"{' (+ as many encoder layers)' if cfg.family == 'encdec' else ''}, "
+        f"{n_params / 1e9:.3f} B parameters ({cfg.dtype}, drawn in "
+        f"{build_s:.1f} s), B {B} x {S}"
+        f"{f' + {F} frames' if cfg.family == 'encdec' else f' + {F} frontend' if F else ''}: "
+        f"ms/step {[round(x, 1) for x in ms]}, {tok_s:.0f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB, losses {[round(x, 4) for x in losses]}"
+        f"{f', aux {[round(a, 5) for a in aux]}' if aux else ''}; launches "
+        f"{ {k: v for k, v in counts.items() if v} or 'none'}; every "
+        f"gradient present and finite")
+    results.setdefault("_lmtrain", {})[arch] = dict(
+        layers=cfg.n_layers, full_layers=full_layers, params=n_params,
+        batch=B, seq=S, frontend=F, steps=steps, ms_per_step=ms,
+        tokens_per_s=tok_s, peak_bytes=peak, losses=losses, aux=aux,
+        launches=counts, build_s=build_s)
+    del model, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lmtrain_phase(torch, results):
+    """LM training for every family: the SSD Functions' gradients against
+    float64, zamba2_1p2b at full width and depth (the main path), card
+    vs CPU with a planted fault, then each other family at full width,
+    cut in depth only."""
+    t0 = time.perf_counter()
+    ssd_grad_checks(torch, results)
+    lmtrain_zamba2(torch, results)
+    lmtrain_card_vs_cpu(torch, results)
+    for run in LMT_RUNS:
+        lmtrain_run(torch, results, *run)
+    wall = time.perf_counter() - t0
+    results["_lmtrain"]["wall_s"] = wall
+    log(f"lmtrain phase: {wall:.1f} s of wall")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,relay,graphs,costmodel,hybrid,"
-                            "train,lm,ssm,encdec")
+                            "train,lm,ssm,encdec,lmtrain")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2484,6 +3027,8 @@ def main(argv=None):
         ssm_phase(torch, results)
     if "encdec" in phases:
         encdec_phase(torch, results)
+    if "lmtrain" in phases:
+        lmtrain_phase(torch, results)
 
     kernels = []
     for name, path in REPLACES.items():

@@ -12,6 +12,10 @@ The first four launch ``csrc/hstu_rank_attn.cu``, ``decode_attn``
 launches ``csrc/decode_attn.cu`` and the SSD stages ``csrc/ssd_chunk.cu``
 on CUDA tensors; on CPU tensors each runs its plain-PyTorch twin
 (``ref.py``, ``ssd_chunk.py``).  ``ops.py`` adapts the model layout.
+Three carry a gradient on the card, each an ``autograd.Function`` whose
+forward is the kernel and whose backward is plain torch ops:
+``hstu_attn`` (``HSTUAttnFunction``) and the two SSD stages
+(``SSDChunkIntraFunction``, ``SSDChunkStateFunction``).
 """
 from .ops import (cache_decode_attention, hstu_attention,
                   paged_rank_attention, rank_attention,

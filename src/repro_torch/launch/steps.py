@@ -26,12 +26,14 @@ from repro_torch.tree import leaves, tree_map
 
 def make_train_step(model, adamw: opt.AdamWConfig = None):
     """``train_step(state, batch) -> metrics``: ``model.loss`` on
-    {"tokens", "labels"}, its gradient by autograd, and one
+    {"tokens", "labels"} (plus a VLM's "frontend" or an enc-dec's
+    "frames", (B, F, d)), its gradient by autograd, and one
     ``opt.apply_updates`` that changes the model's parameters and
     ``state`` (``opt.init_state(param_tree(model))``) in place.  Metrics:
-    ``loss``, ``ce``, ``grad_norm`` (device scalars) and ``lr``.  Turns
-    the model's gradients on; ``train_step.params`` is its parameter
-    tree."""
+    ``loss``, ``ce``, a Transformer's ``aux`` (the MoE load-balance loss,
+    zero for a dense model), ``grad_norm`` (device scalars) and ``lr``.
+    Every family trains through it.  Turns the model's gradients on;
+    ``train_step.params`` is its parameter tree."""
     adamw = adamw or opt.AdamWConfig()
     model.requires_grad_(True)
     params = param_tree(model)

@@ -3,12 +3,14 @@
 
 Runs the synthetic next-item data pipeline -> train step -> checkpoint
 loop on ``--device`` (``cuda`` unless told otherwise; ``--device cpu``
-runs the plain PyTorch path).  Every ``--log-every`` steps, and at the
-last, it prints the training ledger line: loss, grad norm, lr and
-seconds per step.  Weights are random, drawn from a seeded
-``torch.Generator``; the schedule warms up over 20 steps and decays to
-``--steps``.  HSTU trains; the hybrid's loss is not ported (ROADMAP
-Queue 1, item 11).
+runs the plain PyTorch path) for any ``--arch`` of the registry: HSTU,
+the Transformer family, the hybrid, the SSM stacks and the enc-dec.  A
+VLM's batch gets zero ``frontend`` embeddings and an enc-dec's zero
+``frames`` (B, F, d) in the model's type, as the reference's launcher
+gives them.  Every ``--log-every`` steps, and at the last, it prints the
+training ledger line: loss, grad norm, lr and seconds per step.  Weights
+are random, drawn from a seeded ``torch.Generator``; the schedule warms
+up over 20 steps and decays to ``--steps``.
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if not cfg.hstu:
-        raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported to repro_torch "
-            f"yet: only HSTU has a loss (ROADMAP Queue 1, item 11)")
     device = resolve_device(args.device)
     model = build_model(cfg, device=device).init(
         torch.Generator().manual_seed(0))
@@ -59,9 +57,15 @@ def main(argv=None):
     store = UserBehaviorStore(WorkloadConfig(vocab=cfg.vocab))
     batches = store.train_batches(args.batch, args.seq)
 
+    stub = {"vlm": "frontend", "encdec": "frames"}.get(cfg.family)
     t0 = time.time()
     for i in range(args.steps):
-        m = step_fn(state, next(batches))
+        batch = next(batches)
+        if stub:
+            batch[stub] = torch.zeros(
+                (args.batch, cfg.n_frontend_tokens, cfg.d_model),
+                dtype=model.tok.dtype, device=device)
+        m = step_fn(state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             print(f"step {i:5d} loss={float(m['loss']):.4f} "
                   f"grad_norm={float(m['grad_norm']):.3f} "

@@ -22,7 +22,7 @@ from . import ssm as ssm_lib
 from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs,
                      cross_entropy, ffn, ffn_specs, rms_norm)
-from .moe import moe_ffn, moe_specs, shared_expert_ffn
+from .moe import moe_aux, moe_ffn, moe_specs, shared_expert_ffn
 
 
 def stack_specs(specs, n: int):
@@ -177,7 +177,9 @@ class TransformerModel(nn.Module):
       (n_layers, B, S, KV, 1) float32;
     * ``prefill({"tokens": (B, S)[, "frontend": (B, F, d)]})`` and
       ``decode_step(cache, {"token": (B, 1), "pos": (B,)})`` return
-      (logits (B, 1, vocab_padded), cache).
+      (logits (B, 1, vocab_padded), cache);
+    * ``loss({"tokens", "labels"[, "frontend"]})`` returns (CE + aux,
+      {"ce", "aux"}).
 
     ``decode_step`` writes the new K/V into the caller's cache IN PLACE
     and returns the same tensors (the reference returns a rewritten
@@ -229,33 +231,59 @@ class TransformerModel(nn.Module):
     # --- blocks -------------------------------------------------------------
     def _block(self, p, x, positions, cache=None, cache_index=None,
                window=0):
+        """One layer: (x, its K/V, the MoE's routing (probs, eidx), or
+        None for a dense FFN)."""
         cfg = self.cfg
         h, kvc = attention(p["attn"], rms_norm(x, p["ln1"]), cfg,
                            positions=positions, cache=cache,
                            cache_index=cache_index, window=window)
         x = x + h
         xn = rms_norm(x, p["ln2"])
+        routing = None
         if self.is_moe:
-            # the routing feeds ``moe_aux`` on the training path
-            # (ROADMAP Queue 1, item 11)
-            y, _ = moe_ffn(p["moe"], xn, cfg)
+            y, routing = moe_ffn(p["moe"], xn, cfg)
             if cfg.n_shared_experts:
                 y = y + shared_expert_ffn(p["moe"], xn, cfg)
         else:
             y = ffn(p["ffn"], xn, cfg)
-        return x + y, kvc
+        return x + y, kvc, routing
 
-    def _run(self, x, positions, cache=None, cache_index=None, window=0):
-        """The stacked layers in turn, each a view of the stack.  With a
-        ``cache`` (decode) its layer slices are updated in place and the
-        same tuple returned; without one (prefill) every layer's K/V is
-        copied into one stacked (n_layers, B, S, KV, D) pair."""
+    def _train_block(self, l, x, positions, window):
+        """Layer l on the loss path: (x, its MoE load-balance loss, a
+        float32 zero for a dense FFN)."""
+        x, _, routing = self._block(self.layers.tree(l), x, positions,
+                                    window=window)
+        aux = moe_aux(*routing, self.cfg) if routing is not None else \
+            x.new_zeros((), dtype=torch.float32)
+        return x, aux
+
+    def _run(self, x, positions, cache=None, cache_index=None, window=0,
+             remat=False):
+        """The stacked layers in turn, each a view of the stack; returns
+        (x, aux, kv).  With a ``cache`` (decode) its layer slices are
+        updated in place and the same tuple returned; without one
+        (prefill) every layer's K/V is copied into one stacked
+        (n_layers, B, S, KV, D) pair; aux is None (serve never reads
+        the load-balance loss).  ``remat`` (the loss path, no cache)
+        runs each layer under ``torch.utils.checkpoint`` — only its
+        input is kept and the backward runs it again, the reference's
+        ``jax.checkpoint(..., nothing_saveable)`` around the scan body —
+        keeps no K/V (kv None) and sums the MoE's ``moe_aux`` over the
+        layers into aux (a float32 zero for a dense model)."""
         L = self.cfg.n_layers
+        if remat:
+            aux = x.new_zeros((), dtype=torch.float32)
+            for l in range(L):
+                x, a = checkpoint(self._train_block, l, x, positions, window,
+                                  use_reentrant=False)
+                aux = aux + a
+            return x, aux, None
         kv = cache
         for l in range(L):
             cl = None if cache is None else tuple(t[l] for t in cache)
-            x, kvc = self._block(self.layers.tree(l), x, positions, cache=cl,
-                                 cache_index=cache_index, window=window)
+            x, kvc, _ = self._block(self.layers.tree(l), x, positions,
+                                    cache=cl, cache_index=cache_index,
+                                    window=window)
             if cache is None:
                 if kv is None:
                     kv = tuple(torch.empty((L,) + tuple(t.shape),
@@ -263,13 +291,37 @@ class TransformerModel(nn.Module):
                                for t in kvc)
                 for dst, src in zip(kv, kvc):
                     dst[l] = src
-        return x, kv
+        return x, None, kv
+
+    def _prepend_frontend(self, x, batch):
+        """A VLM's ``frontend`` (B, F, d), cast to the projector's type
+        and projected into d_model, in front of the token embeddings."""
+        fe = torch.as_tensor(batch["frontend"], device=self.device)
+        fe = torch.einsum("bfd,de->bfe", fe.to(self.projector.dtype),
+                          self.projector)
+        return torch.cat([fe.to(x.dtype), x], dim=1)
 
     # --- public protocol ----------------------------------------------------
     def loss(self, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: TransformerModel.loss is not ported to "
-            f"repro_torch yet (ROADMAP Queue 1, item 11)")
+        """{"tokens": (B, S), "labels": (B, S)} (a VLM also takes
+        "frontend" (B, F, d)) -> (CE + aux, {"ce", "aux"}): the frontend
+        projected in front, positions over F + S, the sliding window,
+        every layer rematerialised, the frontend's positions dropped,
+        the chunked CE (``ce_loss``) plus the MoE's load-balance loss
+        summed over the layers (zero for a dense model)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        if cfg.family == "vlm":
+            x = self._prepend_frontend(x, batch)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        x, aux, _ = self._run(x, positions, window=cfg.sliding_window,
+                              remat=True)
+        if cfg.family == "vlm":
+            x = x[:, cfg.n_frontend_tokens:]
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, batch):
@@ -280,12 +332,9 @@ class TransformerModel(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         x = _embed(self.tok, tokens)
         if cfg.family == "vlm" and "frontend" in batch:
-            fe = torch.as_tensor(batch["frontend"], device=self.device)
-            fe = torch.einsum("bfd,de->bfe", fe.to(self.projector.dtype),
-                              self.projector)
-            x = torch.cat([fe.to(x.dtype), x], dim=1)
+            x = self._prepend_frontend(x, batch)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        x, kv = self._run(x, positions, window=cfg.sliding_window)
+        x, _, kv = self._run(x, positions, window=cfg.sliding_window)
         return _logits(self.final_norm, self.unembed, x[:, -1:]), kv
 
     @torch.no_grad()
@@ -295,8 +344,8 @@ class TransformerModel(nn.Module):
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
         x = _embed(self.tok, token)
-        x, cache = self._run(x, pos[:, None], cache=tuple(cache),
-                             cache_index=pos)
+        x, _, cache = self._run(x, pos[:, None], cache=tuple(cache),
+                                cache_index=pos)
         return _logits(self.final_norm, self.unembed, x), cache
 
     def cache_specs(self, batch: int, seq_len: int):
@@ -352,7 +401,8 @@ class SSMModel(nn.Module):
       P) float32, conv (L, B, K-1, C))``;
     * ``prefill({"tokens": (B, S)})`` and
       ``decode_step(state, {"token": (B, 1), "pos": (B,)})`` return
-      (logits (B, 1, vocab_padded), new state).
+      (logits (B, 1, vocab_padded), new state);
+    * ``loss({"tokens", "labels"})`` returns (CE, {"ce"}).
 
     ``decode_step`` returns new state tensors and leaves the caller's
     as they were (``make_serve_step``'s graph copies them back).  The
@@ -400,26 +450,47 @@ class SSMModel(nn.Module):
             return fwd(p, x, cfg, state)
         return ssm_lib.rwkv6_forward(p, x, cfg, state)
 
-    def _run(self, x, state, decode=False):
+    def _block(self, pl, x, state, decode):
+        h, s2 = self._mix(pl["mixer"], rms_norm(x, pl["ln1"]), state, decode)
+        x = x + h
+        return x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), self.cfg), s2
+
+    def _train_block(self, l, x, state):
+        return self._block(self.layers.tree(l), x, state, False)[0]
+
+    def _run(self, x, state, decode=False, remat=False):
         """The stacked layers in turn, layer l with (state[0][l],
-        state[1][l]); returns x and the new state, stacked."""
-        cfg = self.cfg
+        state[1][l]); returns x and the new state, stacked.  ``remat``
+        (the loss path) runs each layer under ``torch.utils.checkpoint``
+        (the reference's ``jax.checkpoint`` around the scan body) and
+        returns x and no state (None)."""
         new = ([], [])
-        for l in range(cfg.n_layers):
-            pl = self.layers.tree(l)
-            h, s2 = self._mix(pl["mixer"], rms_norm(x, pl["ln1"]),
-                              (state[0][l], state[1][l]), decode)
-            x = x + h
-            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+        for l in range(self.cfg.n_layers):
+            sl = (state[0][l], state[1][l])
+            if remat:
+                x = checkpoint(self._train_block, l, x, sl,
+                               use_reentrant=False)
+                continue
+            x, s2 = self._block(self.layers.tree(l), x, sl, decode)
             for acc, t in zip(new, s2):
                 acc.append(t)
+        if remat:
+            return x, None
         return x, tuple(torch.stack(t) for t in new)
 
     # --- public protocol ----------------------------------------------------
     def loss(self, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: SSMModel.loss is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1, item 11)")
+        """{"tokens": (B, S), "labels": (B, S)} -> (CE, {"ce"}): every
+        layer rematerialised from the zero state, the chunked CE.  A
+        Mamba2 layer launches ``ssd_chunk_intra`` and ``ssd_chunk_state``
+        in its forward and again in its recompute on a CUDA model (their
+        backward launches none); RWKV6's WKV loop is plain PyTorch."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        x, _ = self._run(x, self.init_cache(x.shape[0], 0), remat=True)
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
+        return ce, {"ce": ce}
 
     @torch.no_grad()
     def prefill(self, batch):
@@ -476,7 +547,8 @@ class HybridModel(nn.Module):
       (n_tail, ...))}, "a": (k, v)}`` with k, v (n_sec, B, S, KV, D);
     * ``prefill({"tokens": (B, S)})`` and
       ``decode_step(cache, {"token": (B, 1), "pos": (B,)})`` return
-      (logits (B, 1, vocab_padded), cache).
+      (logits (B, 1, vocab_padded), cache);
+    * ``loss({"tokens", "labels"})`` returns (CE, {"ce"}).
 
     ``decode_step`` writes the new K/V into ``cache["a"]`` IN PLACE and
     returns the same tensors (the reference returns a rewritten copy)."""
@@ -523,20 +595,35 @@ class HybridModel(nn.Module):
         return draw_params(self, generator)
 
     # --- blocks -------------------------------------------------------------
-    def _mamba_stack(self, stacked: ParamTree, idx, n, x, states, decode):
-        """n Mamba2 blocks of ``stacked`` (layer l at ``(*idx, l)``), each
-        with its state (ssm (n, ...), conv (n, ...))."""
+    def _mamba_block(self, stacked: ParamTree, idx, x, state, decode):
+        """The Mamba2 block of ``stacked`` at ``idx``: (x, its state)."""
         cfg = self.cfg
+        pl = stacked.tree(*idx)
         fwd = ssm_lib.mamba2_decode if decode else ssm_lib.mamba2_forward
+        h, s2 = fwd(pl["mixer"], rms_norm(x, pl["ln1"]), cfg, state)
+        x = x + h
+        return x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg), s2
+
+    def _mamba_stack(self, stacked: ParamTree, idx, n, x, states, decode,
+                     remat=False):
+        """n Mamba2 blocks of ``stacked`` (layer l at ``(*idx, l)``), each
+        with its state (ssm (n, ...), conv (n, ...)).  ``remat`` (the
+        loss path) runs each block under ``torch.utils.checkpoint`` and
+        returns x and no state (None)."""
         ssm, conv = [], []
         for l in range(n):
-            pl = stacked.tree(*idx, l)
-            h, (s, c) = fwd(pl["mixer"], rms_norm(x, pl["ln1"]), cfg,
-                            (states[0][l], states[1][l]))
-            x = x + h
-            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+            st = (states[0][l], states[1][l])
+            if remat:
+                x = checkpoint(
+                    lambda xc, st, l=l: self._mamba_block(
+                        stacked, (*idx, l), xc, st, False)[0],
+                    x, st, use_reentrant=False)
+                continue
+            x, (s, c) = self._mamba_block(stacked, (*idx, l), x, st, decode)
             ssm.append(s)
             conv.append(c)
+        if remat:
+            return x, None
         return x, (torch.stack(ssm), torch.stack(conv))
 
     def _shared_attn(self, x, sec, positions, cache=None, cache_index=None):
@@ -551,13 +638,25 @@ class HybridModel(nn.Module):
         wo = p.attn.wo.reshape(cfg.n_heads * cfg.head_dim, d)
         return x + h + lora @ wo, kv
 
-    def _run(self, x, mstates, astates, positions, decode, cache_index=None):
+    def _run(self, x, mstates, astates, positions, decode, cache_index=None,
+             remat=False):
+        """Sections of ``attn_every`` Mamba2 blocks, each followed by the
+        shared attention, then the tail; returns (x, Mamba2 states, the
+        attention's K/V).  ``remat`` (the loss path) checkpoints every
+        Mamba2 block and every section's shared attention — without it
+        each shared call keeps its (B, H, S, S) float32 scores for the
+        backward, as the reference notes — and returns (x, None,
+        None)."""
         every = self.cfg.attn_every
         new_m, new_a = [], []
         for sec in range(self.n_sections):
             st = tuple(t[sec] for t in mstates["sections"])
             x, s2 = self._mamba_stack(self.sections, (sec,), every, x, st,
-                                      decode)
+                                      decode, remat)
+            if remat:
+                x = checkpoint(lambda xc, sec=sec: self._shared_attn(
+                    xc, sec, positions)[0], x, use_reentrant=False)
+                continue
             new_m.append(s2)
             ac = tuple(t[sec] for t in astates) if astates is not None \
                 else None
@@ -566,9 +665,11 @@ class HybridModel(nn.Module):
             new_a.append(kv)
         if self.n_tail:
             x, s_tail = self._mamba_stack(self.tail, (), self.n_tail, x,
-                                          mstates["tail"], decode)
+                                          mstates["tail"], decode, remat)
         else:
             s_tail = mstates["tail"]
+        if remat:
+            return x, None, None
         mst = {"sections": tuple(torch.stack(t) for t in zip(*new_m)),
                "tail": s_tail}
         # decode wrote the ring caches in place: hand back the same tensors
@@ -577,6 +678,23 @@ class HybridModel(nn.Module):
         return x, mst, ast
 
     # --- public protocol ----------------------------------------------------
+    def loss(self, batch):
+        """{"tokens": (B, S), "labels": (B, S)} -> (CE, {"ce"}): from the
+        zero state, every Mamba2 block and every section's shared
+        attention rematerialised, the chunked CE.  On a CUDA model each
+        Mamba2 block launches ``ssd_chunk_intra`` and ``ssd_chunk_state``
+        in its forward and again in its recompute (their backward
+        launches none)."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        zero = self.init_cache(x.shape[0], 0)["m"]
+        x, _, _ = self._run(x, zero, None, positions, decode=False,
+                            remat=True)
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
+        return ce, {"ce": ce}
+
     @torch.no_grad()
     def prefill(self, batch):
         """{"tokens": (B, S)} -> (last-position logits, cache)."""

@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
 from .arch import (_embed, _logits, _no_tf32, add_params, base_batch_specs,
-                   draw_params, embed_specs, stack_specs, zeros_from_specs)
+                   ce_loss, draw_params, embed_specs, stack_specs,
+                   zeros_from_specs)
 from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
                      ffn_specs, rms_norm)
@@ -41,7 +43,8 @@ class EncDecModel(nn.Module):
       stream);
     * ``prefill({"frames": (B, F, d), "tokens": (B, S)})`` and
       ``decode_step(cache, {"token": (B, 1), "pos": (B,)})`` return
-      (logits (B, 1, vocab_padded), cache).
+      (logits (B, 1, vocab_padded), cache);
+    * ``loss({"frames", "tokens", "labels"})`` returns (CE, {"ce"}).
 
     ``decode_step`` writes the new K/V into the caller's self ring IN
     PLACE and reads the cross K/V as they are; it returns the same
@@ -92,65 +95,101 @@ class EncDecModel(nn.Module):
         return draw_params(self, generator)
 
     # --- encoder --------------------------------------------------------------
-    @torch.no_grad()
-    def encode(self, frames):
-        """frames (B, F, d) -> the normed encoder output (B, F, d):
-        bidirectional self-attention, RoPE over the F positions."""
+    def _enc_block(self, l, x, positions):
         cfg = self.cfg
+        pl = self.encoder.tree(l)
+        h, _ = attention(pl["attn"], rms_norm(x, pl["ln1"]), cfg,
+                         positions=positions, causal=False)
+        x = x + h
+        return x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+
+    def _encode(self, frames, remat=False):
+        """frames (B, F, d) -> the normed encoder output (B, F, d):
+        bidirectional self-attention, RoPE over the F positions.
+        ``remat`` runs each layer under ``torch.utils.checkpoint``."""
         x = torch.as_tensor(frames, device=self.device)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        for l in range(cfg.n_enc_layers):
-            pl = self.encoder.tree(l)
-            h, _ = attention(pl["attn"], rms_norm(x, pl["ln1"]), cfg,
-                             positions=positions, causal=False)
-            x = x + h
-            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+        for l in range(self.cfg.n_enc_layers):
+            x = checkpoint(self._enc_block, l, x, positions,
+                           use_reentrant=False) if remat \
+                else self._enc_block(l, x, positions)
         return rms_norm(x, self.enc_norm)
 
+    @torch.no_grad()
+    def encode(self, frames):
+        """``_encode`` without a gradient (the serve path)."""
+        return self._encode(frames)
+
     # --- decoder --------------------------------------------------------------
+    def _dec_block(self, pl, x, positions, enc=None, self_cache=None,
+                   cross_kv=None, cache_index=None):
+        """One decoder layer: (x, its self K/V, its cross K/V), the cross
+        K/V projected from ``enc`` when ``cross_kv`` is None."""
+        cfg = self.cfg
+        h, kvc = attention(pl["attn"], rms_norm(x, pl["ln1"]), cfg,
+                           positions=positions, cache=self_cache,
+                           cache_index=cache_index)
+        x = x + h
+        if cross_kv is None:              # the cross K/V from the encoder
+            ek = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wk"])
+            ev = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wv"])
+        else:
+            ek, ev = cross_kv
+        h, _ = attention(pl["xattn"], rms_norm(x, pl["lnx"]), cfg,
+                         positions=positions, kv_override=(ek, ev),
+                         causal=False)
+        x = x + h
+        x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+        return x, kvc, (ek, ev)
+
     def _dec_run(self, x, positions, enc=None, self_cache=None,
-                 cross_kv=None, cache_index=None):
+                 cross_kv=None, cache_index=None, remat=False):
         """The decoder layers in turn.  Prefill (``enc`` given): every
         layer's self K/V and its cross K/V (projected from ``enc``) are
         copied into stacked (n_layers, ...) pairs.  Decode: layer l
         writes its ring slice of ``self_cache`` in place and reads
-        ``cross_kv``'s slice; the same tuples come back."""
-        cfg = self.cfg
-        L = cfg.n_layers
+        ``cross_kv``'s slice; the same tuples come back.  ``remat`` (the
+        loss path, ``enc`` given) runs each layer under
+        ``torch.utils.checkpoint``, keeps no K/V and returns (x, None,
+        None)."""
+        L = self.cfg.n_layers
+        if remat:
+            for l in range(L):
+                x = checkpoint(lambda xc, e, l=l: self._dec_block(
+                    self.decoder.tree(l), xc, positions, enc=e)[0],
+                    x, enc, use_reentrant=False)
+            return x, None, None
         kv, xkv = self_cache, cross_kv
         for l in range(L):
-            pl = self.decoder.tree(l)
             sc = None if self_cache is None else tuple(t[l] for t in self_cache)
-            h, kvc = attention(pl["attn"], rms_norm(x, pl["ln1"]), cfg,
-                               positions=positions, cache=sc,
-                               cache_index=cache_index)
-            x = x + h
-            if cross_kv is None:          # the cross K/V from the encoder
-                ek = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wk"])
-                ev = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wv"])
-            else:
-                ek, ev = (t[l] for t in cross_kv)
-            h, _ = attention(pl["xattn"], rms_norm(x, pl["lnx"]), cfg,
-                             positions=positions, kv_override=(ek, ev),
-                             causal=False)
-            x = x + h
-            x = x + ffn(pl["ffn"], rms_norm(x, pl["ln2"]), cfg)
+            ckv = None if cross_kv is None else tuple(t[l] for t in cross_kv)
+            x, kvc, ekv = self._dec_block(self.decoder.tree(l), x, positions,
+                                          enc, sc, ckv, cache_index)
             if self_cache is None:
                 if kv is None:
                     kv = tuple(torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
                                            device=t.device) for t in kvc)
-                    xkv = tuple(torch.empty((L,) + tuple(ek.shape),
-                                            dtype=ek.dtype, device=ek.device)
-                                for _ in range(2))
-                for dst, src in zip(kv + xkv, kvc + (ek, ev)):
+                    xkv = tuple(torch.empty((L,) + tuple(t.shape),
+                                            dtype=t.dtype, device=t.device)
+                                for t in ekv)
+                for dst, src in zip(kv + xkv, kvc + ekv):
                     dst[l] = src
         return x, kv, xkv
 
     # --- public protocol ------------------------------------------------------
     def loss(self, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: EncDecModel.loss is not ported to repro_torch "
-            f"yet (ROADMAP Queue 1, item 11)")
+        """{"frames": (B, F, d) (cast to the model's type), "tokens":
+        (B, S), "labels": (B, S)} -> (CE, {"ce"}): the encoder and the
+        decoder each rematerialised layer by layer, the chunked CE."""
+        frames = torch.as_tensor(batch["frames"], device=self.device)
+        enc = self._encode(frames.to(self.tok.dtype), remat=True)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        x = _embed(self.tok, tokens)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        x, _, _ = self._dec_run(x, positions, enc=enc, remat=True)
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
+        return ce, {"ce": ce}
 
     @torch.no_grad()
     def prefill(self, batch):

@@ -145,16 +145,19 @@ def attention_specs(cfg, d_in=None) -> Dict[str, ParamSpec]:
 def _sdpa(q, k, v, mask, scale):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D).  GQA: q head h reads kv
     head ``h * KV // H``.  Logits and softmax in float32, the weights
-    cast to v's type before the PV product, as in the reference."""
-    H, KV = q.shape[2], k.shape[2]
-    if H != KV:
-        kmap = torch.arange(H, device=k.device) * KV // H
-        k, v = k[:, :, kmap], v[:, :, kmap]
-    logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
-    if mask is not None:
-        logits = torch.where(mask, logits, -1e30)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqs,bshd->bqhd", w, v)
+    cast to v's type before the PV product, as in the reference.  Runs
+    under the profiler range ``sdpa``, which a profile of a train step
+    follows into the backward (``chip_smoke.py``'s ``lmtrain``)."""
+    with torch.profiler.record_function("sdpa"):
+        H, KV = q.shape[2], k.shape[2]
+        if H != KV:
+            kmap = torch.arange(H, device=k.device) * KV // H
+            k, v = k[:, :, kmap], v[:, :, kmap]
+        logits = torch.einsum("bqhd,bshd->bhqs", q, k).float() * scale
+        if mask is not None:
+            logits = torch.where(mask, logits, -1e30)
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhqs,bshd->bqhd", w, v)
 
 
 def _causal_mask(q0: int, nq: int, nk: int, device, prefix_len=0, window=0):

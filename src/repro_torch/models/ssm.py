@@ -6,8 +6,10 @@ work is two masked contractions, and only the recurrence across chunks
 is sequential.  The two contractions are the kernels of
 ``repro_torch.kernels.ssd_chunk`` — ``ssd_chunk_intra`` (the intra-chunk
 term) and ``ssd_chunk_state`` (each chunk's state summary) — which
-launch CUDA on CUDA tensors and run their plain twins on the CPU.  The
-inter-chunk recurrence and ``y_inter`` stay plain PyTorch in float32.
+launch CUDA on CUDA tensors (through ``autograd.Function``s whose
+backward is plain torch, so the layer trains) and run their plain twins
+on the CPU.  The inter-chunk recurrence and ``y_inter`` stay plain
+PyTorch in float32.
 
 The recurrent state (``ssm`` (B, H, N, P) float32, ``conv`` (B, K-1, C))
 is the decode cache.

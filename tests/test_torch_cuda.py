@@ -25,7 +25,11 @@ for training, ``HSTUAttnFunction``'s gradients against float64 autograd
 (1e-5 of each gradient's largest |g|), a train step's ``hstu_attn``
 launches (two a layer under remat) and its weights against the CPU's, a
 refused launch failing the step, and HSTU ``decode_step`` replayed from
-a graph equal to the eager step; for the Transformer family,
+a graph equal to the eager step; the SSD Functions' gradients against
+float64 autograd at the kernels' tiling edges (Q 1..128, P 32 / 64 /
+128, N 16..128; 1e-5 of each input's largest |g|), their backward bit
+for bit on a repeat, and one hybrid train step with every gradient
+present and finite and two launches of each SSD kernel a Mamba2 layer; for the Transformer family,
 ``decode_attn`` at its GQA groups (G 1 to 12) and D 128 from one key to
 32768, the ``head_pad`` launch on the real heads, and a full-width
 decode step (dense, MoE, and the int8 cache) replayed from a graph
@@ -491,6 +495,93 @@ def test_ssd_chunk_intra_is_deterministic_and_batch_independent(dev):
         s = slice(b, b + 1)
         one = sk.ssd_chunk_intra(Cc[s], Bc[s], xc[s], cum[s], dt[s])
         assert torch.equal(one[0], y[b])
+
+
+def _state_f64(Bc, xc, cum, dt):
+    """``ssd_chunk_state_ref``'s einsum in float64 (the float64 twin of
+    ``ssd_chunk_intra`` is ``ref.ssd_chunk_intra_f64``)."""
+    return torch.einsum("bcqn,bcqh,bcqhp->bchnp", Bc.double(),
+                        torch.exp(cum[:, :, -1:] - cum).double() * dt.double(),
+                        xc.double())
+
+
+def _ssd_grads(dev, ins, seed=3):
+    """The SSD Functions' gradients on the card (float32) and float64
+    autograd's over the twins' einsums, for random output gradients:
+    [(input name, card grad, float64 grad)] for both kernels."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Cc, Bc, xc, cum, dt = ins
+    B, nc, Q, H, P = xc.shape
+    dy = torch.randn((B, nc, Q, H, P), generator=g, device=dev)
+    dS = torch.randn((B, nc, H, Bc.shape[3], P), generator=g, device=dev)
+    out = []
+    for kernel, f64, names, args, dout in (
+            (sk.ssd_chunk_intra, ref.ssd_chunk_intra_f64, "C B x cum dt",
+             ins, dy),
+            (sk.ssd_chunk_state, _state_f64, "B x cum dt", ins[1:], dS)):
+        f32 = [t.detach().clone().requires_grad_(True) for t in args]
+        y = kernel(*f32)
+        assert "SSDChunk" in type(y.grad_fn).__name__
+        y.backward(dout)
+        d64 = [t.detach().double().requires_grad_(True) for t in args]
+        f64(*d64).backward(dout.double())
+        out += [(f"{kernel.__name__} d{n}", a.grad, b.grad)
+                for n, a, b in zip(names.split(), f32, d64)]
+    return out
+
+
+@pytest.mark.parametrize("Q,P,N", [(1, 64, 64), (17, 32, 16), (64, 128, 128),
+                                   (100, 64, 48), (128, 32, 16),
+                                   (128, 64, 64), (128, 128, 128)])
+def test_ssd_function_gradients_against_float64(dev, Q, P, N):
+    """The Functions' forward launches, their float32 backward, against
+    float64 autograd of the twins' einsums: every input's gradient
+    within 1e-5 of its largest |g| (Q 1: cum has none, exactly 0)."""
+    ins = _ssd_inputs(dev, 2, 3, Q, 6, P, N)
+    for name, got, want in _ssd_grads(dev, ins):
+        assert torch.isfinite(got).all(), name
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (name, err)
+
+
+def test_ssd_backward_is_bitwise_repeatable(dev):
+    """Two backwards of the same call give the same bits (no atomics),
+    at steep decay too (no NaN from the masked exp)."""
+    for steep in (False, True):
+        ins = _ssd_inputs(dev, 2, 2, 128, 8, 64, 64, steep=steep)
+        first = _ssd_grads(dev, ins)
+        for (name, a, _), (_, b, _) in zip(first, _ssd_grads(dev, ins)):
+            assert torch.isfinite(a).all() and torch.equal(a, b), name
+
+
+def test_hybrid_train_step_on_card(dev):
+    """One AdamW step of the Zamba2 smoke variant (one section of 2 +
+    a 1-layer tail) at 2 x 256 (two chunks): every parameter has a
+    finite gradient, and each SSD kernel launches twice a Mamba2 layer
+    (its forward and its recompute under remat; the backward launches
+    none)."""
+    import dataclasses
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, get_config
+    from repro_torch.training import optimizer as opt
+    cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
+                              n_layers=3, attn_every=2)
+    gpu = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        gpu.shared_attn.lora_b.normal_(
+            generator=torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 257))
+    step = make_train_step(gpu, opt.AdamWConfig(warmup_steps=1))
+    before = (sk.launches_intra, sk.launches_state, dk.launches, hk.launches)
+    m = step(opt.init_state(step.params),
+             {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    after = (sk.launches_intra, sk.launches_state, dk.launches, hk.launches)
+    assert [a - b for a, b in zip(after, before)] == \
+        [2 * cfg.n_layers, 2 * cfg.n_layers, 0, 0]
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    for name, p in gpu.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
 
 
 def test_hybrid_on_card_matches_cpu(dev):

@@ -196,8 +196,13 @@ def test_state_dict_names_mirror_the_reference_tree():
 def test_registry_builds_encdec():
     model = build_model(get_config(ARCH, smoke=True), device="cpu")
     assert isinstance(model, EncDecModel)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        model.loss({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    cfg = model.cfg
+    model.init(torch.Generator().manual_seed(0))
+    loss, metrics = model.loss({
+        "tokens": torch.zeros((1, 4), dtype=torch.long),
+        "labels": torch.ones((1, 4), dtype=torch.long),
+        "frames": torch.zeros((1, cfg.n_frontend_tokens, cfg.d_model))})
+    assert loss.dim() == 0 and torch.isfinite(loss) and set(metrics) == {"ce"}
 
 
 # --- cross-attention -------------------------------------------------------------

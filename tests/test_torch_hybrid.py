@@ -103,15 +103,19 @@ def test_config_copy_matches_reference(smoke):
 
 
 def test_other_families_still_raise():
-    """Every family now builds, but training the hybrid's neighbours
-    still raises, naming ROADMAP Queue 1, item 11; an unknown family
-    raises."""
-    for family in ("ssm_rwkv6", "ssm_mamba2"):
+    """Every family builds and has a loss (the hybrid's neighbours, the
+    SSM stacks, too; held against the reference in
+    ``tests/test_torch_lm_train_ssm.py``); an unknown family raises."""
+    for family in ("hybrid", "ssm_rwkv6", "ssm_mamba2"):
         cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
                                   family=family)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-            build_model(cfg, device="cpu").loss(
-                {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+        model = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        loss, metrics = model.loss(
+            {"tokens": torch.zeros((1, 4), dtype=torch.long),
+             "labels": torch.ones((1, 4), dtype=torch.long)})
+        assert loss.dim() == 0 and torch.isfinite(loss), family
+        assert set(metrics) == {"ce"}
     cfg = dataclasses.replace(get_config("zamba2_1p2b", smoke=True),
                               family="no_such_family")
     with pytest.raises(KeyError):

@@ -143,9 +143,13 @@ def test_registry_builds_every_transformer_id():
     for arch in ARCHS:
         model = build_model(get_config(arch, smoke=True), device="cpu")
         assert isinstance(model, TransformerModel), arch
-    model = build_model(get_config("qwen3_4b", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        model.loss({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    model = build_model(get_config("qwen3_4b", smoke=True), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    loss, metrics = model.loss({
+        "tokens": torch.zeros((1, 4), dtype=torch.long),
+        "labels": torch.ones((1, 4), dtype=torch.long)})
+    assert loss.dim() == 0 and torch.isfinite(loss)
+    assert set(metrics) == {"ce", "aux"} and float(metrics["aux"]) == 0
 
 
 @pytest.mark.parametrize("family", ["dense", "moe", "vlm"])
