@@ -207,7 +207,19 @@ Phases, each fatal on failure (nothing is caught):
      frames + 512); an ``ssm_mamba2`` stack at zamba2's widths, 2
      layers, 2 x 1024 (two launches of each SSD kernel a layer and
      step);
- 12. print the ``kernels`` JSON line, then the final device line; the
+ 12. ``dryrun``: ``repro_torch.launch.dryrun`` on the meta device for
+     every arch x input shape at full config and shape, on the 1 x 1,
+     16 x 16 and 2 x 16 x 16 meshes, in DRY_JOBS processes (the records
+     in ``chiprun_out/dryrun/``): no failure, the skipped set the
+     reference's ``_should_skip``, a sizing line per 1 x 1 and 16 x 16
+     record (arguments per device, whether one H100 holds them); then,
+     for every step the phases above timed (DRY_TIMED), its FLOPs and
+     arguments counted at the timed shape beside the phase's own time:
+     model FLOPs, MFU and the roofline share against the published
+     peak of the config's type, with the card's name and power limit;
+     the live arguments the phase kept predicted to the byte (int64
+     serve tokens at twice the int32 spec) and its peak above them;
+ 13. print the ``kernels`` JSON line, then the final device line; the
      whole run's wall is logged before them.
 
 ``--phases`` runs a subset (e.g. ``--phases kernels``) while developing;
@@ -230,13 +242,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.launch.mesh import (HBM_BW,       # noqa: E402
+                                     PEAK_FLOPS_FP32 as FP32_PEAK,
+                                     PEAK_FLOPS_TF32 as TF32_PEAK)
+
 TOL = 3e-4          # f32 kernel vs plain: the repo's kernel tolerance
 BF16_REL = 2 ** -6  # bf16 decode vs plain: of the largest |plain|, ~2 bf16 ulps
-FP32_PEAK = 67e12   # H100 SXM FP32 outside the tensor cores, FLOP/s
-TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor cores, FLOP/s
 F64_REL = 1e-5      # rank kernels vs float64: of the largest |out|
 GRAPH_REL = 1e-6    # graph replay vs eager, of the largest |value|
-HBM_BW = 3.35e12    # H100 SXM device memory, B/s
 H, D = 4, 64
 PSI, N_INCR, N_ITEMS = 2048, 16, 64
 PAGE = 64
@@ -266,6 +279,12 @@ REPLACES = {
     "ssd_chunk_intra": "src/repro/kernels/ssd_chunk.py:51",
     "ssd_chunk_state": "src/repro/kernels/ssd_chunk.py:106",
 }
+
+
+def _nbytes(tree):
+    """Bytes of every tensor of a tree (dicts, tuples, lists)."""
+    from repro_torch.tree import leaves
+    return sum(t.nbytes for t in leaves(tree))
 
 
 def log(msg):
@@ -1292,8 +1311,11 @@ def hybrid_phase(torch, results):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     c_pre = counters()
+    peak_pre = torch.cuda.max_memory_allocated()
+    live_pre = [_nbytes(list(model.parameters())),
+                _nbytes({"tokens": prompts})]
     log(f"prefill {HYB_B} x {HYB_S}: {prefill_ms:.1f} ms, launches {c_pre}, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        f"peak {peak_pre / 2**30:.1f} GiB")
     assert c_pre == {"ssd_chunk_intra": cfg.n_layers,
                      "ssd_chunk_state": cfg.n_layers, "decode_attn": 0}, c_pre
     assert logits.shape == (HYB_B, 1, cfg.vocab_padded), logits.shape
@@ -1378,6 +1400,7 @@ def hybrid_phase(torch, results):
     results["_hybrid"] = dict(
         config="zamba2_1p2b", params=n_params, batch=HYB_B, prompt=HYB_S,
         steps=HYB_STEPS, prefill_ms=prefill_ms,
+        prefill_peak_bytes=peak_pre, live_args_prefill=live_pre,
         prefill_tok_s=HYB_B * HYB_S * 1e3 / prefill_ms,
         decode_ms_per_step=decode_ms, decode_tok_s=HYB_B * 1e3 / decode_ms,
         decode_turns=turns, decode_graph_pool_bytes=graph_pool,
@@ -1719,6 +1742,7 @@ def train_phase(torch, results):
     launches = counts.pop("hstu_attn")
     assert not any(counts.values()), f"train launched other kernels: {counts}"
     peak = torch.cuda.max_memory_allocated()
+    live_args = [_nbytes(step.params), _nbytes(state), _nbytes(batches[0])]
     ms = [a.elapsed_time(b) for a, b in events]
     losses = [m["loss"].item() for m in metrics]
     gnorms = [m["grad_norm"].item() for m in metrics]
@@ -1783,6 +1807,7 @@ def train_phase(torch, results):
     out["run"] = dict(config="hstu-gr", params=n_params, batch=TRAIN_B,
                       seq=TRAIN_S, steps=TRAIN_STEPS, ms_per_step=ms,
                       median_ms=med, tokens_per_s=tok_s, peak_bytes=peak,
+                      live_args=live_args,
                       losses=losses, grad_norms=gnorms, launches=launches,
                       profile=prof, checkpoint_s=ck_s, restored_losses=pairs)
     del model, twin, step, step2, state, state2, got, tparams, batches
@@ -2020,6 +2045,10 @@ def model_serve(torch, results, tag, model, batch, steps, step_counts,
     base = clone(cache)
     tok0 = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True)
     pos = torch.full((LM_B,), S, device="cuda")
+    params = list(model.parameters())
+    live_prefill = [_nbytes(params), _nbytes(batch)]
+    live_decode = [_nbytes(params), _nbytes(cache),
+                   _nbytes({"token": tok0, "pos": pos})]
 
     def decode(step, c, check=False):
         """(ms of the first step, ms per later step, ms per step over all,
@@ -2087,6 +2116,7 @@ def model_serve(torch, results, tag, model, batch, steps, step_counts,
                decode_later_ms=rest_ms, decode_turns=turns,
                decode_bytes=nbytes, decode_bound_ms=bound_ms,
                peak_prefill_bytes=peak_prefill, peak_decode_bytes=peak_decode,
+               live_args_prefill=live_prefill, live_args_decode=live_decode,
                graph_pool_bytes=graph_pool, launches_prefill=c_pre,
                launches_decode=c_dec, profile_decode=dict(prof, classes=split),
                generated=gen_toks.tolist())
@@ -2740,6 +2770,7 @@ def lmtrain_zamba2(torch, results):
     metrics, ms, counts, peak, step, state = _train_steps(
         torch, model, adamw, batches[:n], LMT_WARM)
     run_s = time.perf_counter() - t1
+    live_args = [_nbytes(step.params), _nbytes(state), _nbytes(batches[0])]
     losses = _losses("zamba2_1p2b", metrics)
     launches = {k: counts.pop(k) for k in ("ssd_chunk_intra", "ssd_chunk_state")}
     assert not any(counts.values()), f"zamba2 train launched {counts}"
@@ -2793,8 +2824,9 @@ def lmtrain_zamba2(torch, results):
     results.setdefault("_lmtrain", {})["zamba2_1p2b"] = dict(
         params=n_params, layers=cfg.n_layers, batch=LMT_B, seq=LMT_S,
         warm=LMT_WARM, steps=LMT_STEPS, ms_per_step=ms, median_ms=med,
-        tokens_per_s=tok_s, peak_bytes=peak, losses=losses,
-        first_batch_loss=probe, clip_note=clip_note, launches=launches,
+        tokens_per_s=tok_s, peak_bytes=peak, live_args=live_args,
+        losses=losses, first_batch_loss=probe, clip_note=clip_note,
+        launches=launches,
         profile=prof,
         build_s=build_s, run_s=run_s)
     del model, step, state, batches, metrics
@@ -2967,11 +2999,167 @@ def lmtrain_phase(torch, results):
     log(f"lmtrain phase: {wall:.1f} s of wall")
 
 
+# --- phase 12: the dry-run, and the roofline of every timed step ------------------
+
+DRY_JOBS = 8       # dry-run combinations traced at once, a process each
+DRY_MESHES = ("1x1", "16x16")     # sizing lines printed (2x16x16 recorded)
+# the steps the phases above time: (label, arch, kind, B, S, the record's
+# path in results, its ms key, its live-argument key, its peak key)
+DRY_TIMED = (
+    ("hstu-gr train", "hstu_gr", "train", TRAIN_B, TRAIN_S,
+     ("_train", "run"), "median_ms", "live_args", "peak_bytes"),
+    ("zamba2_1p2b train", "zamba2_1p2b", "train", LMT_B, LMT_S,
+     ("_lmtrain", "zamba2_1p2b"), "median_ms", "live_args", "peak_bytes"),
+    ("zamba2_1p2b prefill", "zamba2_1p2b", "prefill", HYB_B, HYB_S,
+     ("_hybrid",), "prefill_ms", "live_args_prefill", "prefill_peak_bytes"),
+    ("qwen3_4b prefill", "qwen3_4b", "prefill", LM_B, LM_RUNS[0][2],
+     ("_lm", "qwen3_4b"), "prefill_ms", "live_args_prefill",
+     "peak_prefill_bytes"),
+    ("qwen3_4b decode", "qwen3_4b", "decode", LM_B, LM_RUNS[0][2],
+     ("_lm", "qwen3_4b"), "decode_later_ms", "live_args_decode",
+     "peak_decode_bytes"),
+    ("rwkv6_1p6b decode", "rwkv6_1p6b", "decode", LM_B, RWKV_S,
+     ("_ssm", "rwkv6_1p6b"), "decode_later_ms", "live_args_decode",
+     "peak_decode_bytes"),
+    ("seamless_m4t_large_v2 decode", "seamless_m4t_large_v2", "decode", LM_B,
+     ED_S, ("_encdec", "seamless_m4t_large_v2"), "decode_later_ms",
+     "live_args_decode", "peak_decode_bytes"),
+)
+
+
+def _record_at(results, path):
+    rec = results
+    for k in path:
+        rec = rec.get(k) if isinstance(rec, dict) else None
+    return rec
+
+
+def dryrun_phase(torch, results, card):
+    """(a) ``repro_torch.launch.dryrun`` on meta for every arch x shape
+    (full config, full shape) on the 1 x 1, 16 x 16 and 2 x 16 x 16
+    meshes: a sizing line per 1 x 1 and 16 x 16 record (arguments per
+    device, and whether one H100's 80 GB holds them), every record under
+    ``chiprun_out/dryrun``; the skipped set must be the reference's
+    ``_should_skip``'s and nothing may fail.  (b) For each step the
+    phases above timed, at exactly the timed shape: FLOPs and argument
+    bytes counted on meta, the phase's own time (not rerun), model FLOPs,
+    MFU and the roofline share against the published peak of the
+    config's type, beside the card's name and power limit.  (c) Where
+    the phase kept the step's live tensors: the parameters and the
+    optimizer state or cache predicted to the byte; the batch too where
+    its tensors have the spec's types (the train batches, int32), else
+    the live int64 tokens at exactly twice the spec's int32; and the
+    phase's peak at least the live arguments."""
+    from repro_torch.benchmarks.roofline import model_flops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import CHIP_HBM_BYTES, peak_flops
+    from repro_torch.models import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.models.config import InputShape
+
+    t0 = time.perf_counter()
+    timed = [(arch, InputShape(f"timed_{kind}_{B}x{S}", S, B, kind))
+             for _, arch, kind, B, S, *_ in DRY_TIMED]
+    combos = [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]
+    out = dryrun.run_all(combos + timed, ["card", "single", "multi"],
+                         jobs=DRY_JOBS)
+    recs = [r for combo in out[:len(combos)] for r in combo]
+    timed_recs = [combo[0] for combo in out[len(combos):]]
+    wall_a = time.perf_counter() - t0
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    for r in recs:
+        with open(os.path.join(out_dir, f"baseline__{r['arch']}__"
+                               f"{r['shape']}__{r['mesh']}.json"), "w") as f:
+            json.dump(r, f, indent=1)
+    failed = [(r["arch"], r["shape"], r["mesh"], r.get("error"))
+              for r in recs if r["status"] == "FAILED"]
+    assert not failed, f"dry-run failures: {failed}"
+    skipped = {(r["arch"], r["shape"]) for r in recs
+               if r["status"] == "skipped"}
+    want_skip = {(a, s) for a in ARCH_IDS for s in INPUT_SHAPES
+                 if dryrun._should_skip(get_config(a), INPUT_SHAPES[s])}
+    assert skipped == want_skip, (skipped, want_skip)
+    for r in recs:
+        if r["status"] == "ok" and r["mesh"] in DRY_MESHES:
+            a = r["memory"]["argument_size_in_bytes"]
+            log(f"dryrun {r['arch']} {r['shape']} on {r['mesh']}: arguments "
+                f"{a / 1e9:.3f} GB per device "
+                f"({'fits' if a <= CHIP_HBM_BYTES else 'does not fit'} one "
+                f"H100's 80 GB), {r['jaxpr_flops_global']:.4e} FLOPs, "
+                f"traced in {r['trace_s']:.2f} s")
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    log(f"dryrun (a): {len(recs)} records ({n_ok} ok, {len(skipped)} arch x "
+        f"shape skipped as the reference skips them), and the {len(timed)} "
+        f"timed steps' at their own shapes, in {wall_a:.1f} s of wall, "
+        f"{DRY_JOBS} processes")
+
+    steps = {}
+    for (label, arch, kind, B, S, path, ms_key, live_key,
+         peak_key), (_, shape), sized in zip(DRY_TIMED, timed, timed_recs):
+        assert sized["status"] == "ok" and sized["mesh"] == "1x1", sized
+        rec = _record_at(results, path)
+        if not rec or ms_key not in rec:
+            log(f"dryrun (b): {label} not timed in this run (its phase did "
+                f"not run)")
+            continue
+        cfg = get_config(arch)
+        mem = sized["memory"]
+        flops = int(sized["jaxpr_flops_global"])
+        ms = rec[ms_key]
+        peak = peak_flops(cfg.dtype)
+        mf = model_flops(cfg, shape)
+        t_ops = flops / peak
+        t_bytes = (mem["argument_size_in_bytes"]
+                   + mem["output_size_in_bytes"]) / HBM_BW
+        bound_s = max(t_ops, t_bytes)
+        row = dict(arch=arch, kind=kind, batch=B, seq=S, ms=ms, flops=flops,
+                   model_flops=mf, mfu=mf / (ms * 1e-3 * peak),
+                   counted_share=flops / (ms * 1e-3 * peak),
+                   bound_ms=bound_s * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   roofline_share=bound_s / (ms * 1e-3),
+                   peak_flops=peak, argument_bytes=mem["argument_size_in_bytes"],
+                   argument_parts=mem["argument_parts"],
+                   output_bytes=mem["output_size_in_bytes"],
+                   trace_s=sized["trace_s"])
+        log(f"dryrun (b) {label} {B} x {S} ({cfg.dtype}, peak "
+            f"{peak:.3e} FLOP/s; card {card}): {ms:.4f} ms measured by its "
+            f"phase; counted {flops:.4e} FLOPs ({row['counted_share']:.4f} "
+            f"of peak), model FLOPs {mf:.4e}, MFU {row['mfu']:.4f}; "
+            f"roofline bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"(arguments {row['argument_bytes'] / 1e9:.4f} GB + outputs "
+            f"{row['output_bytes'] / 1e9:.4f} GB), share {row['roofline_share']:.4f}")
+        live = rec.get(live_key)
+        if live is not None:
+            pred = mem["argument_parts"]
+            assert live[:-1] == pred[:-1], (label, live, pred)
+            if kind == "train":
+                assert live[-1] == pred[-1], (label, live, pred)
+            else:
+                assert live[-1] == 2 * pred[-1], (label, live, pred)
+            pk = rec[peak_key]
+            assert pk >= sum(live), (label, pk, live)
+            row.update(live_parts=live, peak_bytes=pk)
+            log(f"dryrun (c) {label}: predicted arguments {pred} bytes "
+                f"(sum {sum(pred)}), live {live} (sum {sum(live)}): the "
+                f"parameters{' and the state' if kind == 'train' else ' and the cache' if kind == 'decode' else ''} "
+                f"to the byte, the batch "
+                + ("to the byte" if kind == "train" else
+                   "int64 tokens, twice the spec's int32")
+                + f"; peak {pk} >= {sum(live)}")
+        steps[label] = row
+    wall = time.perf_counter() - t0
+    results["_dryrun"] = dict(records=len(recs), ok=n_ok,
+                              skipped=sorted(skipped), wall_a_s=wall_a,
+                              wall_s=wall, steps=steps)
+    log(f"dryrun phase: {wall:.1f} s of wall")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,relay,graphs,costmodel,hybrid,"
-                            "train,lm,ssm,encdec,lmtrain")
+                            "train,lm,ssm,encdec,lmtrain,dryrun")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3029,6 +3217,8 @@ def main(argv=None):
         encdec_phase(torch, results)
     if "lmtrain" in phases:
         lmtrain_phase(torch, results)
+    if "dryrun" in phases:
+        dryrun_phase(torch, results, smi.splitlines()[0])
 
     kernels = []
     for name, path in REPLACES.items():

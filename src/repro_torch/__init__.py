@@ -10,6 +10,8 @@ nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA on a machine without it raises instead of falling back.
+``device="meta"`` builds shapes only (the dry-run,
+``repro_torch.launch.dryrun``): nothing is allocated or computed.
 """
 
 from __future__ import annotations
@@ -18,14 +20,15 @@ import torch
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """The torch device an entry point runs on.  Raises when CUDA is
-    asked for and absent: the port never carries on silently on the
-    CPU."""
+    """The torch device an entry point runs on: ``cuda``, ``cpu``, or
+    ``meta`` (shapes without storage, for the dry-run's accounting).
+    Raises when CUDA is asked for and absent: the port never carries on
+    silently on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev

@@ -1,6 +1,7 @@
 # Port of benchmarks/run.py: module paths renamed repro -> repro_torch,
 # benchmarks -> repro_torch.benchmarks; the headline defaults to build/;
-# --device for the live rows; the roofline row says it is not ported;
+# --device for the live rows; the roofline rows read the port's dry-run
+# (repro_torch.launch.dryrun) priced with an H100's figures;
 # --hardware / --calibration price the paper's headline figures with a
 # HardwareModel measured on the card (benchmarks/hardware.py).
 """Benchmark entry point: ``PYTHONPATH=src python -m repro_torch.benchmarks.run``.
@@ -132,8 +133,21 @@ def main(argv=None) -> None:
             json.dump(headline, f, indent=1, sort_keys=True)
         print(f"# wrote {out} in {time.time() - t0:.1f}s", file=sys.stderr)
 
-    # the reference's roofline summary reads TPU dry-run artifacts
-    print("roofline,0,unavailable: not ported (ROADMAP Queue 1, item 10)")
+    print_roofline()
+
+
+def print_roofline():
+    """The roofline summary rows, if the dry-run has produced artifacts
+    (``repro_torch.launch.dryrun``; none without them)."""
+    try:
+        from repro_torch.benchmarks import roofline
+        rows = roofline.load()
+        for r in rows:
+            print(f"roofline/{r['arch']}/{r['shape']},"
+                  f"{r['roofline_bound_s'] * 1e6:.1f},"
+                  f"dominant={r['dominant']} useful={r['useful_ratio']}")
+    except Exception as e:
+        print(f"roofline,0,unavailable: {e}")
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ def decode_attn_plain(q, k, v):
 def decode_attn(q, k, v):
     """q (B, H, D); k, v (B, S, KV, D) -> (B, H, D)."""
     global launches
-    if q.device.type == "cpu":
+    if ref.runs_plain(q):
         return decode_attn_plain(q, k, v)
     out = cuda_lib.decode_attn(q, k, v)
     launches += 1

@@ -47,7 +47,7 @@ def _launch(q, k, v, n_total: float):
 
 def hstu_attn(q, k, v, *, n_total: float = None):
     """q, k, v: (B, H, S, D) -> (B, H, S, D); ``n_total`` defaults to S."""
-    if q.device.type == "cpu":
+    if ref.runs_plain(q):
         return hstu_attn_plain(q, k, v, n_total=n_total)
     n_total = n_total or q.shape[2]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

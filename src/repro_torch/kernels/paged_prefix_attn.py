@@ -60,7 +60,7 @@ def paged_prefix_rank_attn(q, k_pages, v_pages, k_table, v_table,
     context the dense bucketed caller normalizes by."""
     global launches
     n_total = n_total or k_table.shape[1] * k_pages.shape[1] + q.shape[2]
-    if q.device.type == "cpu":
+    if ref.runs_plain(q):
         return paged_prefix_rank_attn_plain(
             q, k_pages, v_pages, k_table, v_table, prefix_lens, k_new,
             v_new, n_incr=n_incr, n_total=n_total)
@@ -102,7 +102,7 @@ def segment_rank_attn(q, k_pages, v_pages, k_table, v_table, page_pos,
     the call equals ``paged_prefix_rank_attn`` bit for bit."""
     global launches_segment
     n_total = n_total or k_table.shape[1] * k_pages.shape[1] + q.shape[2]
-    if q.device.type == "cpu":
+    if ref.runs_plain(q):
         return segment_rank_attn_plain(
             q, k_pages, v_pages, k_table, v_table, page_pos, page_valid,
             q_pos, k_new, v_new, n_items=n_items, n_total=n_total)

@@ -38,7 +38,7 @@ def prefix_rank_attn_split(q, k_prefix, v_prefix, k_new, v_new, *,
     global launches
     P, Sq = k_prefix.shape[2], q.shape[2]
     n_total = n_total or P + Sq
-    if q.device.type == "cpu":
+    if ref.runs_plain(q):
         return prefix_rank_attn_plain(
             q, torch.cat([k_prefix, k_new], dim=2),
             torch.cat([v_prefix, v_new], dim=2),

@@ -2,7 +2,8 @@
 
 Shapes use the kernel layout (B, H, S, D); ``ops.py`` adapts from the
 model layout (B, S, H, D).  These are what every kernel wrapper runs on
-CPU tensors and what ``chip_smoke.py`` holds each CUDA kernel against.
+CPU and meta tensors (``runs_plain``) and what ``chip_smoke.py`` holds
+each CUDA kernel against.
 """
 
 from __future__ import annotations
@@ -11,6 +12,17 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+# devices on which a kernel wrapper runs its plain twin: the CPU, and the
+# meta device of the dry-run (shapes only: a meta tensor computes
+# nothing, so no kernel is hidden from a CUDA caller)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def runs_plain(x) -> bool:
+    """True where a wrapper runs its plain twin on ``x``; on a CUDA
+    tensor it launches its kernel (or raises)."""
+    return x.device.type in PLAIN_DEVICES
 
 
 def _silu_scores(q, k, n_total: float):

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import cuda_lib
+from . import cuda_lib, ref
 
 launches_intra = 0
 launches_state = 0
@@ -80,14 +80,14 @@ def _launch_state(Bc, xc, cum, dtc):
 
 def ssd_chunk_intra(Cc, Bc, xc, cum, dtc):
     """y_intra (B, nc, Q, H, P)."""
-    if xc.device.type == "cpu":
+    if ref.runs_plain(xc):
         return ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc)
     return SSDChunkIntraFunction.apply(Cc, Bc, xc, cum, dtc)
 
 
 def ssd_chunk_state(Bc, xc, cum, dtc):
     """Per-chunk states (B, nc, H, N, P) float32."""
-    if xc.device.type == "cpu":
+    if ref.runs_plain(xc):
         return ssd_chunk_state_ref(Bc, xc, cum, dtc)
     return SSDChunkStateFunction.apply(Bc, xc, cum, dtc)
 

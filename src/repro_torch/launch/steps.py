@@ -5,8 +5,10 @@
 callables a server drives: the prefill of a batch of prompts, and one
 decode step against a cache.  The parameters live in the model (an
 ``nn.Module``), so the steps take the optimizer state, the batch and the
-cache only.  The shape specs for the dry-run are still to port (ROADMAP
-Queue 1, item 10).
+cache only.  ``make_step(model, shape)`` picks the step of an
+``InputShape`` and returns it with the (shape, dtype) stand-ins and the
+logical axes of its arguments, the dry-run's view
+(``repro_torch.launch.dryrun``).
 
 The train step and the prefill run eagerly: at their lengths they keep
 the device busy.  The decode step is host-bound, so on a CUDA device it
@@ -19,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graphs import tensor_leaves, resolve_runner
+from repro_torch.models.arch import zeros_from_specs
+from repro_torch.models.config import InputShape
 from repro_torch.models.convert import param_tree
 from repro_torch.training import optimizer as opt
 from repro_torch.tree import leaves, tree_map
@@ -110,3 +114,60 @@ def make_serve_step(model, graphs=None):
 
     serve_step.runner = runner
     return serve_step
+
+
+def cache_specs_and_axes(model, batch: int, seq_len: int):
+    """The decode cache's (shape, dtype) tree and its logical axes
+    (HSTU's ``cache_specs`` returns both, as the reference's does; the
+    other families' return the specs alone, beside ``cache_axes``)."""
+    specs = model.cache_specs(batch, seq_len)
+    if model.cfg.hstu:
+        specs = specs[0]
+    return specs, model.cache_axes(batch, seq_len)
+
+
+def make_step(model, shape: InputShape, zero2: bool = False):
+    """The step of ``shape.kind`` with its arguments' stand-ins:
+    ``(fn, arg_specs, arg_axes)``.
+
+    ``arg_specs`` are (shape, dtype) trees, ``arg_axes`` the matching
+    logical axes, in the reference's order: (params, opt state, batch)
+    for train, (params, batch) for prefill, (params, cache, batch) for
+    decode, the cache holding ``shape.seq_len`` tokens.  The parameters
+    live in the model, so ``fn`` (``make_train_step`` /
+    ``make_prefill_step`` / ``make_serve_step``) takes every argument
+    but the first: ``fn(*step_inputs(shape, arg_specs, device))``.
+    ``zero2`` shards the optimizer moments over "data"
+    (``opt.state_axes``).  A train step turns the model's gradients
+    on."""
+    p_sds, p_axes = model.abstract_params(), model.param_axes()
+    b_sds, b_axes = model.batch_specs(shape), model.batch_axes(shape)
+    if shape.kind == "train":
+        return (make_train_step(model),
+                (p_sds, opt.abstract_state(p_sds), b_sds),
+                (p_axes, opt.state_axes(p_axes, zero2=zero2), b_axes))
+    if shape.kind == "prefill":
+        return make_prefill_step(model), (p_sds, b_sds), (p_axes, b_axes)
+    c_sds, c_axes = cache_specs_and_axes(model, shape.global_batch,
+                                         shape.seq_len)
+    return (make_serve_step(model), (p_sds, c_sds, b_sds),
+            (p_axes, c_axes, b_axes))
+
+
+def input_specs(model, shape: InputShape):
+    """(shape, dtype) stand-ins for every argument of the step of
+    ``shape``, the parameters first (``make_step``'s ``arg_specs``):
+    nothing is allocated."""
+    _, arg_specs, _ = make_step(model, shape)
+    return arg_specs
+
+
+def step_inputs(shape: InputShape, arg_specs, device="meta"):
+    """The arguments ``fn`` takes (``arg_specs[1:]``) as zeros on
+    ``device`` (on ``meta``: shapes only, nothing allocated).  A train
+    step's optimizer step count is a host scalar, where
+    ``opt.init_state`` keeps it."""
+    args = [zeros_from_specs(s, device) for s in arg_specs[1:]]
+    if shape.kind == "train":
+        args[0]["step"] = torch.zeros((), dtype=torch.int32)
+    return args

@@ -20,8 +20,9 @@ from repro_torch import resolve_device
 
 from . import ssm as ssm_lib
 from .config import InputShape, ModelConfig
-from .layers import (DTYPES, ParamSpec, attention, attention_specs,
-                     cross_entropy, ffn, ffn_specs, rms_norm)
+from .layers import (DTYPES, ParamSpec, abstract_tree, attention,
+                     attention_specs, axes_tree, cross_entropy, ffn,
+                     ffn_specs, rms_norm)
 from .moe import moe_aux, moe_ffn, moe_specs, shared_expert_ffn
 
 
@@ -149,6 +150,44 @@ def base_batch_specs(shape: InputShape):
     return {"token": ((B, 1), torch.int32), "pos": ((B,), torch.int32)}
 
 
+def base_batch_axes(shape: InputShape):
+    """The logical axes of ``base_batch_specs``' entries (the
+    reference's ``BaseModel.batch_axes``)."""
+    if shape.kind == "train":
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if shape.kind == "prefill":
+        return {"tokens": ("batch", "seq")}
+    return {"token": ("batch", None), "pos": ("batch",)}
+
+
+def kv_seq_axis(batch: int, seq_len: int):
+    """A K/V cache's sequence axis: "kv_seq" (sharded over "data" by the
+    dry-run's long-context rule) for one sequence of 65536 or more
+    tokens, else None — the reference's rule in every family."""
+    return "kv_seq" if (batch == 1 and seq_len >= 65536) else None
+
+
+class StepSpecs:
+    """What the dry-run reads of every family (``launch.steps.make_step``):
+    the parameters' (shape, dtype) stand-ins and logical axes from
+    ``param_specs()``, and the batch's, with nothing allocated.  A family
+    whose batch has more entries (a VLM's frontend, an enc-dec's
+    frames) extends ``batch_specs`` and ``batch_axes``."""
+
+    def abstract_params(self):
+        return abstract_tree(self.param_specs())
+
+    def param_axes(self):
+        return axes_tree(self.param_specs())
+
+    def batch_specs(self, shape: InputShape):
+        """The entry point's batch as {name: (shape, dtype)}."""
+        return base_batch_specs(shape)
+
+    def batch_axes(self, shape: InputShape):
+        return base_batch_axes(shape)
+
+
 def _no_tf32():
     """float32 products stay float32 on the card (no TF32 rounding)."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,7 +199,7 @@ def _no_tf32():
 # ===========================================================================
 
 
-class TransformerModel(nn.Module):
+class TransformerModel(StepSpecs, nn.Module):
     """Decoder-only Transformer: dense, MoE and VLM (the vision frontend
     stubbed as ``n_frontend_tokens`` precomputed patch embeddings,
     projected into d_model and prepended to the tokens).
@@ -230,31 +269,36 @@ class TransformerModel(nn.Module):
 
     # --- blocks -------------------------------------------------------------
     def _block(self, p, x, positions, cache=None, cache_index=None,
-               window=0):
-        """One layer: (x, its K/V, the MoE's routing (probs, eidx), or
-        None for a dense FFN)."""
+               window=0, aux=False):
+        """One layer: (x, its K/V, its MoE load-balance loss).  ``aux``
+        (the loss path) asks for the loss: a float32 zero for a dense
+        FFN; without it (serve) the third value is None."""
         cfg = self.cfg
         h, kvc = attention(p["attn"], rms_norm(x, p["ln1"]), cfg,
                            positions=positions, cache=cache,
                            cache_index=cache_index, window=window)
         x = x + h
         xn = rms_norm(x, p["ln2"])
-        routing = None
+        aux_loss = x.new_zeros((), dtype=torch.float32) if aux else None
         if self.is_moe:
             y, routing = moe_ffn(p["moe"], xn, cfg)
+            if aux:
+                # before the shared experts, so that a checkpoint's
+                # recompute stops ahead of their output product, whose
+                # result no gradient needs (the reference's remat drops
+                # it too)
+                aux_loss = moe_aux(*routing, cfg)
             if cfg.n_shared_experts:
                 y = y + shared_expert_ffn(p["moe"], xn, cfg)
         else:
             y = ffn(p["ffn"], xn, cfg)
-        return x + y, kvc, routing
+        return x + y, kvc, aux_loss
 
     def _train_block(self, l, x, positions, window):
         """Layer l on the loss path: (x, its MoE load-balance loss, a
         float32 zero for a dense FFN)."""
-        x, _, routing = self._block(self.layers.tree(l), x, positions,
-                                    window=window)
-        aux = moe_aux(*routing, self.cfg) if routing is not None else \
-            x.new_zeros((), dtype=torch.float32)
+        x, _, aux = self._block(self.layers.tree(l), x, positions,
+                                window=window, aux=True)
         return x, aux
 
     def _run(self, x, positions, cache=None, cache_index=None, window=0,
@@ -363,6 +407,12 @@ class TransformerModel(nn.Module):
         kv = (shape, DTYPES[cfg.dtype])
         return (kv, kv)
 
+    def cache_axes(self, batch: int, seq_len: int):
+        """The logical axes of ``cache_specs``' leaves."""
+        axes = ("layers", "batch", kv_seq_axis(batch, seq_len), "kv_heads",
+                None)
+        return (axes,) * (4 if self.cfg.kv_quant else 2)
+
     def init_cache(self, batch: int, seq_len: int):
         """Zeros of ``cache_specs`` (the reference's ``init_cache`` takes
         the unquantized layout only; here the int8 one too, with zero
@@ -379,13 +429,19 @@ class TransformerModel(nn.Module):
                                   self.cfg.d_model), DTYPES[self.cfg.dtype])
         return specs
 
+    def batch_axes(self, shape: InputShape):
+        axes = base_batch_axes(shape)
+        if self.cfg.family == "vlm" and shape.kind != "decode":
+            axes["frontend"] = ("batch", "frames", "embed")
+        return axes
+
 
 # ===========================================================================
 # SSM stacks (Mamba2 / RWKV6)
 # ===========================================================================
 
 
-class SSMModel(nn.Module):
+class SSMModel(StepSpecs, nn.Module):
     """Attention-free stack (``ssm_rwkv6`` or ``ssm_mamba2``): each
     block is ln1 -> mixer -> residual, ln2 -> FFN -> residual; the
     decode state is O(1) in the sequence length.
@@ -519,13 +575,15 @@ class SSMModel(nn.Module):
                else ssm_lib.rwkv6_state_specs(cfg, batch))
         return tuple(((cfg.n_layers,) + shape, dt) for shape, dt in per)
 
+    def cache_axes(self, batch: int, seq_len: int):
+        """The logical axes of ``cache_specs``' leaves."""
+        per = (ssm_lib.mamba2_state_axes() if self.is_mamba
+               else ssm_lib.rwkv6_state_axes())
+        return tuple(("layers",) + a for a in per)
+
     def init_cache(self, batch: int, seq_len: int):
         return zeros_from_specs(self.cache_specs(batch, seq_len),
                                 self.device)
-
-    def batch_specs(self, shape: InputShape):
-        """The entry point's batch as {name: (shape, dtype)}."""
-        return base_batch_specs(shape)
 
 
 # ===========================================================================
@@ -533,7 +591,7 @@ class SSMModel(nn.Module):
 # ===========================================================================
 
 
-class HybridModel(nn.Module):
+class HybridModel(StepSpecs, nn.Module):
     """``n_layers`` Mamba2 blocks; a *shared-weight* GQA block (with a
     per-invocation LoRA on the query path) after every ``attn_every``
     of them — Zamba2's shared-attention pattern.
@@ -630,13 +688,20 @@ class HybridModel(nn.Module):
         cfg = self.cfg
         p = self.shared_attn
         B, S, d = x.shape
+        hk = cfg.n_heads * cfg.head_dim
         xn = rms_norm(x, p.ln)
         # the per-section LoRA on the query path, through the shared wo
         lora = (xn @ p.lora_a[sec]) @ p.lora_b[sec].reshape(self.LORA_R, -1)
-        h, kv = attention(p.attn.tree(), xn, cfg, positions=positions,
-                          cache=cache, cache_index=cache_index)
-        wo = p.attn.wo.reshape(cfg.n_heads * cfg.head_dim, d)
-        return x + h + lora @ wo, kv
+        out, kv = attention(p.attn.tree(), xn, cfg, positions=positions,
+                            cache=cache, cache_index=cache_index,
+                            project=False)
+        # both output products in one batched product, the block's last:
+        # under remat (the loss path) the checkpoint's recompute stops
+        # ahead of it, as the reference's remat drops both (no gradient
+        # needs their results)
+        y = torch.stack([out.reshape(B, S, hk), lora]) \
+            @ p.attn.wo[:cfg.n_heads].reshape(hk, d)
+        return x + y[0] + y[1], kv
 
     def _run(self, x, mstates, astates, positions, decode, cache_index=None,
              remat=False):
@@ -729,6 +794,16 @@ class HybridModel(nn.Module):
                cfg.head_dim), DTYPES[cfg.dtype])
         return {"m": {"sections": stk(self.n_sections, cfg.attn_every),
                       "tail": stk(max(self.n_tail, 1))},
+                "a": (kv, kv)}
+
+    def cache_axes(self, batch: int, seq_len: int):
+        """The logical axes of ``cache_specs``' leaves."""
+        per = ssm_lib.mamba2_state_axes()
+        kv = ("sections", "batch", kv_seq_axis(batch, seq_len), "kv_heads",
+              None)
+        return {"m": {"sections": tuple(("sections", "layers") + a
+                                        for a in per),
+                      "tail": tuple(("layers",) + a for a in per)},
                 "a": (kv, kv)}
 
     def init_cache(self, batch: int, seq_len: int):

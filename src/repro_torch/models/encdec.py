@@ -18,15 +18,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
-from .arch import (_embed, _logits, _no_tf32, add_params, base_batch_specs,
-                   ce_loss, draw_params, embed_specs, stack_specs,
-                   zeros_from_specs)
+from .arch import (StepSpecs, _embed, _logits, _no_tf32, add_params,
+                   base_batch_axes, base_batch_specs, ce_loss, draw_params,
+                   embed_specs, kv_seq_axis, stack_specs, zeros_from_specs)
 from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
                      ffn_specs, rms_norm)
 
 
-class EncDecModel(nn.Module):
+class EncDecModel(StepSpecs, nn.Module):
     """``n_enc_layers`` encoder blocks over the frames, ``n_layers``
     decoder blocks (self-attention, cross-attention, FFN).
 
@@ -228,6 +228,12 @@ class EncDecModel(nn.Module):
                 cfg.head_dim), dt)
         return {"self": (kv, kv), "cross": (xkv, xkv)}
 
+    def cache_axes(self, batch: int, seq_len: int):
+        """The logical axes of ``cache_specs``' leaves."""
+        kv = ("layers", "batch", kv_seq_axis(batch, seq_len), "kv_heads", None)
+        xkv = ("layers", "batch", None, "kv_heads", None)
+        return {"self": (kv, kv), "cross": (xkv, xkv)}
+
     def init_cache(self, batch: int, seq_len: int):
         return zeros_from_specs(self.cache_specs(batch, seq_len),
                                 self.device)
@@ -240,3 +246,9 @@ class EncDecModel(nn.Module):
             specs["frames"] = ((shape.global_batch, self.cfg.n_frontend_tokens,
                                 self.cfg.d_model), DTYPES[self.cfg.dtype])
         return specs
+
+    def batch_axes(self, shape: InputShape):
+        axes = base_batch_axes(shape)
+        if shape.kind != "decode":
+            axes["frames"] = ("batch", "frames", "embed")
+        return axes

@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 
-from .arch import _embed, _logits, ce_loss, embed_specs, stack_specs
+from .arch import (StepSpecs, _embed, _logits, ce_loss, embed_specs,
+                   kv_seq_axis, stack_specs)
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
 
@@ -58,7 +59,7 @@ def rank_mask(n_prefix: int, n_incr: int, n_items: int, device=None):
                              device=device)[None, None]
 
 
-class HSTUModel(nn.Module):
+class HSTUModel(StepSpecs, nn.Module):
     """The RelayGR prefix/rank protocol over an HSTU stack.
 
     Parameters live on ``device`` from construction; ``init`` fills them
@@ -309,8 +310,12 @@ class HSTUModel(nn.Module):
         cfg = self.cfg
         kv = ((cfg.n_layers, batch, seq_len, cfg.n_heads, cfg.head_dim),
               DTYPES[cfg.dtype])
-        axes = ("layers", "batch", None, "heads", None)
-        return (kv, kv), (axes, axes)
+        return (kv, kv), self.cache_axes(batch, seq_len)
+
+    def cache_axes(self, batch: int, seq_len: int):
+        """The logical axes of psi's (K, V)."""
+        axes = ("layers", "batch", kv_seq_axis(batch, seq_len), "heads", None)
+        return (axes, axes)
 
     def init_cache(self, batch: int, seq_len: int):
         """A zero psi of ``seq_len`` tokens: (K, V), each (L, B, S, H, D)."""

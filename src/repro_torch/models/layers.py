@@ -52,6 +52,21 @@ class ParamSpec:
         return (x * std).to(dt)
 
 
+def abstract_tree(specs):
+    """A ParamSpec tree as (shape, dtype) leaves: the parameters'
+    stand-ins for the dry-run, nothing allocated."""
+    if isinstance(specs, ParamSpec):
+        return (tuple(specs.shape), DTYPES[specs.dtype])
+    return {k: abstract_tree(s) for k, s in specs.items()}
+
+
+def axes_tree(specs):
+    """A ParamSpec tree as its logical axes."""
+    if isinstance(specs, ParamSpec):
+        return tuple(specs.axes)
+    return {k: axes_tree(s) for k, s in specs.items()}
+
+
 def _wide(dtype) -> torch.dtype:
     """The type a reduction computes in: float32 for 16- and 32-bit
     floats, float64 for float64 (the CPU's float64 reference)."""
@@ -189,7 +204,7 @@ def _sdpa_q_chunked(q, k, v, scale, chunk, *, prefix_len=0, window=0):
 
 def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
               kv_override=None, window: int = 0, causal: bool = True,
-              prefix_len: int = 0):
+              prefix_len: int = 0, project: bool = True):
     """Attention, as ``repro.models.layers.attention``.
 
     * prefill (``cache`` None): causal (or bidirectional) self-attention
@@ -216,7 +231,12 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     ``wq`` and ``wo`` are used: the reference zeroes the padded heads'
     outputs before ``wo``, so they add nothing, and computing the real
     heads alone keeps head h on kv head ``h * KV // n_heads`` in every
-    path."""
+    path.
+
+    ``project=False`` returns the heads' output (B, S, n_heads, D)
+    before ``wo`` in place of the projected (B, S, d): a caller that
+    projects it together with another product (the hybrid's shared
+    attention)."""
     B, S, d = x.shape
     h = cfg.n_heads
     wq, wo = params["wq"], params["wo"]
@@ -279,6 +299,8 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
                     if causal else None)
             out = _sdpa(q, k, v, mask, scale)
         new_cache = (k, v)
+    if not project:
+        return out, new_cache
     y = torch.einsum("bshk,hkd->bsd", out, wo)
     return y, new_cache
 

@@ -160,6 +160,11 @@ def mamba2_state_specs(cfg, batch: int):
             ((B, cfg.ssm_conv - 1, C), DTYPES[cfg.dtype]))
 
 
+def mamba2_state_axes():
+    """The logical axes of ``mamba2_state_specs``' (ssm, conv)."""
+    return (("batch", "ssm_heads", None, None), ("batch", None, "ff"))
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 (Finch): data-dependent decay
 # ---------------------------------------------------------------------------
@@ -203,14 +208,29 @@ def _rwkv_wkv_scan(r, k, v, w, u, state):
     state (B, H, N, N).  Per token: y = r (S + u kv), S <- w S + kv with
     kv = k v^T.  Returns (y (B, L, H, N), final state)."""
     B, L, H, N = r.shape
-    y = r.new_empty((B, L, H, N))
     uu = u[None, :, :, None]
+    if r.device.type == "meta":
+        return _rwkv_wkv_meta(r, k, v, w, uu, state)
+    y = r.new_empty((B, L, H, N))
     S = state
     for t in range(L):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, N, N)
         y[:, t] = torch.matmul(r[:, t, :, None, :], S + uu * kv)[..., 0, :]
         S = w[:, t, :, :, None] * S + kv
     return y, S
+
+
+def _rwkv_wkv_meta(r, k, v, w, uu, state):
+    """``_rwkv_wkv_scan`` on meta tensors (the dry-run), where nothing
+    is computed: the loop's L products (B, H, 1, N) x (B, H, N, N) as
+    one (B, L, H, 1, N) x (B, L, H, N, N) product, forward and backward
+    the same FLOPs, built from the same inputs so every gradient flows
+    where the loop's does.  The loop takes seconds per thousand tokens
+    on meta; this takes one op."""
+    kv = k[..., :, None] * v[..., None, :]                  # (B, L, H, N, N)
+    S = w[..., :, None] * state[:, None] + kv
+    y = torch.matmul(r[..., None, :], S + uu[:, None] * kv)[..., 0, :]
+    return y, S[:, -1]
 
 
 def rwkv6_forward(params, x, cfg, state=None):
@@ -245,3 +265,8 @@ def rwkv6_state_specs(cfg, batch: int):
     H, N = d // RWKV_HEAD, RWKV_HEAD
     return (((batch, H, N, N), torch.float32),
             ((batch, 1, d), DTYPES[cfg.dtype]))
+
+
+def rwkv6_state_axes():
+    """The logical axes of ``rwkv6_state_specs``' (wkv, shift)."""
+    return (("batch", "rwkv_heads", None, None), ("batch", None, "embed"))

@@ -63,6 +63,35 @@ def init_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def abstract_state(abstract_params) -> Dict[str, Any]:
+    """``init_state``'s (shape, dtype) stand-ins from the parameters'
+    (``model.abstract_params()``): float32 moments and the int32 step,
+    nothing allocated."""
+    z = tree_map_specs(lambda s: (s[0], torch.float32), abstract_params)
+    return {"mu": z, "nu": z, "step": ((), torch.int32)}
+
+
+def state_axes(param_axes, zero2: bool = False) -> Dict[str, Any]:
+    """The state's logical axes: the parameters' for ``mu`` and ``nu``.
+    ``zero2`` also shards the float32 moments over the data axis on
+    each weight's d_model dim ("embed" -> "opt_data": ZeRO-2, the
+    weights stay replicated); the step is a scalar."""
+    axes = param_axes
+    if zero2:
+        axes = tree_map_specs(
+            lambda t: tuple("opt_data" if a == "embed" else a for a in t),
+            param_axes)
+    return {"mu": axes, "nu": axes, "step": ()}
+
+
+def tree_map_specs(fn, tree):
+    """``fn`` over the leaves of a nested dict whose leaves are tuples
+    (a (shape, dtype) spec or an axes tuple)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (None leaves
     count as zeros)."""

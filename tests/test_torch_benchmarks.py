@@ -37,7 +37,7 @@ from repro_torch.benchmarks import ablations as tabl
 from repro_torch.benchmarks import capacity as tcap
 from repro_torch.benchmarks import check_regression as tgate
 from repro_torch.benchmarks import figures as tfig
-from repro_torch.benchmarks import hardware, run
+from repro_torch.benchmarks import hardware, roofline, run
 
 torch.set_num_threads(1)
 
@@ -245,14 +245,52 @@ def test_run_quick_writes_nothing_and_full_runs_write_to_build(
     outputs = (ROOT / "BENCH_relay.json", run.RELAY_JSON,
                run.RELAY_JSON_H100)
     before = _stamps(*outputs)
+    # no dry-run artifacts: no roofline row, as the reference's load()
+    # returns [] (the rows themselves: the next test)
+    monkeypatch.setattr(roofline, "ARTIFACTS", tmp_path / "dryrun")
     run.main(["--quick", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
     assert any(r.startswith("fig12/L") for r in out)
-    assert out[-1] == \
-        "roofline,0,unavailable: not ported (ROADMAP Queue 1, item 10)"
+    assert not any(r.startswith("roofline") for r in out)
     assert _stamps(*outputs) == before
     assert list(tmp_path.iterdir()) == []
+
+
+def test_run_prints_the_roofline_of_dry_run_records(tmp_path, monkeypatch,
+                                                    capsys):
+    """With dry-run records in the artifact directory ``run`` prints one
+    ``roofline/<arch>/<shape>`` row per 16 x 16 record, as the
+    reference's does: the bound in microseconds at the H100's peak for
+    the config's type (float32 for hstu_gr: 67e12 FLOP/s) and HBM rate
+    (3.35e12 B/s), the dominant term and the useful share."""
+    def rec(shape, mesh, flops, nbytes, status="ok"):
+        r = {"arch": "hstu_gr", "shape": shape, "mesh": mesh,
+             "status": status, "n_chips": 256, "jaxpr_flops_global": flops,
+             "memory": {"argument_size_in_bytes": nbytes,
+                        "output_size_in_bytes": 0,
+                        "temp_size_in_bytes": None}}
+        (tmp_path / f"baseline__hstu_gr__{shape}__{mesh}.json").write_text(
+            json.dumps(r))
+
+    rec("train_4k", "16x16", 256 * 67e12, 3.35e9)
+    rec("decode_32k", "16x16", 256 * 67e9, 2 * 3.35e12)
+    rec("prefill_32k", "1x1", 1e12, 1e9)
+    rec("long_500k", "16x16", 0, 0, status="skipped")
+    monkeypatch.setattr(roofline, "ARTIFACTS", tmp_path)
+    run.print_roofline()
+    out = capsys.readouterr().out.splitlines()
+    assert [r.split(",")[:2] for r in out] == [
+        ["roofline/hstu_gr/decode_32k", "2000000.0"],
+        ["roofline/hstu_gr/train_4k", "1000000.0"]]
+    assert out[0].endswith("dominant=memory useful=" + str(round(
+        roofline.model_flops(*_hstu_decode()) / (256 * 67e9), 3)))
+    assert "dominant=compute" in out[1]
+
+
+def _hstu_decode():
+    from repro_torch.models import INPUT_SHAPES, get_config
+    return get_config("hstu_gr"), INPUT_SHAPES["decode_32k"]
 
 
 def _synthetic_points(hw, cfg, lens=(1024, 4096, 16384)):

@@ -358,31 +358,37 @@ def test_ops_model_layout(S):
 
 
 def test_cpu_path_counts_no_launch_and_other_devices_raise():
-    """CPU tensors take the plain version without counting a launch;
-    any other device goes to the kernel launcher, which refuses what is
-    not CUDA — there is no silent fallback."""
+    """CPU tensors, and the dry-run's meta tensors (shapes only, nothing
+    computed), take the plain version without counting a launch; the
+    kernel launchers refuse any tensor that is not CUDA — there is no
+    silent fallback."""
     before = (hstu_attn.launches, prefix_rank_attn.launches,
               paged_prefix_attn.launches, paged_prefix_attn.launches_segment)
-    q = torch.zeros(1, 1, 4, 32)
-    hstu_attn.hstu_attn(q, q, q)
-    prefix_rank_attn.prefix_rank_attn_split(q, q, q, q, q, n_incr=2)
     pool = torch.zeros(2, 4, 1, 32)
     rows = torch.zeros(1, 1, dtype=torch.int32)
     qpos = torch.arange(4, dtype=torch.int32)[None]
-    paged_prefix_attn.segment_rank_attn(q, pool, pool, rows, rows, rows,
-                                        rows, qpos, q, q, n_items=2)
+    for dev in ("cpu", "meta"):
+        q = torch.zeros(1, 1, 4, 32, device=dev)
+        p, r, qp = pool.to(dev), rows.to(dev), qpos.to(dev)
+        outs = (hstu_attn.hstu_attn(q, q, q),
+                prefix_rank_attn.prefix_rank_attn_split(q, q, q, q, q,
+                                                        n_incr=2),
+                paged_prefix_attn.segment_rank_attn(q, p, p, r, r, r, r, qp,
+                                                    q, q, n_items=2))
+        for o in outs:
+            assert o.device.type == dev and tuple(o.shape) == (1, 1, 4, 32)
     assert (hstu_attn.launches, prefix_rank_attn.launches,
             paged_prefix_attn.launches,
             paged_prefix_attn.launches_segment) == before
-    m = torch.zeros(1, 1, 4, 32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        hstu_attn.hstu_attn(m, m, m)
-    with pytest.raises(ValueError, match="CUDA"):
-        prefix_rank_attn.prefix_rank_attn_split(m, m, m, m, m, n_incr=2)
-    mp, mr = pool.to("meta"), rows.to("meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        paged_prefix_attn.segment_rank_attn(m, mp, mp, mr, mr, mr, mr,
-                                            qpos.to("meta"), m, m, n_items=2)
+    for dev in ("cpu", "meta"):
+        q = torch.zeros(1, 1, 4, 32, device=dev)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_lib.rank_attn(q, q, q, n_incr=4, n_total=4.0)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_lib.decode_attn(q[:, 0], q, q)
+        x = torch.zeros(1, 1, 4, 1, 32, device=dev)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_lib.ssd_chunk("state", None, q, x, q, q)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -700,26 +706,32 @@ def test_ssd_intra_f64_limit_fails_tf32(rate):
 
 
 def test_hybrid_wrappers_count_no_cpu_launch_and_other_devices_raise():
-    """CPU tensors take the plain twins without counting a launch; a
-    tensor elsewhere goes to the launcher, which refuses what is not
+    """CPU tensors, and the dry-run's meta tensors, take the plain twins
+    without counting a launch; the launchers refuse a tensor that is not
     CUDA — there is no silent fallback."""
     before = (decode_attn.launches, ssd_chunk.launches_intra,
               ssd_chunk.launches_state)
-    q, kv = torch.zeros(1, 4, 32), torch.zeros(1, 8, 2, 32)
-    decode_attn.decode_attn(q, kv, kv)
-    c, x, h = torch.zeros(1, 1, 8, 16), torch.zeros(1, 1, 8, 2, 32), \
-        torch.zeros(1, 1, 8, 2)
-    ssd_chunk.ssd_chunk_intra(c, c, x, h, h)
-    ssd_chunk.ssd_chunk_state(c, x, h, h)
+    for dev in ("cpu", "meta"):
+        q, kv = torch.zeros(1, 4, 32, device=dev), \
+            torch.zeros(1, 8, 2, 32, device=dev)
+        c, x, h = torch.zeros(1, 1, 8, 16, device=dev), \
+            torch.zeros(1, 1, 8, 2, 32, device=dev), \
+            torch.zeros(1, 1, 8, 2, device=dev)
+        outs = (decode_attn.decode_attn(q, kv, kv),
+                ssd_chunk.ssd_chunk_intra(c, c, x, h, h),
+                ssd_chunk.ssd_chunk_state(c, x, h, h))
+        assert [tuple(o.shape) for o in outs] == [
+            (1, 4, 32), (1, 1, 8, 2, 32), (1, 1, 2, 16, 32)]
+        assert all(o.device.type == dev for o in outs)
     assert (decode_attn.launches, ssd_chunk.launches_intra,
             ssd_chunk.launches_state) == before
     m = lambda t: t.to("meta")
     with pytest.raises(ValueError, match="CUDA"):
-        decode_attn.decode_attn(m(q), m(kv), m(kv))
+        cuda_lib.decode_attn(m(q), m(kv), m(kv))
     with pytest.raises(ValueError, match="CUDA"):
-        ssd_chunk.ssd_chunk_intra(m(c), m(c), m(x), m(h), m(h))
+        cuda_lib.ssd_chunk("intra", m(c), m(c), m(x), m(h), m(h))
     with pytest.raises(ValueError, match="CUDA"):
-        ssd_chunk.ssd_chunk_state(m(c), m(x), m(h), m(h))
+        cuda_lib.ssd_chunk("state", None, m(c), m(x), m(h), m(h))
 
 
 def _struct_members(src: str, struct: str):
