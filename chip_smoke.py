@@ -27,7 +27,15 @@ Phases, each fatal on failure (nothing is caught):
      to TF32) misses that limit; time each kernel per wrapper call
      (``ms``) and per launch by CUDA-graph replay (``graph_ms``), beside
      its FP32 and 3xTF32 bounds, and the plain version per call, with
-     CUDA events;
+     CUDA events; then rows 1-4 with bf16 inputs at their main shapes
+     (B 8): each bf16 launch equal bit for bit to the float32 launch on
+     the widened inputs, rounded to bf16; that float32 launch within
+     1e-5 of the largest |out| of float64 on the widened inputs, the
+     bf16 output within its rounding (2**-8 of |out|) plus 1e-5; within
+     BF16_TWIN of the largest |out| of its bf16 twin;
+     two calls, paged == dense, one-span segment == paged and a row
+     against its batch bit for bit, in bf16; timed as above, the bound
+     at bf16 bytes;
   4. serve 24 requests at full ``hstu-gr`` width through
      ``repro_torch.launch.serve.main`` — live, ``--batched``,
      ``--batched --device-pool``, ``--segments --device-pool`` and
@@ -42,6 +50,13 @@ Phases, each fatal on failure (nothing is caught):
      tally must equal the counters;
   5. the relay-vs-full eps contract at full width, and full-width scores
      on the card against the same weights on the CPU;
+  5a. ``bf16``: a bf16 ``hstu-gr`` (``dataclasses.replace(cfg,
+     dtype="bfloat16")``) at full width, random weights from a seed: the
+     five serve modes of phase 4 with graphs and their checks, the
+     counters zeroed just before and read just after each (rows 1-4
+     launched at bf16), hits, rank p50 / p99; psi's bytes a user at 2048
+     tokens; |relay - full| within BF16_RELAY_REL and card vs the port
+     on the CPU within BF16_CPU_REL of the largest |score|;
   5b. ``graphs``: CUDA graphs against eager launches, in turns — the B=1
      ``rank_with_cache`` (wall, device busy, idle share), the copy of
      dense psi into a graph's static psi, serve's rank p50 / p99 in the
@@ -72,13 +87,21 @@ Phases, each fatal on failure (nothing is caught):
      single-pass TF32 misses) — timed per wrapper call beside their
      bound (and row 6's 3xTF32 one), per launch by CUDA-graph replay,
      and, in turns with the kernel, the one PyTorch call that computes
-     the same function; then, after a warm-up prefill at the same shape,
+     the same function; the SSD kernels on bf16 x, B and C (strided
+     views of one xBC, as the model hands them over): each launch equal
+     bit for bit to the float32 launch on widened inputs (the intra's
+     bf16 output to it rounded), float64 within 1e-5, rows and repeat
+     calls bit for bit, timed at bf16 bytes; then, after a warm-up
+     prefill at the same shape,
      2 prompts x 8192 tokens through
      ``make_prefill_step`` (eager) and 32
      greedy steps through ``make_serve_step`` (a CUDA-graph replay per
      step after the first), counters zeroed
      just before each and read just after (38 + 38 SSD launches per
-     prefill, 6 decode launches per step); the decode again eagerly and
+     prefill, every one taking bf16 x, B and C, 6 decode launches per
+     step); layer 0's Mamba2 mixer at 2 x 8192 equal bit for bit to the
+     route that hands each SSD kernel float32 copies; the decode again
+     eagerly and
      with graphs, in turns, from copies of the post-prefill cache, with
      identical greedy tokens; a profile of one prefill (with the SSD
      kernels' share of its wall) and one decode step each way; and
@@ -184,7 +207,10 @@ Phases, each fatal on failure (nothing is caught):
      LMT_ADAMW), 2 warm-up and 10 timed AdamW steps through
      ``make_train_step``, the counters zeroed between and read after
      (76 launches of each SSD kernel a step: 38 forward, 38 in the
-     checkpoint's recompute; the backward launches none), ms/step,
+     checkpoint's recompute; the backward launches none; every launch
+     takes bf16 x, B and C), layer 0's Mamba2 mixer at 2 x 4096,
+     forward and backward, equal bit for bit to the float32-copy route
+     (output, states and every gradient), ms/step,
      tokens/s, peak memory (under 75 GiB), a finite loss that falls
      (the last 3 steps' mean below the first 3's, and on the first
      batch after the last step below before the first), every gradient
@@ -257,6 +283,14 @@ RAGGED = [2048, 1500, 933, 103, 2048, 640, 1, 1777]   # per-row psi tokens
 # per row: ('c', n) a cached span, ('f', n) fresh tokens (the last 64 items)
 SEG_PATTERN = [("c", PSI), ("f", 8), ("c", 96), ("f", 8), ("c", 160),
                ("f", N_ITEMS)]
+
+# bf16 inputs (rows 1-4 and 6-7 widen on load, as the Pallas kernels do)
+BF16_OUT = 2 ** -8  # a bf16 output's rounding, of its |value|
+# bf16 kernel vs its bf16 twin, of the twin's largest |out|: the twins of
+# rows 1-4 round their logits and scores to bf16 (the reference's
+# oracles), the kernel keeps float32 (0.004-0.006 on the CPU at these
+# shapes, the twin against the widened float32 twin rounded to bf16)
+BF16_TWIN = 2 ** -6
 
 HYB_B, HYB_S, HYB_STEPS = 2, 8192, 32     # prompts, tokens each, decode steps
 HYB_CPU_S, HYB_CPU_STEPS = 256, 4         # card-vs-CPU check
@@ -512,6 +546,185 @@ def kernel_phase(torch, results):
     segment_checks(torch, results, gen, check)
     f32_accuracy(torch, results)
     log("kernels agree with their plain versions; bitwise properties hold")
+    bf16_rank_checks(torch, results)
+
+
+def _floats(args, fn):
+    """``args`` with ``fn`` applied to every floating tensor (tables and
+    lengths pass as they are)."""
+    return {k: fn(v) if hasattr(v, "is_floating_point")
+            and v.is_floating_point() else v for k, v in args.items()}
+
+
+def _bf16_case(torch, results, name, shape, call, plain, args, flops,
+               nbytes, f64=True):
+    """One kernel at bf16 at one shape: ``call`` / ``plain`` take the
+    dict ``args`` (made in float32, rounded to bf16 here).  (a) the bf16
+    launch equals the float32 launch on the widened inputs, rounded to
+    bf16, bit for bit; (b) against float64 on the widened inputs (the
+    twin in float64): that float32 launch within F64_REL of the largest
+    |out|, the bf16 output within its rounding plus F64_REL; against the
+    bf16 twin within BF16_TWIN of its largest
+    |out| (an all-zero output errs by 1); two calls bit for bit; times
+    per call and by graph beside the bound at bf16 bytes.  Returns the
+    bf16 output."""
+    bf = _floats(args, lambda t: t.bfloat16())
+    wide = _floats(bf, lambda t: t.float())
+    got = call(bf)
+    assert got.dtype == torch.bfloat16, f"{name}: bf16 launch wrote {got.dtype}"
+    f32 = call(wide)
+    assert torch.equal(got, f32.bfloat16()), (
+        f"{name} bf16: != the float32 launch on widened inputs, rounded")
+    assert torch.equal(call(bf), got), f"{name} bf16: two calls differ"
+    want = plain(bf).float()
+    top = want.abs().max().item()
+    twin = (got.float() - want).abs().max().item() / top
+    assert twin <= BF16_TWIN, (
+        f"{name} bf16: |kernel - twin| {twin:.2e} of max |twin| over "
+        f"{BF16_TWIN}")
+    f64_rel = f32_rel = None
+    if f64:
+        ref64 = plain(_floats(wide, lambda t: t.double()))
+        top64 = ref64.abs().max().item()
+        f32_rel = (f32.double() - ref64).abs().max().item() / top64
+        assert f32_rel <= F64_REL, (
+            f"{name} bf16: the float32 launch on widened inputs errs "
+            f"{f32_rel:.2e} of max |out| against float64 (limit {F64_REL})")
+        err = (got.double() - ref64).abs()
+        lim = BF16_OUT * ref64.abs() + (1 + BF16_OUT) * F64_REL * top64
+        assert bool((err <= lim).all()), (
+            f"{name} bf16: |kernel - float64| over its rounding + {F64_REL} "
+            f"of max |out| by {(err - lim).max().item():.3e}")
+        f64_rel = err.max().item() / top64
+    t = _rank_times(torch, lambda: call(bf), lambda: plain(bf), flops, nbytes)
+    r = dict(shape, dtype="bfloat16", twin_rel=twin, f64_rel=f64_rel,
+             f64_rel_before_rounding=f32_rel, **t)
+    results[name].setdefault("bf16", []).append(r)
+    log(f"{name} bf16 {shape}: == f32 launch on widened inputs (rounded) "
+        f"bit for bit; twin {twin:.2e} of max |twin|, float64 {f64_rel} of "
+        f"max |out| ({f32_rel} before the rounding); kernel {t['ms']:.4f} ms "
+        f"(graph {t['graph_ms']:.4f}) "
+        f"plain {t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}), 3xTF32 {t['bound_tf32_ms']:.4f} ms")
+    return got
+
+
+def bf16_rank_checks(torch, results):
+    """Rows 1-4 with bf16 inputs at their main shapes (B 8; psi 2048, 16
+    incr + 64 items, ragged rows at 64-token pages; the segment pattern):
+    ``_bf16_case`` each, and the bitwise properties in bf16 -- paged ==
+    dense at equal padded length, one-span segment == paged, and a row's
+    bits do not depend on its batch."""
+    from repro_torch.kernels import hstu_attn as hk
+    from repro_torch.kernels import paged_prefix_attn as pk
+    from repro_torch.kernels import prefix_rank_attn as rk
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    act = lambda *shape: torch.nn.functional.silu(
+        2 * torch.randn(shape, generator=gen, device=dev))
+    B, Sq = 8, N_INCR + N_ITEMS
+    case = lambda *a, **k: _bf16_case(torch, results, *a, **k)
+
+    a = dict(q=act(B, H, PSI, D), k=act(B, H, PSI, D), v=act(B, H, PSI, D))
+    got = case("hstu_attn", dict(B=B, S=PSI, main=True),
+               lambda x: hk.hstu_attn(x["q"], x["k"], x["v"]),
+               lambda x: hk.hstu_attn_plain(x["q"], x["k"], x["v"]), a,
+               4 * D * B * H * PSI * (PSI + 1) // 2, 2 * 4 * B * H * PSI * D)
+    bf = _floats(a, lambda t: t.bfloat16())
+    for b in range(B):
+        one = hk.hstu_attn(*(bf[k][b:b + 1] for k in "qkv"))
+        assert torch.equal(one[0], got[b]), "hstu_attn bf16: batch-dependent row"
+
+    # prefix_rank_attn and paged: one pool of distinct, shuffled K and V
+    # pages, ragged rows; the dense prefix gathered from it
+    n_pages = PSI // PAGE
+    n_pool = 2 * B * n_pages
+    pool = act(n_pool + 1, PAGE, H, D)
+    pool[n_pool] = 0
+    perm = torch.randperm(n_pool, generator=gen, device=dev).int()
+    kt = torch.full((B, n_pages), n_pool, dtype=torch.int32, device=dev)
+    vt = kt.clone()
+    lens = RAGGED[:B]
+    for b, ln in enumerate(lens):
+        used = -(-ln // PAGE)
+        kt[b, :used] = perm[2 * b * n_pages:2 * b * n_pages + used]
+        vt[b, :used] = perm[(2 * b + 1) * n_pages:(2 * b + 1) * n_pages + used]
+    plens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    new = dict(q=act(B, H, Sq, D), kn=act(B, H, Sq, D), vn=act(B, H, Sq, D))
+    pb = pool.bfloat16()
+    dense_args = dict(new, kp=ref.gather_pages(pb, kt, plens).float(),
+                      vp=ref.gather_pages(pb, vt, plens).float())
+    dense_call = lambda x: rk.prefix_rank_attn_split(
+        x["q"], x["kp"], x["vp"], x["kn"], x["vn"], n_incr=N_INCR)
+    dense_plain = lambda x: rk.prefix_rank_attn_plain(
+        x["q"], torch.cat([x["kp"], x["kn"]], 2),
+        torch.cat([x["vp"], x["vn"]], 2), n_prefix=PSI, n_incr=N_INCR)
+    pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * B * PSI
+    dense = case("prefix_rank_attn", dict(B=B, P=PSI, n_incr=N_INCR,
+                                          n_items=N_ITEMS, main=True),
+                 dense_call, dense_plain, dense_args, 4 * D * pairs,
+                 2 * (4 * B * H * Sq * D + 2 * B * PSI * H * D))
+    paged_args = dict(new, pool=pool)
+    paged_call = lambda x: pk.paged_prefix_rank_attn(
+        x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
+        n_incr=N_INCR)
+    paged_plain = lambda x: pk.paged_prefix_rank_attn_plain(
+        x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
+        n_incr=N_INCR)
+    held = sum(lens)
+    pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * held
+    paged = case("paged_prefix_rank_attn", dict(
+        B=B, P=PSI, n_incr=N_INCR, n_items=N_ITEMS, prefix_tokens=held,
+        main=True), paged_call, paged_plain, paged_args, 4 * D * pairs,
+        2 * (4 * B * H * Sq * D + 2 * held * H * D) + 4 * (2 * kt.numel() + B))
+    assert torch.equal(paged, dense), "bf16: paged != dense bitwise"
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * PAGE
+            ).expand(B, n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, PAGE).int()
+    qpos = (PSI + torch.arange(Sq, dtype=torch.int32, device=dev)).expand(B, Sq)
+    nb = _floats(new, lambda t: t.bfloat16())
+    one_span = pk.segment_rank_attn(nb["q"], pb, pb, kt, vt, ppos, pval, qpos,
+                                    nb["kn"], nb["vn"], n_items=N_ITEMS)
+    assert torch.equal(one_span, paged), "bf16: one-span segment != paged bitwise"
+    db = _floats(dense_args, lambda t: t.bfloat16())
+    for b in range(B):
+        s = slice(b, b + 1)
+        one_d = rk.prefix_rank_attn_split(db["q"][s], db["kp"][s], db["vp"][s],
+                                          db["kn"][s], db["vn"][s],
+                                          n_incr=N_INCR)
+        one_p = pk.paged_prefix_rank_attn(nb["q"][s], pb, pb, kt[s], vt[s],
+                                          plens[s], nb["kn"][s], nb["vn"][s],
+                                          n_incr=N_INCR)
+        assert torch.equal(one_d[0], dense[b]), "bf16 dense: batch-dependent row"
+        assert torch.equal(one_p[0], paged[b]), "bf16 paged: batch-dependent row"
+
+    # segment_rank_attn: the segment pattern in every row
+    seg = _segment_inputs(torch, gen, B)
+    n_items = seg.pop("n_items")
+    seg_call = lambda x: pk.segment_rank_attn(**x, n_items=n_items)
+    seg_plain = lambda x: pk.segment_rank_attn_plain(**x, n_items=n_items)
+    kpos = ref.span_key_positions(seg["page_pos"], seg["page_valid"], PAGE)
+    Sq = seg["q"].shape[2]
+    cached = (kpos[:, None, :] <= seg["q_pos"][:, :, None]).sum().item()
+    held = (kpos != ref.HIDDEN).sum().item()
+    pairs = H * (cached + B * _visible_new(Sq, Sq - N_ITEMS))
+    got = case("segment_rank_attn", dict(
+        B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS,
+        spans=[n for kind, n in SEG_PATTERN if kind == "c"], main=True),
+        seg_call, seg_plain, seg, 4 * D * pairs,
+        2 * (4 * B * H * Sq * D + 2 * held * H * D)
+        + 4 * (4 * seg["k_table"].numel() + B * Sq))
+    sb = _floats(seg, lambda t: t.bfloat16())
+    for b in range(B):
+        one = pk.segment_rank_attn(**{
+            k: v[b:b + 1] if k not in ("k_pages", "v_pages") else v
+            for k, v in sb.items()}, n_items=n_items)
+        assert torch.equal(one[0], got[b]), "bf16 segment: batch-dependent row"
+    log("bf16 rank kernels: each == the float32 launch on widened inputs "
+        "(rounded) bit for bit; paged == dense, one-span segment == paged, "
+        "rows independent of the batch, in bf16")
 
 
 def f32_accuracy(torch, results):
@@ -733,25 +946,30 @@ def serve_run(torch, flags, requests):
                     keys=len(runner.graphs)))
 
 
-def serve_phase(torch, results, requests):
-    seg_must = ("hstu_attn", "segment_rank_attn")
-    # (mode, flags, kernels that must launch, kernels that must not)
-    modes = (("live", [], ("hstu_attn", "prefix_rank_attn"), ()),
-             ("batched", ["--batched"], ("hstu_attn", "prefix_rank_attn"), ()),
-             ("batched-device-pool", ["--batched", "--device-pool"],
-              ("hstu_attn", "paged_prefix_rank_attn"), ("segment_rank_attn",)),
-             ("segments-device-pool", ["--segments", "--device-pool"],
-              seg_must, ("paged_prefix_rank_attn",)),
-             ("batched-segments-device-pool",
-              ["--batched", "--segments", "--device-pool"], seg_must,
-              ("paged_prefix_rank_attn",)))
-    for mode, flags, must, must_not in modes:
+_SEG_MUST = ("hstu_attn", "segment_rank_attn")
+# (mode, flags, kernels that must launch, kernels that must not)
+SERVE_MODES = (
+    ("live", [], ("hstu_attn", "prefix_rank_attn"), ()),
+    ("batched", ["--batched"], ("hstu_attn", "prefix_rank_attn"), ()),
+    ("batched-device-pool", ["--batched", "--device-pool"],
+     ("hstu_attn", "paged_prefix_rank_attn"), ("segment_rank_attn",)),
+    ("segments-device-pool", ["--segments", "--device-pool"], _SEG_MUST,
+     ("paged_prefix_rank_attn",)),
+    ("batched-segments-device-pool",
+     ["--batched", "--segments", "--device-pool"], _SEG_MUST,
+     ("paged_prefix_rank_attn",)))
+
+
+def serve_phase(torch, results, requests, tag="serve", store="_serve"):
+    """The five serve modes at full width, each kernel of a mode launched
+    (``tag`` names the run in the log; ``store`` where it is kept)."""
+    for mode, flags, must, must_not in SERVE_MODES:
         r = serve_run(torch, flags, requests)
         hits, counts = r["hits"], r["launches"]
-        log(f"serve {mode}: {r['wall_s']:.1f} s hits={hits} launches={counts} "
+        log(f"{tag} {mode}: {r['wall_s']:.1f} s hits={hits} launches={counts} "
             f"rank p50 {r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms, "
             f"graphs {r['graphs']}")
-        log(f"serve {mode}: launches by batch size {r['by_batch']}")
+        log(f"{tag} {mode}: launches by batch size {r['by_batch']}")
         assert r["graphs"] is not None, f"{mode}: served without graphs"
         assert hits.get("hbm_hit", 0) > 0, f"{mode}: no hbm_hit in {hits}"
         for n in must:
@@ -760,9 +978,77 @@ def serve_phase(torch, results, requests):
             assert counts[n] == 0, f"{mode}: {n} launched {counts[n]} times"
         for n, c in counts.items():
             results[n]["launches"] += c
-        results["_serve"][mode] = r
+        results.setdefault(store, {})[mode] = r
     for n in RANK_COUNTERS:
         assert results[n]["launches"] > 0, f"{n} never launched on the main path"
+
+
+# --- phase 5a: the HSTU relay at bf16 ---------------------------------------------
+
+BF16_RELAY_REL = BF16_OUT    # |relay - full| at bf16, of the largest |score|
+# card vs the port on the CPU at bf16, of the largest |score|: the card's
+# kernels round once from float32, the CPU twins round logits and scores
+# to bf16 (the reference's oracles) -- bf16 ulps apart at every layer
+BF16_CPU_REL = 2 ** -4
+
+
+def bf16_phase(torch, results, requests):
+    """A bf16 ``hstu-gr`` (``dataclasses.replace(cfg, dtype="bfloat16")``)
+    at full width, random weights from a seed: the five serve modes of
+    phase 4 with CUDA graphs, every counter zeroed just before and read
+    just after each (rows 1-4 at bf16: each launched where its mode
+    reaches it); psi's bytes per user; the relay-vs-full contract and
+    card vs the port on the CPU, at stated bf16 limits."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, get_config
+
+    bf16 = lambda cfg: dataclasses.replace(cfg, dtype="bfloat16")
+    get = serve.get_config
+    serve.get_config = lambda arch, smoke=False: bf16(get(arch, smoke=smoke))
+    before = {n: results[n]["launches"] for n in RANK_COUNTERS}
+    try:
+        serve_phase(torch, results, requests, tag="bf16 serve", store="_bf16")
+    finally:
+        serve.get_config = get
+    for n in RANK_COUNTERS:
+        results[n]["launches_bf16"] = (results[n].get("launches_bf16", 0)
+                                       + results[n]["launches"] - before[n])
+        assert results[n]["launches_bf16"] > 0, f"{n}: no bf16 launch"
+
+    cfg = bf16(get_config("hstu-gr"))
+    gpu = build_model(cfg, device="cuda").init(torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab, (1, PSI))
+    incr = rng.integers(0, cfg.vocab, (1, N_INCR))
+    items = rng.integers(0, cfg.vocab, (1, N_ITEMS))
+    on = lambda a, m: torch.as_tensor(a, device=m.device)
+    _, psi = gpu.prefill({"tokens": on(prefix, gpu)})
+    psi_bytes = _nbytes(psi)
+    assert psi[0].dtype == torch.bfloat16
+    assert psi_bytes == gpu.kv_bytes(PSI), (psi_bytes, gpu.kv_bytes(PSI))
+    relay = gpu.rank_with_cache(psi, on(incr, gpu), on(items, gpu))
+    full = gpu.full_rank(on(prefix, gpu), on(incr, gpu), on(items, gpu))
+    assert relay.dtype == torch.bfloat16 and torch.isfinite(relay).all()
+    top = full.float().abs().max().item()
+    eps = (relay.float() - full.float()).abs().max().item() / top
+    assert eps <= BF16_RELAY_REL, f"bf16 |relay - full| {eps:.3e} of max |score|"
+    want = cpu.full_rank(on(prefix, cpu), on(incr, cpu), on(items, cpu)).float()
+    scale = max(want.abs().max().item(), 1.0)
+    diff = (full.float().cpu() - want).abs().max().item() / scale
+    assert diff <= BF16_CPU_REL, (
+        f"bf16 card vs CPU scores differ by {diff:.3e} of max |score|")
+    f32 = results.get("_relay", {})
+    log(f"bf16 relay ({cfg.n_layers} layers, d {cfg.d_model}): psi "
+        f"{psi_bytes / 1e6:.1f} MB a user at {PSI} tokens (float32: "
+        f"{2 * psi_bytes / 1e6:.1f} MB); |relay - full| {eps:.2e} of max "
+        f"|score| (limit {BF16_RELAY_REL}); card vs CPU {diff:.3e} of max "
+        f"|score| (limit {BF16_CPU_REL}); the f32 relay phase: {f32}")
+    results["_bf16_relay"] = dict(psi_bytes=psi_bytes, psi_tokens=PSI,
+                                  eps=eps, card_vs_cpu=diff, max_score=top)
 
 
 # --- phase 5: eps contract + card vs CPU ------------------------------------------
@@ -1089,6 +1375,183 @@ def _ssd_inputs(torch, gen, B, nc, Q, H=64, P=64, N=64):
     return Cc, Bc, xc, cum, dtc
 
 
+def _ssd_bf16_inputs(torch, gen, B, nc, Q, H=64, P=64, N=64):
+    """The SSD stages' inputs as the bf16 model hands them over: x, B, C
+    strided bf16 views of one (B, L, H P + 2 N) xBC (no copy); cum and
+    dt float32 as in ``_ssd_inputs``."""
+    dev = torch.device("cuda")
+    L = nc * Q
+    xBC = torch.randn((B, L, H * P + 2 * N), generator=gen,
+                      device=dev).bfloat16()
+    xc = xBC[..., :H * P].view(B, nc, Q, H, P)
+    Bc = xBC[..., H * P:H * P + N].reshape(B, nc, Q, N)
+    Cc = xBC[..., H * P + N:].reshape(B, nc, Q, N)
+    dtc = torch.nn.functional.softplus(
+        torch.randn((B, nc, Q, H), generator=gen, device=dev))
+    A = -torch.exp(0.5 * torch.randn(H, generator=gen, device=dev))
+    return Cc, Bc, xc, torch.cumsum(dtc * A, dim=2), dtc
+
+
+def ssd_bf16_checks(torch, results, gen):
+    """Rows 6-7 on bf16 x, B, C (strided views of one xBC, as the model
+    hands them over) at the prefill shape and a ragged chunk: (a) the
+    intra launch writing float32 (the model's) equals the float32 launch
+    on widened inputs bit for bit, the one writing bf16 (the Pallas
+    kernel's default) equals it rounded, the state equals the float32
+    state launch bit for bit; the twins (which widen too) within the
+    float32 tolerance; (b) against float64 on the widened inputs within
+    F64_REL of the largest |out| (at the prefill shape); two calls and
+    the rows of the batch bit for bit; times beside the bound at bf16
+    bytes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as sk
+
+    f32 = torch.float32
+    for B, nc, Q in ((HYB_B, HYB_S // 128, 128), (HYB_B, 1, 100)):
+        Cc, Bc, xc, cum, dtc = _ssd_bf16_inputs(torch, gen, B, nc, Q)
+        H, P, N = xc.shape[3], xc.shape[4], Bc.shape[3]
+        main = (B, nc * Q) == (HYB_B, HYB_S)
+        shape = dict(B=B, L=nc * Q, Q=Q, H=H, P=P, N=N, main=main,
+                     dtype="bfloat16")
+        wC, wB, wx = (t.float() for t in (Cc, Bc, xc))
+        y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc, out_dtype=f32)
+        assert torch.equal(y, sk.ssd_chunk_intra(wC, wB, wx, cum, dtc)), (
+            "ssd_chunk_intra bf16: != the float32 launch on widened inputs")
+        yb = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc)
+        assert yb.dtype == torch.bfloat16 and torch.equal(yb, y.bfloat16()), (
+            "ssd_chunk_intra bf16 out: != the float32 launch, rounded")
+        assert torch.equal(sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc,
+                                              out_dtype=f32), y), \
+            "ssd_chunk_intra bf16: two calls differ"
+        for b in range(B):
+            s = slice(b, b + 1)
+            one = sk.ssd_chunk_intra(Cc[s], Bc[s], xc[s], cum[s], dtc[s],
+                                     out_dtype=f32)
+            assert torch.equal(one[0], y[b]), \
+                "ssd_chunk_intra bf16: batch-dependent row"
+        st = sk.ssd_chunk_state(Bc, xc, cum, dtc)
+        assert torch.equal(st, sk.ssd_chunk_state(wB, wx, cum, dtc)), (
+            "ssd_chunk_state bf16: != the float32 launch on widened inputs")
+        assert torch.equal(sk.ssd_chunk_state(Bc, xc, cum, dtc), st), \
+            "ssd_chunk_state bf16: two calls differ"
+        e_i = _check(results, "ssd_chunk_intra", y,
+                     sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc, f32))
+        e_s = _check(results, "ssd_chunk_state", st,
+                     sk.ssd_chunk_state_ref(Bc, xc, cum, dtc))
+        rel = {}
+        if main:
+            for name, got, want in (
+                    ("ssd_chunk_intra", y,
+                     ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dtc)),
+                    ("ssd_chunk_state", st, _state_f64(Bc, xc, cum, dtc))):
+                rel[name] = ((got.double() - want).abs().max().item()
+                             / want.abs().max().item())
+                assert rel[name] <= F64_REL, (
+                    f"{name} bf16: |kernel - float64| {rel[name]:.2e} of max "
+                    f"|out| over {F64_REL}")
+        kept = Q * (Q + 1) // 2
+        for name, fn, plain, e, flops, nbytes in (
+                ("ssd_chunk_intra",
+                 lambda: sk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc, out_dtype=f32),
+                 lambda: sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc, f32), e_i,
+                 B * nc * (2 * Q * Q * N + H * kept * (2 * P + 4)),
+                 2 * (2 * B * nc * Q * N + B * nc * Q * H * P)
+                 + 4 * (B * nc * Q * H * P + 2 * B * nc * Q * H)),
+                ("ssd_chunk_state", lambda: sk.ssd_chunk_state(Bc, xc, cum, dtc),
+                 lambda: sk.ssd_chunk_state_ref(Bc, xc, cum, dtc), e_s,
+                 B * nc * H * (2 * Q * N * P + 3 * Q),
+                 2 * (B * nc * Q * N + B * nc * Q * H * P)
+                 + 4 * (2 * B * nc * Q * H + B * nc * H * N * P))):
+            bound_ms, by = _bound(flops, nbytes)
+            t = dict(ms=_time_ms(torch, fn), graph_ms=_graph_ms(torch, fn),
+                     plain_ms=_time_ms(torch, plain, 5), library_ms=None,
+                     bound_ms=bound_ms, bound_by=by,
+                     bound_tf32_ms=(_bound_tf32(flops, nbytes)
+                                    if name == "ssd_chunk_intra" else None))
+            results[name].setdefault("bf16", []).append(dict(
+                shape, max_abs_err=e, f64_rel=rel.get(name), **t))
+            log(f"{name} bf16 {shape}: == f32 launch on widened inputs bit for "
+                f"bit; err vs twin {e:.2e}, float64 {rel.get(name)} of max "
+                f"|out|; kernel {t['ms']:.4f} ms (graph {t['graph_ms']:.4f}) "
+                f"plain {t['plain_ms']:.4f} ms bound {bound_ms:.4f} ms ({by})")
+        del Cc, Bc, xc, y, yb, st, wC, wB, wx
+
+
+def _ssd_spy(torch):
+    """Record the types x, B and C reach each SSD launch in: returns
+    (the list of (kind, C, B, x) types, restore)."""
+    from repro_torch.kernels import cuda_lib
+    launch, seen = cuda_lib.ssd_chunk, []
+
+    def spy(kind, Cc, Bc, xc, *a, **k):
+        seen.append((kind, None if Cc is None else Cc.dtype, Bc.dtype,
+                     xc.dtype))
+        return launch(kind, Cc, Bc, xc, *a, **k)
+
+    cuda_lib.ssd_chunk = spy
+    return seen, lambda: setattr(cuda_lib, "ssd_chunk", launch)
+
+
+def _assert_bf16_launches(torch, seen, where):
+    """Every SSD launch of ``seen`` took bf16 x, B and C: no float32 copy
+    of x was made on the way."""
+    assert seen, f"{where}: no SSD launch"
+    wrong = [s for s in seen if any(t not in (None, torch.bfloat16)
+                                    for t in s[1:])]
+    assert not wrong, f"{where}: SSD launches took {set(wrong)}"
+
+
+def ssd_route_check(torch, model, cfg, B, S, grad):
+    """Layer 0's Mamba2 mixer of ``model`` on a bf16 input (B, S, d) -- the
+    embedded prompts -- with x, B and C handed to the SSD kernels in bf16,
+    against the route that hands each kernel float32 copies of them: the
+    output and both states (and, with ``grad``, the gradients of the
+    input and of every mixer weight) equal bit for bit.  Returns the
+    launches' types."""
+    from repro_torch.kernels import ssd_chunk as sk
+    from repro_torch.models.ssm import mamba2_forward
+
+    prefix = "sections.mixer."
+    params = {k[len(prefix):]: v.detach()[0, 0]
+              for k, v in model.named_parameters() if k.startswith(prefix)}
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen).cuda()
+    u0 = model.tok.detach()[toks]
+    g = torch.randn((B, S, cfg.d_model), generator=gen).cuda()
+
+    def run():
+        u = u0.clone().requires_grad_(grad)
+        p = {k: v.clone().requires_grad_(grad) for k, v in params.items()}
+        with torch.set_grad_enabled(grad):
+            y, (ssm_state, conv_state) = mamba2_forward(p, u, cfg)
+            if grad:
+                (y.float() * g).sum().backward()
+        outs = [y, ssm_state, conv_state]
+        if grad:
+            outs += [u.grad] + [p[k].grad for k in sorted(p)]
+        return outs
+
+    seen, restore = _ssd_spy(torch)
+    try:
+        new = run()
+    finally:
+        restore()
+    intra, state = sk.ssd_chunk_intra, sk.ssd_chunk_state
+    sk.ssd_chunk_intra = lambda C, Bm, x, cum, dt, out_dtype=None: intra(
+        C.float(), Bm.float(), x.float(), cum, dt, out_dtype)
+    sk.ssd_chunk_state = lambda Bm, x, cum, dt: state(Bm.float(), x.float(),
+                                                      cum, dt)
+    try:
+        old = run()
+    finally:
+        sk.ssd_chunk_intra, sk.ssd_chunk_state = intra, state
+    for i, (a, b) in enumerate(zip(new, old)):
+        assert a.dtype == b.dtype and torch.equal(a, b), (
+            f"layer 0 at {B} x {S}: output {i} differs from the float32-copy "
+            f"route (max {(a.float() - b.float()).abs().max().item():.3e})")
+    return seen
+
+
 def ssd_f64_accuracy(torch, results, Cc, Bc, xc, cum, dtc):
     """ssd_chunk_intra at the prefill shape against float64, within
     F64_REL of the largest |out|, at the path's decay and at a steep one
@@ -1257,6 +1720,7 @@ def hybrid_kernel_checks(torch, results):
                library=lambda: F.scaled_dot_product_attention(
                    q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                    enable_gqa=True))
+    ssd_bf16_checks(torch, results, gen)
     log("hybrid kernels agree with their plain twins; least share of outputs "
         "an all-zero kernel would fail: " + ", ".join(
             f"{n} {results[n]['zero_fails']:.3f}" for n in
@@ -1305,12 +1769,22 @@ def hybrid_phase(torch, results):
         sk.launches_intra = sk.launches_state = dk.launches = 0
 
     zero()
+    seen, restore = _ssd_spy(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": prompts})
-    torch.cuda.synchronize()
+    try:
+        logits, cache = prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+    finally:
+        restore()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     c_pre = counters()
+    _assert_bf16_launches(torch, seen, "zamba2 prefill")
+    route = ssd_route_check(torch, model, cfg, HYB_B, HYB_S, grad=False)
+    _assert_bf16_launches(torch, route, "zamba2 layer 0")
+    log(f"prefill: all {len(seen)} SSD launches took bf16 x, B, C (no "
+        f"float32 copy); layer 0 at {HYB_B} x {HYB_S} equals the float32-copy "
+        f"route bit for bit (output and states)")
     peak_pre = torch.cuda.max_memory_allocated()
     live_pre = [_nbytes(list(model.parameters())),
                 _nbytes({"tokens": prompts})]
@@ -1318,6 +1792,9 @@ def hybrid_phase(torch, results):
         f"peak {peak_pre / 2**30:.1f} GiB")
     assert c_pre == {"ssd_chunk_intra": cfg.n_layers,
                      "ssd_chunk_state": cfg.n_layers, "decode_attn": 0}, c_pre
+    for name in ("ssd_chunk_intra", "ssd_chunk_state"):
+        results[name]["launches_bf16"] = (results[name].get("launches_bf16", 0)
+                                          + c_pre[name])
     assert logits.shape == (HYB_B, 1, cfg.vocab_padded), logits.shape
     assert torch.isfinite(logits).all(), "prefill: non-finite logits"
     assert tuple(cache["a"][0].shape) == (model.n_sections, HYB_B, HYB_S,
@@ -2766,10 +3243,15 @@ def lmtrain_zamba2(torch, results):
     # (~0.02 nats), more than 12 warm-up steps move them
     with torch.no_grad():
         probe = [model.loss(batches[0])[0].item()]
+    seen, restore = _ssd_spy(torch)
     t1 = time.perf_counter()
-    metrics, ms, counts, peak, step, state = _train_steps(
-        torch, model, adamw, batches[:n], LMT_WARM)
+    try:
+        metrics, ms, counts, peak, step, state = _train_steps(
+            torch, model, adamw, batches[:n], LMT_WARM)
+    finally:
+        restore()
     run_s = time.perf_counter() - t1
+    _assert_bf16_launches(torch, seen, "zamba2 train")
     live_args = [_nbytes(step.params), _nbytes(state), _nbytes(batches[0])]
     losses = _losses("zamba2_1p2b", metrics)
     launches = {k: counts.pop(k) for k in ("ssd_chunk_intra", "ssd_chunk_state")}
@@ -2780,6 +3262,7 @@ def lmtrain_zamba2(torch, results):
         f"(2 a Mamba2 layer and step: the forward and its recompute)")
     for k, v in launches.items():
         results[k]["launches"] += v
+        results[k]["launches_bf16"] = results[k].get("launches_bf16", 0) + v
     assert peak < LMT_PEAK_GIB * 2**30, f"peak {peak / 2**30:.2f} GiB"
     with torch.no_grad():
         probe.append(model.loss(batches[0])[0].item())
@@ -2815,6 +3298,12 @@ def lmtrain_zamba2(torch, results):
         + f" of its square) would leave {frozen:.3f} of the unembed's updates "
         f"below eps; grad norms "
         f"{[round(m['grad_norm'].item(), 3) for m in metrics]}")
+    route = ssd_route_check(torch, model, cfg, LMT_B, LMT_S, grad=True)
+    _assert_bf16_launches(torch, route, "zamba2 train layer 0")
+    log(f"lmtrain zamba2_1p2b: all {len(seen)} SSD launches of the run took "
+        f"bf16 x, B, C (no float32 copy); layer 0 at {LMT_B} x {LMT_S}, "
+        f"forward and backward, equals the float32-copy route bit for bit "
+        f"(output, states, the input's and every mixer weight's gradient)")
     prof = lmtrain_profile(torch, lambda: step(state, batches[n]),
                            cfg.vocab_padded)
     log(f"lmtrain zamba2_1p2b profiled step: wall {prof['wall_ms']:.2f} ms, "
@@ -2882,7 +3371,7 @@ def lmtrain_card_vs_cpu(torch, results):
         gpu.load_state_dict(cpu.state_dict())
         routed = sk.ssd_chunk_intra
         if variant == planted:
-            sk.ssd_chunk_intra = lambda *a: sk._launch_intra(*a)
+            sk.ssd_chunk_intra = lambda *a, **k: sk._launch_intra(*a, **k)
         try:
             lg, gg = grads(gpu)
         finally:
@@ -3158,8 +3647,8 @@ def dryrun_phase(torch, results, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,relay,graphs,costmodel,hybrid,"
-                            "train,lm,ssm,encdec,lmtrain,dryrun")
+                    default="kernels,serve,relay,bf16,graphs,costmodel,"
+                            "hybrid,train,lm,ssm,encdec,lmtrain,dryrun")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3201,6 +3690,8 @@ def main(argv=None):
         serve_phase(torch, results, args.requests)
     if "relay" in phases:
         relay_phase(torch, results)
+    if "bf16" in phases:
+        bf16_phase(torch, results, args.requests)
     if "graphs" in phases:
         graphs_phase(torch, results, args.requests)
     if "costmodel" in phases:
@@ -3238,6 +3729,17 @@ def main(argv=None):
                 "B", "S", "P", "spans", "n_incr", "n_items", "L", "Q", "H",
                 "N", "KV", "D", "dtype") if k in main_shape},
         })
+        bf = next((sh for sh in r.get("bf16", []) if sh.get("main")), None)
+        if bf is not None:
+            kernels[-1]["bf16"] = {
+                "launches": r.get("launches_bf16", 0),
+                **{k: bf.get(k) for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_tf32_ms", "library_ms", "twin_rel", "f64_rel",
+                    "max_abs_err")},
+                "shape": {k: bf[k] for k in (
+                    "B", "S", "P", "spans", "n_incr", "n_items", "L", "Q",
+                    "H", "N", "dtype") if k in bf}}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "card_ids": card,

@@ -2,10 +2,12 @@
 
 Mirrors ``repro``'s module tree: the numpy-only relay core is carried over
 as copies, the HSTU model and the live executors are PyTorch, and the
-three attention kernels of the relay path (causal prefill, rank with
-cache, paged rank) are CUDA C++ written for ``sm_90a``
-(``repro_torch/csrc``), each with a plain-PyTorch twin in the same
-module.  The package imports ``torch`` and ``numpy`` only, never JAX and
+seven TPU kernels are CUDA C++ written for ``sm_90a``
+(``repro_torch/csrc``), each with a plain-PyTorch twin in its module:
+the four HSTU attention kernels of the relay path (causal prefill, rank
+with cache, paged rank, segment rank), the flash decode, and the two
+Mamba2 SSD chunk stages.  Each takes float32 or bfloat16, as the Pallas
+kernel it replaces does.  The package imports ``torch`` and ``numpy`` only, never JAX and
 nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

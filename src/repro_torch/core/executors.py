@@ -60,7 +60,7 @@ from .cache import kv_nbytes
 from .costmodel import GRCostModel
 from .graphs import GraphRunner, resolve_runner
 from .paging import (DevicePagePool, PageLayout, PagedPsi, ceil_div,
-                     span_page_rows)
+                     from_host, host_dtype, span_page_rows)
 from .types import UserMeta
 
 
@@ -133,7 +133,7 @@ def _pool_and_tables(psis: Sequence[PagedPsi], np_bucket: int, device,
     if isinstance(pool, DevicePagePool):
         launch_buf = pool.device_view(buf)
     else:
-        host = torch.from_numpy(buf)
+        host = from_host(buf)
         if runner is None:
             launch_buf = host.to(device)              # O(pool bytes)
         else:
@@ -325,8 +325,10 @@ class LiveExecutor:
 
     def _psi(self, psi):
         """psi on this device: cached tensors pass through, a host copy
-        (a DRAM spill materialized out of the page pool) moves over."""
-        return tuple(torch.as_tensor(a, device=self.device) for a in psi)
+        (a DRAM spill materialized out of the page pool, bf16 as its
+        uint16 bits) moves over in its torch type."""
+        return tuple(a.to(self.device) if isinstance(a, torch.Tensor)
+                     else from_host(a).to(self.device) for a in psi)
 
     def _round(self, n: int, m: int = 64) -> int:
         return max(m, (n + m - 1) // m * m)  # bucketed shapes
@@ -491,9 +493,8 @@ class LiveExecutor:
         if isinstance(pool, DevicePagePool):
             if pool.device is None:
                 pool.device = self.device
-            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
             return pool.ensure_device(
-                np.broadcast_to(np.zeros((), np_dtype), shape))
+                np.broadcast_to(np.zeros((), host_dtype(dtype)), shape))
         if self.graphs is not None:
             return self.graphs.reship_buffer(shape, dtype)
         return torch.zeros(shape, dtype=dtype, device=self.device)

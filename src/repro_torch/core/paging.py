@@ -35,6 +35,13 @@ a device-resident torch tensor mutated in place: freshly written pages
 land via ``index_copy_`` and rank launches pass the pool by reference
 (zero per-launch re-ship); the ``h2d`` ledger on every pool accounts the
 host->device traffic either way.
+
+bfloat16 psi.  numpy has no bfloat16, so ``to_host`` carries a bf16
+tensor's bits as ``uint16`` (the reference keeps numpy bf16 from
+``ml_dtypes``) and ``from_host`` views them back, bit for bit; a host
+buffer's torch type is ``torch_dtype`` of its numpy type.  Host psi is
+only ever copied, sliced, stacked and zero-padded (zero bits are +0.0),
+never computed on, so the uint16 view is exact wherever it goes.
 """
 
 from __future__ import annotations
@@ -46,13 +53,45 @@ import numpy as np
 import torch
 
 
+# the numpy type that holds a bfloat16 tensor's bits on the host
+BF16_BITS = np.dtype(np.uint16)
+
+
 def to_host(x) -> np.ndarray:
     """psi (or any array) as a host numpy array: THE one device->host
-    hop of the paged window — a torch tensor on the card is copied once,
-    a numpy array passes through."""
+    hop of the paged window — a torch tensor on the card is copied once
+    (bfloat16 as its ``uint16`` bits), a numpy array passes through."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch type of host psi of numpy type ``dtype`` (``uint16``
+    holds bfloat16 bits)."""
+    dtype = np.dtype(dtype)
+    if dtype == BF16_BITS:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type host psi of torch type ``dtype`` is held in."""
+    if dtype == torch.bfloat16:
+        return BF16_BITS
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def from_host(a) -> torch.Tensor:
+    """Host psi as a CPU torch tensor sharing its memory, in its torch
+    type (``uint16`` viewed back as bfloat16, bit for bit)."""
+    a = np.asarray(a)
+    if a.dtype == BF16_BITS:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def ceil_div(a: int, b: int) -> int:
@@ -211,7 +250,7 @@ class DevicePagePool(PagePool):
                     "the pool binds it (LiveExecutor.insert_pages)")
             self.device_buffer = torch.zeros(
                 host_buffer.shape, device=self.device,
-                dtype=torch.from_numpy(np.empty(0, host_buffer.dtype)).dtype)
+                dtype=torch_dtype(host_buffer.dtype))
         return self.device_buffer
 
     def device_view(self, host_buffer: np.ndarray):
@@ -232,7 +271,7 @@ class DevicePagePool(PagePool):
         # fresh pages cross the link, and the pool is never copied
         self.device_buffer.index_copy_(
             0, torch.from_numpy(idx).to(self.device),
-            torch.from_numpy(host_buffer[idx]).to(self.device))
+            from_host(host_buffer[idx]).to(self.device))
         nbytes = len(pages) * self.page_bytes
         self.h2d["bytes_scattered"] += nbytes
         self.h2d["pages_scattered"] += len(pages)

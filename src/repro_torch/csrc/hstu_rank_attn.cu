@@ -1,6 +1,6 @@
-// HSTU pointwise (SiLU) attention for Hopper (sm_90a), float32 in and
-// out, both products on the tensor cores in 3xTF32.  One kernel serves the
-// four TPU kernels of the relay path:
+// HSTU pointwise (SiLU) attention for Hopper (sm_90a), float32 or bfloat16
+// in and out, both products on the tensor cores in 3xTF32 with float32
+// sums.  One kernel serves the four TPU kernels of the relay path:
 //
 //   * src/repro/kernels/hstu_attn.py::hstu_attn (_kernel): causal prefill,
 //     run here with no prefix and every query an "incr" token;
@@ -86,6 +86,18 @@
 // the dense one bit for bit at equal padded length, and the segment
 // launch with one span at [0, prefix_len) the paged one.
 //
+// Types.  q, k, v, the page pools and the output are all float32 or all
+// bfloat16 (a compile-time variant, T), as the Pallas kernels take either
+// and write q's type.  A bf16 row is copied raw into a bf16 ring (rows
+// padded by 16 bytes, D + 8 values, which keeps both fragment reads free
+// of bank conflicts) and each value widens to float32 where it is read
+// into a fragment, so all arithmetic is the float32 kernel's: a bf16
+// launch equals the float32 launch on float32 copies of its inputs,
+// rounded once (to nearest even) as the output is written.  A bf16 value
+// is exact in TF32, so the lo half of its split is zero and two of its
+// three products add nothing; they are kept, so the bits stay the float32
+// kernel's.  P in P V is a float32 score and keeps its split.
+//
 // The segment mode is a compile-time variant (SEG).  Its cached keys are
 // the table's pages in order; key j of slot p sits at global position
 // page_pos[p] + j and exists only where j < page_valid[p] (INT_MAX
@@ -98,26 +110,33 @@
 #include <climits>
 #include <cstdint>
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#ifndef REPRO_KERNEL_TYPE
+#define REPRO_KERNEL_TYPE 0
+#endif
 
 namespace cg = cooperative_groups;
 
 extern "C" {
 
+// q, k, v, the pools and out hold one type: float32 (hstu_rank_attn_f32)
+// or bfloat16 (hstu_rank_attn_bf16)
 struct RankAttnParams {
-    const float* q;      long long q_stride[3];    // (B, H, Sq, D), unit D stride
-    const float* k_new;  long long kn_stride[3];   // (B, H, Sq, D)
-    const float* v_new;  long long vn_stride[3];
-    const float* k_pre;  long long kp_stride[3];   // dense prefix (B, H, n_prefix, D)
-    const float* v_pre;  long long vp_stride[3];
-    const float* k_pool;                           // (N + 1, page_tokens, H, D)
-    const float* v_pool;
+    const void* q;       long long q_stride[3];    // (B, H, Sq, D), unit D stride
+    const void* k_new;   long long kn_stride[3];   // (B, H, Sq, D)
+    const void* v_new;   long long vn_stride[3];
+    const void* k_pre;   long long kp_stride[3];   // dense prefix (B, H, n_prefix, D)
+    const void* v_pre;   long long vp_stride[3];
+    const void* k_pool;                            // (N + 1, page_tokens, H, D)
+    const void* v_pool;
     const int* k_table;                            // (B, n_pages) rows
     const int* v_table;
     long long kt_stride;                           // row stride of each table
     long long vt_stride;
     const int* prefix_lens;                        // (B,) resident prefix tokens
-    float* out;          long long o_stride[3];    // (B, H, Sq, D)
+    void* out;           long long o_stride[3];    // (B, H, Sq, D)
     int B, H, Sq, D;
     int n_prefix;                                  // prefix keys (paged: n_pages * page_tokens)
     int n_incr;                                    // new tokens before the items
@@ -145,21 +164,24 @@ constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 
 // The addresses of one key tile: a row pointer per key (nullptr: the
 // copy zero-fills it) and, in the segment mode, each key's position.
-struct Slot {
-    const float* k[BK];
-    const float* v[BK];
+template <typename T> struct SlotT {
+    const T* k[BK];
+    const T* v[BK];
     int pos[BK];
 };
 
-template <int D> struct Geometry {
-    static constexpr int KS = D + 4;               // padded K/V row (floats)
+template <int D, typename T> struct Geometry {
+    static constexpr int VEC = 16 / static_cast<int>(sizeof(T));   // values per 16-byte copy
+    static constexpr int KS = D + VEC;             // padded K/V row (values of T)
     static constexpr int NS = 2;                   // ring stages
     static constexpr int NA = NS + 1;              // address slots
     static constexpr int TILE = 2 * BK * KS;       // one stage: K then V
-    static constexpr int AS = D + 8;               // row of the reduction buffer
+    static constexpr int AS = D + 8;               // row of the reduction buffer (floats)
     static constexpr bool QSPLIT = D <= 64;        // Q held split in registers
-    static constexpr int bytes = NA * static_cast<int>(sizeof(Slot)) + 32 + 4 * NS * TILE;
-    static_assert(MAX_Q_ROWS * AS <= NS * TILE, "reduction buffer overlays the ring");
+    static constexpr int RING = static_cast<int>(sizeof(T)) * NS * TILE;   // ring bytes
+    static constexpr int RED = 4 * MAX_Q_ROWS * AS;                        // reduction bytes
+    // the reduction buffer overlays the ring
+    static constexpr int bytes = NA * static_cast<int>(sizeof(SlotT<T>)) + 32 + (RING > RED ? RING : RED);
 };
 
 // 16-byte asynchronous copy to shared memory; `live` false writes zeros
@@ -184,6 +206,20 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
     hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
     lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// the value as float32 (exact for bf16)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// four consecutive outputs: float32 as they are, bf16 rounded to nearest even
+__device__ __forceinline__ void store4(float* dst, float4 s) {
+    *reinterpret_cast<float4*>(dst) = s;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 s) {
+    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+    d[0] = __floats2bfloat162_rn(s.x, s.y);
+    d[1] = __floats2bfloat162_rn(s.z, s.w);
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -234,16 +270,17 @@ __device__ __forceinline__ bool new_tile_seen(int r0, int r1, int k0, int Sq, in
 // (the rank's 80 or 96 queries), or three of four (a 64-query tile), share
 // an SM.  Uncapped, ptxas gives the D = 64 build more, and such a block
 // has an SM to itself.
-template <int D, bool SEG>
+template <int D, bool SEG, typename T>
 __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const RankAttnParams p) {
-    using G = Geometry<D>;
-    constexpr int KS = G::KS, NS = G::NS, NA = G::NA, TILE = G::TILE, AS = G::AS;
+    using G = Geometry<D, T>;
+    using Slot = SlotT<T>;
+    constexpr int KS = G::KS, NS = G::NS, NA = G::NA, TILE = G::TILE, AS = G::AS, VEC = G::VEC;
     constexpr int KD = D / 8;            // k-steps of S, n-blocks of O
     constexpr int NG = KD < 8 ? KD : 8;  // O blocks per product group
     extern __shared__ float4 smem4[];
     Slot* slots = reinterpret_cast<Slot*>(smem4);
     int* sWarpMax = reinterpret_cast<int*>(slots + NA);
-    float* ring = reinterpret_cast<float*>(sWarpMax + 8);
+    T* ring = reinterpret_cast<T*>(sWarpMax + 8);
 
     const cg::cluster_group cluster = cg::this_cluster();
     const int CL = static_cast<int>(cluster.num_blocks());
@@ -267,15 +304,15 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
     uint32_t qh[NQS][4], ql[NQS][4];
     float qf[NQF][4];
     {
-        const float* qb = p.q + b * p.q_stride[0] + h * p.q_stride[1];
+        const T* qb = static_cast<const T*>(p.q) + b * p.q_stride[0] + h * p.q_stride[1];
         const bool v0 = r0 + g < p.Sq, v1 = r0 + g + 8 < p.Sq;
-        const float* row0 = qb + (r0 + g) * p.q_stride[2];
-        const float* row1 = qb + (r0 + g + 8) * p.q_stride[2];
+        const T* row0 = qb + (r0 + g) * p.q_stride[2];
+        const T* row1 = qb + (r0 + g + 8) * p.q_stride[2];
 #pragma unroll
         for (int ks = 0; ks < KD; ++ks) {
             const int c = ks * 8 + t;
-            const float x[4] = {v0 ? row0[c] : 0.f, v1 ? row1[c] : 0.f,
-                                v0 ? row0[c + 4] : 0.f, v1 ? row1[c + 4] : 0.f};
+            const float x[4] = {v0 ? to_f32(row0[c]) : 0.f, v1 ? to_f32(row1[c]) : 0.f,
+                                v0 ? to_f32(row0[c + 4]) : 0.f, v1 ? to_f32(row1[c + 4]) : 0.f};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 if constexpr (G::QSPLIT) split(x[e], qh[ks][e], ql[ks][e]);
@@ -323,7 +360,7 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
         for (int idx = tid; idx < 2 * BK; idx += NT) {
             const int c = idx % BK;
             const bool val = idx >= BK;
-            const float* row = nullptr;
+            const T* row = nullptr;
             int pos = INT_MAX;
             if (pre) {
                 const int key = gt * BK + c;
@@ -338,19 +375,21 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
                         if (held) {
                             const long long page = val ? p.v_table[b * p.vt_stride + slot]
                                                        : p.k_table[b * p.kt_stride + slot];
-                            row = (val ? p.v_pool : p.k_pool) +
+                            row = static_cast<const T*>(val ? p.v_pool : p.k_pool) +
                                   ((page * p.page_tokens + j) * p.H + h) * (long long)D;
                         }
                     } else {
                         const long long* st = val ? p.vp_stride : p.kp_stride;
-                        row = (val ? p.v_pre : p.k_pre) + b * st[0] + h * st[1] + key * st[2];
+                        row = static_cast<const T*>(val ? p.v_pre : p.k_pre) + b * st[0] +
+                              h * st[1] + key * st[2];
                     }
                 }
             } else {
                 const int key = (gt - n_pre_tiles) * BK + c;
                 if (key < p.Sq) {
                     const long long* st = val ? p.vn_stride : p.kn_stride;
-                    row = (val ? p.v_new : p.k_new) + b * st[0] + h * st[1] + key * st[2];
+                    row = static_cast<const T*>(val ? p.v_new : p.k_new) + b * st[0] +
+                          h * st[1] + key * st[2];
                 }
             }
             (val ? s.v : s.k)[c] = row;
@@ -363,19 +402,19 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
     };
 
     // the copies of a tile whose addresses are in slot s into a stage
-    auto issue = [&](const Slot& s, float* stage) {
-        constexpr int CPR = D / 4;   // 16-byte chunks per row
+    auto issue = [&](const Slot& s, T* stage) {
+        constexpr int CPR = D / VEC;   // 16-byte chunks per row
         for (int idx = tid; idx < 2 * BK * CPR; idx += NT) {
             const int val = idx / (BK * CPR), c = (idx / CPR) % BK, ch = idx % CPR;
-            const float* row = val ? s.v[c] : s.k[c];
-            cp_async16(stage + val * BK * KS + c * KS + ch * 4, row ? row + ch * 4 : p.q,
+            const T* row = val ? s.v[c] : s.k[c];
+            cp_async16(stage + val * BK * KS + c * KS + ch * VEC, row ? row + ch * VEC : p.q,
                        row != nullptr);
         }
     };
 
     // acc += the tile's masked scores . V, for this warp's 16 rows
-    auto compute = [&](int gt, const float* sK, const Slot& s) {
-        const float* sV = sK + BK * KS;
+    auto compute = [&](int gt, const T* sK, const Slot& s) {
+        const T* sV = sK + BK * KS;
         const bool pre = gt < n_pre_tiles;
         const int k0 = pre ? gt * BK : (gt - n_pre_tiles) * BK;
         const int n_valid = min(BK, (pre ? plen : p.Sq) - k0);
@@ -405,9 +444,9 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
             float kb[BK / 8][2];
 #pragma unroll
             for (int nb = 0; nb < BK / 8; ++nb) {
-                const float* kr = sK + (nb * 8 + g) * KS + ks * 8 + t;
-                kb[nb][0] = kr[0];
-                kb[nb][1] = kr[4];
+                const T* kr = sK + (nb * 8 + g) * KS + ks * 8 + t;
+                kb[nb][0] = to_f32(kr[0]);
+                kb[nb][1] = to_f32(kr[4]);
             }
             mma3(sc, 0, ah, al, kb);
         }
@@ -459,14 +498,14 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
             split(sc[kc][2], ah[1], al[1]);
             split(sc[kc][1], ah[2], al[2]);
             split(sc[kc][3], ah[3], al[3]);
-            const float* v0 = sV + (kc * 8 + 2 * t) * KS + g;
+            const T* v0 = sV + (kc * 8 + 2 * t) * KS + g;
 #pragma unroll
             for (int dg = 0; dg < KD; dg += NG) {   // NG output blocks at a time
                 float vb[NG][2];
 #pragma unroll
                 for (int dn = 0; dn < NG; ++dn) {
-                    vb[dn][0] = v0[(dg + dn) * 8];
-                    vb[dn][1] = v0[KS + (dg + dn) * 8];
+                    vb[dn][0] = to_f32(v0[(dg + dn) * 8]);
+                    vb[dn][1] = to_f32(v0[KS + (dg + dn) * 8]);
                 }
                 mma3(o, dg, ah, al, vb);
             }
@@ -509,7 +548,7 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
     // memory); block `rank` writes its share of the rows
     cp_async_wait<0>();
     __syncthreads();                         // the last tile's reads are done
-    float* sAcc = ring;                      // QR x AS, over the ring
+    float* sAcc = reinterpret_cast<float*>(ring);   // QR x AS floats, over the ring
     {
         const int r = warp * 16 + g;
 #pragma unroll
@@ -521,7 +560,7 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
     }
     cluster.sync();
     const int rows = (QR + CL - 1) / CL, ra = rank * rows, rb = min(QR, ra + rows);
-    float* ob = p.out + b * p.o_stride[0] + h * p.o_stride[1];
+    T* ob = static_cast<T*>(p.out) + b * p.o_stride[0] + h * p.o_stride[1];
     for (int idx = tid; idx < (rb - ra) * (D / 4); idx += NT) {
         const int r = ra + idx / (D / 4), c = (idx % (D / 4)) * 4;
         if (q0 + r >= p.Sq) continue;
@@ -532,15 +571,15 @@ __global__ void __maxnreg__(D == 128 ? 255 : 168) hstu_rank_attn_kernel(const Ra
                 cluster.map_shared_rank(sAcc, src) + r * AS + c);
             s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
         }
-        *reinterpret_cast<float4*>(ob + (q0 + r) * p.o_stride[2] + c) = s;
+        store4(ob + (q0 + r) * p.o_stride[2] + c, s);
     }
     cluster.sync();                          // peers may still read our sAcc
 }
 
 // Launch p's plan on `stream`.
-template <int D, bool SEG>
+template <int D, bool SEG, typename T>
 cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
-    constexpr int smem = Geometry<D>::bytes;
+    constexpr int smem = Geometry<D, T>::bytes;
     const int QR = p.q_rows, CL = p.cluster;
     if (QR < 16 || QR > MAX_Q_ROWS || QR % 16 || CL < 1 || CL > MAX_CLUSTER || p.Sq < 1)
         return cudaErrorInvalidValue;
@@ -549,7 +588,7 @@ cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     if (!(configured & (1u << dev))) {
-        err = cudaFuncSetAttribute(hstu_rank_attn_kernel<D, SEG>,
+        err = cudaFuncSetAttribute(hstu_rank_attn_kernel<D, SEG, T>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
         configured |= 1u << dev;
@@ -566,25 +605,34 @@ cudaError_t launch(const RankAttnParams& p, cudaStream_t stream) {
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, hstu_rank_attn_kernel<D, SEG>, p);
+    err = cudaLaunchKernelEx(&cfg, hstu_rank_attn_kernel<D, SEG, T>, p);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t dispatch(const RankAttnParams& p, cudaStream_t s) {
     if (p.segment && !p.paged) return cudaErrorInvalidValue;
     switch (p.D) {
-        case 32: return p.segment ? launch<32, true>(p, s) : launch<32, false>(p, s);
-        case 64: return p.segment ? launch<64, true>(p, s) : launch<64, false>(p, s);
-        case 128: return p.segment ? launch<128, true>(p, s) : launch<128, false>(p, s);
+        case 32: return p.segment ? launch<32, true, T>(p, s) : launch<32, false, T>(p, s);
+        case 64: return p.segment ? launch<64, true, T>(p, s) : launch<64, false, T>(p, s);
+        case 128: return p.segment ? launch<128, true, T>(p, s) : launch<128, false, T>(p, s);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
+// The build compiles this file once per input type, both at once: with
+// REPRO_KERNEL_TYPE 0 the float32 kernels and the shared exports, with 1
+// the bf16 kernels (kernels/cuda_lib.py, UNITS).
+#if REPRO_KERNEL_TYPE == 1
+extern "C" int hstu_rank_attn_bf16(const RankAttnParams* p, void* stream) {
+    return static_cast<int>(dispatch<__nv_bfloat16>(*p, static_cast<cudaStream_t>(stream)));
+}
+#else
 extern "C" int hstu_rank_attn_f32(const RankAttnParams* p, void* stream) {
-    return static_cast<int>(dispatch(*p, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(dispatch<float>(*p, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* hstu_rank_attn_error(int code) {
@@ -595,3 +643,4 @@ extern "C" int hstu_rank_attn_struct_size() { return static_cast<int>(sizeof(Ran
 
 extern "C" int hstu_rank_attn_max_cluster() { return MAX_CLUSTER; }
 extern "C" int hstu_rank_attn_max_q_rows() { return MAX_Q_ROWS; }
+#endif

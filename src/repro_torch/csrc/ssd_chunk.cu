@@ -1,4 +1,5 @@
-// Mamba2 SSD chunk stages for Hopper (sm_90a), float32 in and out.
+// Mamba2 SSD chunk stages for Hopper (sm_90a): C, B and x in float32 or
+// bfloat16, cum and dt float32, every product and sum in float32.
 // Replaces the two TPU kernels of src/repro/kernels/ssd_chunk.py:
 //
 //   * ssd_chunk_intra (_kernel): per (batch b, chunk c, head h)
@@ -7,8 +8,23 @@
 //       S[n, p] = sum_t exp(cum[Q-1] - cum[t]) * dt[t] * B[t, n] * x[t, p]
 //
 // Shapes: C, B (B, nc, Q, N); x (B, nc, Q, H, P); cum, dt (B, nc, Q, H);
-// intra out (B, nc, Q, H, P); state out (B, nc, H, N, P); Q <= 128.  All
-// float32, read and written through strides with a unit last stride.
+// intra out (B, nc, Q, H, P); state out (B, nc, H, N, P); Q <= 128.  Read
+// and written through strides with a unit last stride.
+//
+// Types.  As the Pallas kernels do, each kernel takes C, B and x in either
+// float type and widens every value to float32 where it leaves shared
+// memory for registers (a bf16 value is exact in float32); the arithmetic
+// after that point is the float32 kernel's, so a bf16 launch gives the
+// bits of the float32 launch on float32 copies of the same values.  A
+// bf16 tile lands in shared memory as it lies in HBM, half the bytes of
+// a float32 one: 16-byte copies carry 8 values of x (and of the state's
+// B), 8-byte copies 4 of the intra's C and B (their swizzle moves 4-value
+// chunks).  The state is float32 (the Pallas kernel's output type); the
+// intra output is float32 or bf16, the latter rounded to nearest even
+// from the float32 sum.  At the Zamba2 prefill shape on the H100 the
+// bf16 state kernel takes about a fifth longer than the float32 one on
+// widened inputs (PERF.md, ROADMAP Queue 2 A2); widening B once into
+// float32 shared memory, out of the product loop, did not change that.
 //
 // ssd_chunk_intra.  It replaces a version that built the masked decay
 // matrix M in shared memory per head and ran both products as FFMA, with
@@ -74,23 +90,29 @@
 //     (a_i = B[t, n_i] w[t, h]) and issues 128 FFMA: 6 shared loads per
 //     128 FFMA.  The variants measured on the card are in PERF.md.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#ifndef REPRO_KERNEL_TYPE
+#define REPRO_KERNEL_TYPE 0
+#endif
 #include <cstdint>
 #include <type_traits>
 
 extern "C" {
 
 struct SsdParams {
-    const float* C;   long long c_stride[3];    // (B, nc, Q, N): b, c, q; unit n
-    const float* Bm;  long long b_stride[3];    // (B, nc, Q, N)
-    const float* x;   long long x_stride[4];    // (B, nc, Q, H, P): b, c, q, h; unit p
+    const void* C;    long long c_stride[3];    // (B, nc, Q, N): b, c, q; unit n
+    const void* Bm;   long long b_stride[3];    // (B, nc, Q, N)
+    const void* x;    long long x_stride[4];    // (B, nc, Q, H, P): b, c, q, h; unit p
     const float* cum; long long cum_stride[4];  // (B, nc, Q, H): b, c, q, h
     const float* dt;  long long dt_stride[4];   // (B, nc, Q, H)
-    float* out;       long long o_stride[4];    // intra: b, c, q, h; state: b, c, h, n; unit p
+    void* out;        long long o_stride[4];    // intra: b, c, q, h; state: b, c, h, n; unit p
     int B, nc, Q, H, N, P;
     int heads_per_block;
+    int out_bf16;                               // intra of bf16 inputs: 1 writes bf16
 };
 
 }  // extern "C"
@@ -110,6 +132,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(s), "l"(src), "r"(live ? 16 : 0) : "memory");
 }
+// 8-byte asynchronous copy (4 bf16 values); `live` false writes zeros
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool live) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(s), "l"(src), "r"(live ? 8 : 0) : "memory");
+}
+// 4 consecutive values of type T (16 bytes of float32, 8 of bf16)
+template <typename T>
+__device__ __forceinline__ void cp_async_4v(void* dst, const void* src, bool live) {
+    if constexpr (sizeof(T) == 4) cp_async16(dst, src, live);
+    else cp_async8(dst, src, live);
+}
 // 4-byte asynchronous copy, cached in L1 (its neighbours along H follow)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -122,6 +156,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// the value as float32 (exact for bf16)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// 4 consecutive values as float32: one 16-byte load of float32, one
+// 8-byte load of bf16 (a bf16 value is the high half of its float32)
+__device__ __forceinline__ float4 load4(const float* src) {
+    return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// two consecutive outputs: float32 as they are, bf16 rounded to nearest even
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 // x = hi + lo, each rounded to TF32 to nearest, ties away from zero (what
@@ -275,17 +332,20 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[PN / 2], const uint32_t (&
     else wgmma_n64(d, a, desc);
 }
 
-template <int P>
+// T: the type of C, B and x; TO: the output's (float32, or bf16 for bf16
+// inputs).  Shared memory is laid out for float32 whatever T is.
+template <int P, typename T, typename TO>
 __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) {
     constexpr int PN = P < 64 ? P : 64;        // output columns per product (wgmma N)
     constexpr int ND = PN / 2;                 // accumulators per thread
     constexpr int KG = 4;                      // 8-key steps per batch of products
+    constexpr int XV = 16 / static_cast<int>(sizeof(T));   // x values per 16-byte copy
     extern __shared__ float4 smem4[];
     const int HG = p.heads_per_block;
     float* xh = reinterpret_cast<float*>(smem4);    // split x, hi; C and B before it
     float* xl = xh + QM * P;                   // split x, lo
-    float* stage = xh + 2 * QM * max(P, p.N);  // (QM, P) landing slab
-    float* sCum = stage + QM * P;              // (HG, IN_WS)
+    T* stage = reinterpret_cast<T*>(xh + 2 * QM * max(P, p.N));  // (QM, P) landing slab
+    float* sCum = xh + 2 * QM * max(P, p.N) + QM * P;            // (HG, IN_WS)
     float* sDt = sCum + HG * IN_WS;
 
     const int b = blockIdx.z, c = blockIdx.y, h0 = blockIdx.x * HG;
@@ -293,12 +353,13 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
 
     // x of head hl into the landing slab, every row, zero past Q
-    const float* xb = p.x + b * p.x_stride[0] + c * p.x_stride[1] + h0 * p.x_stride[3];
+    const T* xb = static_cast<const T*>(p.x) + b * p.x_stride[0] + c * p.x_stride[1] +
+                  h0 * p.x_stride[3];
     // (thread tid copies 16 bytes at column xc of rows xr + i QM / XI)
-    constexpr int XI = QM * (P / 4) / IN_NT;
-    const int xr = tid / (P / 4), xc = (tid % (P / 4)) * 4;
+    constexpr int XI = QM * (P / XV) / IN_NT;
+    const int xr = tid / (P / XV), xc = (tid % (P / XV)) * XV;
     auto issue = [&](int hl) {
-        const float* src = xb + hl * p.x_stride[3] + xc;
+        const T* src = xb + hl * p.x_stride[3] + xc;
 #pragma unroll
         for (int i = 0; i < XI; ++i) {
             const int r = xr + i * (QM / XI);
@@ -309,15 +370,15 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
     {   // C and B of the chunk over the split-x planes, cum and dt of every
         // head of the group (consecutive threads along H), all zero past Q,
         // and the first head's x
-        float* sC = xh;
-        float* sB = xh + QM * p.N;
-        const float* cb = p.C + b * p.c_stride[0] + c * p.c_stride[1];
-        const float* bb = p.Bm + b * p.b_stride[0] + c * p.b_stride[1];
+        T* sC = reinterpret_cast<T*>(xh);
+        T* sB = sC + QM * p.N;
+        const T* cb = static_cast<const T*>(p.C) + b * p.c_stride[0] + c * p.c_stride[1];
+        const T* bb = static_cast<const T*>(p.Bm) + b * p.b_stride[0] + c * p.b_stride[1];
         for (int idx = tid; idx < QM * (p.N / 4); idx += IN_NT) {
             const int r = idx / (p.N / 4), col = (idx % (p.N / 4)) * 4;
             const bool live = r < p.Q;
-            cp_async16(sC + cbsw(r, col, p.N), cb + (live ? r * p.c_stride[2] + col : 0), live);
-            cp_async16(sB + cbsw(r, col, p.N), bb + (live ? r * p.b_stride[2] + col : 0), live);
+            cp_async_4v<T>(sC + cbsw(r, col, p.N), cb + (live ? r * p.c_stride[2] + col : 0), live);
+            cp_async_4v<T>(sB + cbsw(r, col, p.N), bb + (live ? r * p.b_stride[2] + col : 0), live);
         }
         const long long co = b * p.cum_stride[0] + c * p.cum_stride[1] + h0 * p.cum_stride[3];
         const long long dto = b * p.dt_stride[0] + c * p.dt_stride[1] + h0 * p.dt_stride[3];
@@ -343,31 +404,31 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
 #pragma unroll
     for (int i = 0; i < IN_SLOTS; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
     {
-        const float* sC = xh;
-        const float* sB = xh + QM * p.N;
+        const T* sC = reinterpret_cast<const T*>(xh);
+        const T* sB = sC + QM * p.N;
         for (int k0 = 0; k0 < p.N; k0 += 8) {
             uint32_t ah[2][4], al[2][4];
 #pragma unroll
-            for (int T = 0; T < 2; ++T) {
-                const int ra = 64 * T + 16 * warp + g;
-                split(sC[cbsw(ra, k0 + t, p.N)], ah[T][0], al[T][0]);
-                split(sC[cbsw(ra + 8, k0 + t, p.N)], ah[T][1], al[T][1]);
-                split(sC[cbsw(ra, k0 + t + 4, p.N)], ah[T][2], al[T][2]);
-                split(sC[cbsw(ra + 8, k0 + t + 4, p.N)], ah[T][3], al[T][3]);
+            for (int tl = 0; tl < 2; ++tl) {
+                const int ra = 64 * tl + 16 * warp + g;
+                split(to_f32(sC[cbsw(ra, k0 + t, p.N)]), ah[tl][0], al[tl][0]);
+                split(to_f32(sC[cbsw(ra + 8, k0 + t, p.N)]), ah[tl][1], al[tl][1]);
+                split(to_f32(sC[cbsw(ra, k0 + t + 4, p.N)]), ah[tl][2], al[tl][2]);
+                split(to_f32(sC[cbsw(ra + 8, k0 + t + 4, p.N)]), ah[tl][3], al[tl][3]);
             }
 #pragma unroll
             for (int i = 0; i < IN_SLOTS; ++i) {
-                const int T = i < 8 ? 0 : 1;
-                const int key = (i - 8 * T) * 8 + g;
-                const float bv[1][2] = {{sB[cbsw(key, k0 + t, p.N)],
-                                         sB[cbsw(key, k0 + t + 4, p.N)]}};
-                mma3<1>(s, i, ah[T], al[T], bv);
+                const int tl = i < 8 ? 0 : 1;
+                const int key = (i - 8 * tl) * 8 + g;
+                const float bv[1][2] = {{to_f32(sB[cbsw(key, k0 + t, p.N)]),
+                                         to_f32(sB[cbsw(key, k0 + t + 4, p.N)])}};
+                mma3<1>(s, i, ah[tl], al[tl], bv);
             }
         }
     }
 
     const uint64_t dh = kmajor_desc(xh), dl = kmajor_desc(xl);
-    float* ob = p.out + b * p.o_stride[0] + c * p.o_stride[1] + h0 * p.o_stride[3];
+    TO* ob = static_cast<TO*>(p.out) + b * p.o_stride[0] + c * p.o_stride[1] + h0 * p.o_stride[3];
     for (int hl = 0; hl < hg; ++hl) {
         cp_async_wait<0>();                    // this thread's copies of head hl landed
         __syncthreads();                       // ... everyone's; the planes are free
@@ -379,10 +440,10 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
         for (int u = warp; u < (P / 8) * (QM / 16); u += IN_NT / 32) {
             const int cg = u % (P / 8), kb = 2 * (u / (P / 8)) + (lane >> 4);
             const int e = (lane >> 3) & 1, col = 8 * cg + (lane & 7);
-            const float* rd = stage + xsw<P>(8 * kb + e, col);
+            const T* rd = stage + xsw<P>(8 * kb + e, col);
             uint32_t hi[4], lo[4];
 #pragma unroll
-            for (int sl = 0; sl < 4; ++sl) split(rd[2 * sl * P], hi[sl], lo[sl]);
+            for (int sl = 0; sl < 4; ++sl) split(to_f32(rd[2 * sl * P]), hi[sl], lo[sl]);
             const int w = xtw<P>(8 * kb + e, col);
             *reinterpret_cast<uint4*>(xh + w) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
             *reinterpret_cast<uint4*>(xl + w) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -393,18 +454,18 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
         cp_async_commit();
         const float* cum = sCum + hl * IN_WS;
         const float* dt = sDt + hl * IN_WS;
-        float* oh = ob + hl * p.o_stride[3];
+        TO* oh = ob + hl * p.o_stride[3];
 #pragma unroll
-        for (int T = 0; T < 2; ++T) {
-            if (64 * T >= p.Q) continue;
-            const int qa = 64 * T + 16 * warp + g;    // rows qa, qa + 8 of this lane
+        for (int tl = 0; tl < 2; ++tl) {
+            if (64 * tl >= p.Q) continue;
+            const int qa = 64 * tl + 16 * warp + g;    // rows qa, qa + 8 of this lane
             const float cq[2] = {cum[qa], cum[qa + 8]};
             for (int pc = 0; pc < P; pc += PN) {
                 float acc[ND];
 #pragma unroll
                 for (int j = 0; j < ND; ++j) acc[j] = 0.f;
 #pragma unroll
-                for (int k0 = 0; k0 < 8 * (T + 1); k0 += KG) {
+                for (int k0 = 0; k0 < 8 * (tl + 1); k0 += KG) {
                     uint32_t ah[KG][4], al[KG][4];
 #pragma unroll
                     for (int ks = 0; ks < KG; ++ks) {
@@ -420,7 +481,7 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
                             const int q = qa + 8 * (e >> 1), key = k + (e & 1);
                             const float d = cq[e >> 1] - (e & 1 ? ck.y : ck.x);
                             m[e] = exp2_approx((key <= q ? d : -INFINITY) * LOG2E) *
-                                   s[8 * T + kb][e] * (e & 1 ? dk.y : dk.x);
+                                   s[8 * tl + kb][e] * (e & 1 ? dk.y : dk.x);
                         }
                         split(m[0], ah[ks][0], al[ks][0]);
                         split(m[2], ah[ks][1], al[ks][1]);
@@ -440,13 +501,10 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
                 }
 #pragma unroll
                 for (int j = 0; j < ND / 4; ++j) {
-                    float* o = oh + pc + j * 8 + 2 * t;
-                    if (qa < p.Q)
-                        *reinterpret_cast<float2*>(o + qa * p.o_stride[2]) =
-                            make_float2(acc[4 * j], acc[4 * j + 1]);
+                    TO* o = oh + pc + j * 8 + 2 * t;
+                    if (qa < p.Q) store2(o + qa * p.o_stride[2], acc[4 * j], acc[4 * j + 1]);
                     if (qa + 8 < p.Q)
-                        *reinterpret_cast<float2*>(o + (qa + 8) * p.o_stride[2]) =
-                            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+                        store2(o + (qa + 8) * p.o_stride[2], acc[4 * j + 2], acc[4 * j + 3]);
                 }
             }
         }
@@ -457,12 +515,10 @@ __global__ void __launch_bounds__(IN_NT, 2) ssd_intra_kernel(const SsdParams p) 
 
 constexpr int ST_NT = 128;       // threads per block
 constexpr int ST_TM = 16;        // state rows per thread
-constexpr int ST_STAGE = 8192;   // x floats per ring stage (32 KB)
+constexpr int ST_STAGE = 8192;   // x values per ring stage (32 KB of float32, 16 of bf16)
 constexpr int ST_NS = 2;         // ring stages: one slab loads while one is used
 constexpr int ST_WS = QM + 4;    // padded row of the (heads, Q) weight table
 
-
-constexpr int ST_CH = ST_STAGE / 4 / ST_NT;    // 16-byte chunks each thread copies per slab
 
 // log2 of the heads a round holds: the largest power of two R with
 // R * tph <= ST_NT threads and slabs of at least 4 rows
@@ -476,47 +532,51 @@ __host__ __device__ constexpr int log2_heads_per_round(int tph, int P) {
 // 16 state rows x 8 columns of one head, so (N / 16) * (P / 8) threads
 // per head and R (a power of two) heads in flight per round; the rounds
 // walk the group.  x streams through a ring of (TQ rows x R heads x P)
-// slabs of exactly ST_STAGE floats, flattened over (round, slab), the
+// slabs of exactly ST_STAGE values, flattened over (round, slab), the
 // next slab loading while this one is used.  N and P are compile-time,
-// so every shared-memory offset of the product is an immediate.
-template <int P, int N>
+// so every shared-memory offset of the product is an immediate.  B and x
+// of type T land as they lie in HBM and widen as they are read (load4).
+template <int P, int N, typename T>
 __global__ void __launch_bounds__(ST_NT, 2) ssd_state_kernel(const SsdParams p) {
     constexpr int TPH = (N / ST_TM) * (P / 8);  // threads per head
     constexpr int LG_R = log2_heads_per_round(TPH, P);
     constexpr int R = 1 << LG_R;               // heads per round
     constexpr int TQ = ST_STAGE / (R * P);     // x rows per slab
+    constexpr int XV = 16 / static_cast<int>(sizeof(T));   // values per 16-byte copy
+    constexpr int ST_CH = ST_STAGE / XV / ST_NT;           // copies each thread issues per slab
     extern __shared__ float4 smem4[];
     const int HG = p.heads_per_block;
     const int Q4 = (p.Q + 3) & ~3;             // rows the product walks; zero past Q
     const int n_slab = (p.Q + TQ - 1) / TQ;
     const int n_tiles = (HG + R - 1) / R * n_slab;
-    float* sB = reinterpret_cast<float*>(smem4);   // (QM, N): B as it lies in HBM
-    float* sW = sB + QM * N;                   // (HG, ST_WS): decay-to-end * dt
-    float* ring = sW + HG * ST_WS;             // ST_NS x (TQ, R, P) slabs of x
+    T* sB = reinterpret_cast<T*>(smem4);       // (QM, N): B as it lies in HBM
+    float* sW = reinterpret_cast<float*>(sB + QM * N);   // (HG, ST_WS): decay-to-end * dt
+    T* ring = reinterpret_cast<T*>(sW + HG * ST_WS);     // ST_NS x (TQ, R, P) slabs of x
 
     const int b = blockIdx.z, c = blockIdx.y, h0 = blockIdx.x * HG;
     const int hg = min(HG, p.H - h0);          // live heads of this group
     const int tid = threadIdx.x;
 
     // B once per block, rows up to Q4 (zero past Q), with the first slab
-    const float* bb = p.Bm + b * p.b_stride[0] + c * p.b_stride[1];
-    for (int idx = tid; idx < Q4 * (N / 4); idx += ST_NT) {
-        const int t = idx / (N / 4), k = (idx % (N / 4)) * 4;
+    const T* bb = static_cast<const T*>(p.Bm) + b * p.b_stride[0] + c * p.b_stride[1];
+    for (int idx = tid; idx < Q4 * (N / XV); idx += ST_NT) {
+        const int t = idx / (N / XV), k = (idx % (N / XV)) * XV;
         const bool live = t < p.Q;
         cp_async16(sB + t * N + k, bb + (live ? t * p.b_stride[2] + k : 0), live);
     }
-    // chunk tid + i * ST_NT of a slab is row t, head hr, columns k..k+3, and
-    // lands at float (tid + i * ST_NT) * 4 of the slab
-    const float* xb = p.x + b * p.x_stride[0] + c * p.x_stride[1] + h0 * p.x_stride[3];
+    // copy tid + i * ST_NT of a slab is row t, head hr, columns k..k+XV-1,
+    // and lands at value (tid + i * ST_NT) * XV of the slab
+    const T* xb = static_cast<const T*>(p.x) + b * p.x_stride[0] + c * p.x_stride[1] +
+                  h0 * p.x_stride[3];
     auto issue = [&](int tile) {
         const int hl0 = tile / n_slab * R, t0 = (tile % n_slab) * TQ;
-        float* dst = ring + (tile % ST_NS) * ST_STAGE;
+        T* dst = ring + (tile % ST_NS) * ST_STAGE;
 #pragma unroll
         for (int i = 0; i < ST_CH; ++i) {
-            const int idx = tid + i * ST_NT, q1 = idx / (P / 4);
-            const int t = q1 >> LG_R, hr = q1 & (R - 1), k = (idx % (P / 4)) * 4;
+            const int idx = tid + i * ST_NT, q1 = idx / (P / XV);
+            const int t = q1 >> LG_R, hr = q1 & (R - 1), k = (idx % (P / XV)) * XV;
             const bool live = t0 + t < p.Q && hl0 + hr < hg;
-            cp_async16(dst + idx * 4,
+            cp_async16(dst + idx * XV,
                        xb + (live ? (t0 + t) * p.x_stride[2] + (hl0 + hr) * p.x_stride[3] + k : 0),
                        live);
         }
@@ -567,20 +627,20 @@ __global__ void __launch_bounds__(ST_NT, 2) ssd_state_kernel(const SsdParams p) 
         const int hl = round * R + hr;
         if (hr >= R || hl >= hg) continue;     // no head for this thread in this round
         const int tq = min(TQ, Q4 - t0);
-        const float* xs = ring + (tile % ST_NS) * ST_STAGE + hr * P + tx * 4;
-        const float* bs = sB + t0 * N + ty * ST_TM;
+        const T* xs = ring + (tile % ST_NS) * ST_STAGE + hr * P + tx * 4;
+        const T* bs = sB + t0 * N + ty * ST_TM;
         const float* ws = sW + hl * ST_WS + t0;
         for (int t = 0; t < tq; t += 4) {
             const float4 w4 = *reinterpret_cast<const float4*>(ws + t);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const float w = lane4(w4, e);
-                const float4 x0 = *reinterpret_cast<const float4*>(xs + (t + e) * R * P);
-                const float4 x1 = *reinterpret_cast<const float4*>(xs + (t + e) * R * P + P / 2);
+                const float4 x0 = load4(xs + (t + e) * R * P);
+                const float4 x1 = load4(xs + (t + e) * R * P + P / 2);
                 float a[ST_TM];
 #pragma unroll
                 for (int i = 0; i < ST_TM; i += 4) {
-                    const float4 bq = *reinterpret_cast<const float4*>(bs + (t + e) * N + i);
+                    const float4 bq = load4(bs + (t + e) * N + i);
                     a[i] = bq.x * w; a[i + 1] = bq.y * w; a[i + 2] = bq.z * w; a[i + 3] = bq.w * w;
                 }
                 const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
@@ -591,7 +651,7 @@ __global__ void __launch_bounds__(ST_NT, 2) ssd_state_kernel(const SsdParams p) 
             }
         }
         if (slab == n_slab - 1) {              // the head's sum is complete
-            float* ob = p.out + b * p.o_stride[0] + c * p.o_stride[1] + (h0 + hl) * p.o_stride[2] +
+            float* ob = static_cast<float*>(p.out) + b * p.o_stride[0] + c * p.o_stride[1] + (h0 + hl) * p.o_stride[2] +
                         tx * 4;
 #pragma unroll
             for (int i = 0; i < ST_TM; ++i) {
@@ -628,37 +688,47 @@ int run(K kernel, const SsdParams& p, int threads, int smem, cudaStream_t stream
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int ssd_chunk_intra_f32(const SsdParams* p, void* stream) {
-    if (!valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+// ssd_chunk_intra with inputs of type T; a bf16 launch writes bf16 when
+// out_bf16 is set, else float32 (a float32 launch writes float32 only)
+template <typename T>
+int intra(const SsdParams* p, void* stream) {
+    if (!valid(*p) || (sizeof(T) == 4 && p->out_bf16)) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int smem =
         static_cast<int>(sizeof(float)) * intra_smem_floats(p->P, p->N, p->heads_per_block);
+    auto by_out = [&](auto p_tag) {
+        constexpr int P = decltype(p_tag)::value;
+        if constexpr (sizeof(T) == 2) {
+            if (p->out_bf16) return run(ssd_intra_kernel<P, T, T>, *p, IN_NT, smem, s);
+        }
+        return run(ssd_intra_kernel<P, T, float>, *p, IN_NT, smem, s);
+    };
     switch (p->P) {
-        case 32: return run(ssd_intra_kernel<32>, *p, IN_NT, smem, s);
-        case 64: return run(ssd_intra_kernel<64>, *p, IN_NT, smem, s);
-        case 128: return run(ssd_intra_kernel<128>, *p, IN_NT, smem, s);
+        case 32: return by_out(std::integral_constant<int, 32>{});
+        case 64: return by_out(std::integral_constant<int, 64>{});
+        case 128: return by_out(std::integral_constant<int, 128>{});
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
-extern "C" int ssd_chunk_state_f32(const SsdParams* p, void* stream) {
-    if (!valid(*p)) return static_cast<int>(cudaErrorInvalidValue);
+// ssd_chunk_state with inputs of type T (float32 out)
+template <typename T>
+int state(const SsdParams* p, void* stream) {
+    if (!valid(*p) || p->out_bf16) return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int smem = static_cast<int>(
-        sizeof(float) * (QM * p->N + p->heads_per_block * ST_WS + ST_NS * ST_STAGE));
+    const int smem = static_cast<int>(sizeof(T) * (QM * p->N + ST_NS * ST_STAGE) +
+                                      sizeof(float) * p->heads_per_block * ST_WS);
     auto by_n = [&](auto p_tag) {
         constexpr int P = decltype(p_tag)::value;
         switch (p->N) {
-            case 16: return run(ssd_state_kernel<P, 16>, *p, ST_NT, smem, s);
-            case 32: return run(ssd_state_kernel<P, 32>, *p, ST_NT, smem, s);
-            case 48: return run(ssd_state_kernel<P, 48>, *p, ST_NT, smem, s);
-            case 64: return run(ssd_state_kernel<P, 64>, *p, ST_NT, smem, s);
-            case 80: return run(ssd_state_kernel<P, 80>, *p, ST_NT, smem, s);
-            case 96: return run(ssd_state_kernel<P, 96>, *p, ST_NT, smem, s);
-            case 112: return run(ssd_state_kernel<P, 112>, *p, ST_NT, smem, s);
-            case 128: return run(ssd_state_kernel<P, 128>, *p, ST_NT, smem, s);
+            case 16: return run(ssd_state_kernel<P, 16, T>, *p, ST_NT, smem, s);
+            case 32: return run(ssd_state_kernel<P, 32, T>, *p, ST_NT, smem, s);
+            case 48: return run(ssd_state_kernel<P, 48, T>, *p, ST_NT, smem, s);
+            case 64: return run(ssd_state_kernel<P, 64, T>, *p, ST_NT, smem, s);
+            case 80: return run(ssd_state_kernel<P, 80, T>, *p, ST_NT, smem, s);
+            case 96: return run(ssd_state_kernel<P, 96, T>, *p, ST_NT, smem, s);
+            case 112: return run(ssd_state_kernel<P, 112, T>, *p, ST_NT, smem, s);
+            case 128: return run(ssd_state_kernel<P, 128, T>, *p, ST_NT, smem, s);
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
     };
@@ -670,4 +740,25 @@ extern "C" int ssd_chunk_state_f32(const SsdParams* p, void* stream) {
     }
 }
 
+}  // namespace
+
+// The build compiles this file once per input type, both at once: with
+// REPRO_KERNEL_TYPE 0 the float32 kernels and the shared export, with 1
+// the bf16 kernels (kernels/cuda_lib.py, UNITS).
+#if REPRO_KERNEL_TYPE == 1
+extern "C" int ssd_chunk_intra_bf16(const SsdParams* p, void* stream) {
+    return intra<__nv_bfloat16>(p, stream);
+}
+extern "C" int ssd_chunk_state_bf16(const SsdParams* p, void* stream) {
+    return state<__nv_bfloat16>(p, stream);
+}
+#else
+extern "C" int ssd_chunk_intra_f32(const SsdParams* p, void* stream) {
+    return intra<float>(p, stream);
+}
+extern "C" int ssd_chunk_state_f32(const SsdParams* p, void* stream) {
+    return state<float>(p, stream);
+}
+
 extern "C" int ssd_chunk_struct_size() { return static_cast<int>(sizeof(SsdParams)); }
+#endif

@@ -1,8 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels (``repro_torch/csrc``).
 
-Route: each source is compiled by its own ``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -c`` (all started together), and the
-objects are linked into one shared library with a plain C interface,
+Route: each unit -- a source, and the rank and SSD sources once per
+input type (``-DREPRO_KERNEL_TYPE=0`` float32, ``1`` bfloat16) -- is
+compiled by its own ``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-c`` (all started together), and the objects are linked into one shared
+library with a plain C interface,
 loaded with ``ctypes``.  The build runs at first use into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
 named by a hash of the sources and flags, so a fresh checkout builds
@@ -28,6 +30,11 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "hstu_rank_attn.cu", CSRC / "ssd_chunk.cu",
            CSRC / "decode_attn.cu")
+# (source, object name, flags): the templated sources once per input
+# type, so the two halves compile in parallel
+UNITS = tuple((src, f"{src.stem}_{t}", (f"-DREPRO_KERNEL_TYPE={i}",))
+              for src in SOURCES[:2] for i, t in enumerate(("f32", "bf16"))
+              ) + ((SOURCES[2], SOURCES[2].stem, ()),)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,6 +68,7 @@ def build() -> Path:
     library's path."""
     global BUILD_LOG
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr([(name, flags) for _, name, flags in UNITS]).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     lib = BUILD_DIR / f"repro_kernels-{h.hexdigest()[:16]}.so"
@@ -71,9 +79,9 @@ def build() -> Path:
     nvcc = _nvcc()                  # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, src.stem + ".o") for src in SOURCES]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
-                for src, o in zip(SOURCES, objs)]
+        objs = [os.path.join(tmp, name + ".o") for _, name, _ in UNITS]
+        cmds = [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", o, str(src)]
+                for (src, _, flags), o in zip(UNITS, objs)]
         so = os.path.join(tmp, "lib.so")
         results = _run_all(cmds)
         if all(rc == 0 for rc, _ in results):
@@ -128,7 +136,7 @@ class SsdParams(ctypes.Structure):
         ("out", ctypes.c_void_p), ("o_stride", _S4),
         ("B", ctypes.c_int), ("nc", ctypes.c_int), ("Q", ctypes.c_int),
         ("H", ctypes.c_int), ("N", ctypes.c_int), ("P", ctypes.c_int),
-        ("heads_per_block", ctypes.c_int),
+        ("heads_per_block", ctypes.c_int), ("out_bf16", ctypes.c_int),
     ]
 
 
@@ -148,11 +156,17 @@ class DecodeParams(ctypes.Structure):
     ]
 
 
+# the input types the rank and SSD kernels take, by the suffix of their C
+# launchers (``hstu_rank_attn_bf16``, ``ssd_chunk_state_f32``, ...): the
+# Pallas kernels take either float type and widen it to float32 on load
+TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 # (C launcher, params struct, name of its sizeof export)
 _LAUNCHERS = {
-    "hstu_rank_attn_f32": (RankAttnParams, "hstu_rank_attn_struct_size"),
-    "ssd_chunk_intra_f32": (SsdParams, "ssd_chunk_struct_size"),
-    "ssd_chunk_state_f32": (SsdParams, "ssd_chunk_struct_size"),
+    **{f"hstu_rank_attn_{t}": (RankAttnParams, "hstu_rank_attn_struct_size")
+       for t in TYPES.values()},
+    **{f"ssd_chunk_{kind}_{t}": (SsdParams, "ssd_chunk_struct_size")
+       for kind in ("intra", "state") for t in TYPES.values()},
     "decode_attn": (DecodeParams, "decode_attn_struct_size"),
 }
 
@@ -234,19 +248,32 @@ def rank_launch_plan(n_prefix: int, Sq: int) -> tuple[int, int]:
     return q_rows, cluster
 
 
-def _view(t: torch.Tensor, name: str, device) -> torch.Tensor:
-    """A (B, H, S, D) float32 view the kernel can read: unit stride on D,
-    16-byte aligned rows.  Anything else is refused, never copied."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel computes in float32 only, "
-                        f"got {t.dtype}")
+def _dtype(t: torch.Tensor, name: str, kernel: str) -> torch.dtype:
+    """t's type if ``kernel`` takes it (float32 or bfloat16), else a
+    TypeError."""
+    if t.dtype not in TYPES:
+        raise TypeError(f"{name}: the {kernel} kernel takes float32 or "
+                        f"bfloat16, got {t.dtype}")
+    return t.dtype
+
+
+def _view(t: torch.Tensor, name: str, device, dtype,
+          dims: int = 4) -> torch.Tensor:
+    """A ``dims``-d view of the launch's ``dtype`` on ``device`` that a
+    kernel can read: a unit last stride, and rows that start on 16 bytes
+    (the first element and every outer stride, counted in bytes; a
+    strided bf16 slice of the model's xBC qualifies where its offset and
+    row stride do).  Anything else is refused, never copied."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: need the launch's {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dim() != 4 or t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
-            or t.data_ptr() % 16:
-        raise ValueError(f"{name}: need a 4-d view with unit last stride and "
-                         f"16-byte aligned rows, got shape {tuple(t.shape)} "
-                         f"strides {t.stride()}")
+    esz = t.element_size()
+    if t.dim() != dims or t.stride(-1) != 1 or t.data_ptr() % 16 \
+            or any(st * esz % 16 for st in t.stride()[:-1]):
+        raise ValueError(f"{name}: need a {dims}-d view with unit last "
+                         f"stride and 16-byte aligned rows, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()} ({t.dtype})")
     return t
 
 
@@ -271,7 +298,8 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
               prefix=None, pages=None, spans=None) -> torch.Tensor:
     """Launch the HSTU rank kernel on q's CUDA device and stream.
 
-    q, k_new, v_new: (B, H, Sq, D) float32 views.
+    q, k_new, v_new: (B, H, Sq, D) views, float32 or bfloat16; every
+            K/V input (prefix, pools) has q's type.
     prefix: optional dense (k_pre, v_pre), each (B, H, P, D).
     pages:  optional (k_pool, v_pool, k_table, v_table, prefix_lens) with
             pools (N + 1, page_tokens, H, D), tables (B, n_pages) int32
@@ -280,22 +308,24 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
     spans:  with pages, the segment mode: (page_pos, page_valid, q_pos),
             the first two (B, n_pages) int32, q_pos (B, Sq) int32, each
             with a unit column stride.
-    Returns out (B, H, Sq, D) float32, a view of a (B, Sq, H, D) tensor.
-    The caller counts the launch."""
+    Returns out (B, H, Sq, D) in q's type, a view of a (B, Sq, H, D)
+    tensor.  The caller counts the launch."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"rank_attn launches on CUDA tensors, got {device}")
     B, H, Sq, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not compiled (have {HEAD_DIMS})")
-    q = _view(q, "q", device)
-    k_new, v_new = _view(k_new, "k_new", device), _view(v_new, "v_new", device)
+    dtype = _dtype(q, "q", "rank")
+    q = _view(q, "q", device, dtype)
+    k_new = _view(k_new, "k_new", device, dtype)
+    v_new = _view(v_new, "v_new", device, dtype)
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (B, H, Sq, D):
             raise ValueError(f"{name} shape {tuple(t.shape)} != q's")
     # written through strides in the model layout (B, Sq, H, D), so the
     # caller's swap back to it is a view and the next reshape is free
-    out = torch.empty((B, Sq, H, D), dtype=torch.float32,
+    out = torch.empty((B, Sq, H, D), dtype=dtype,
                       device=device).transpose(1, 2)
     p = RankAttnParams(
         q=q.data_ptr(), q_stride=_strides(q), k_new=k_new.data_ptr(),
@@ -307,7 +337,8 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
     if spans is not None and pages is None:
         raise ValueError("the segment mode reads its spans from pages")
     if prefix is not None:
-        kp, vp = (_view(t, n, device) for t, n in zip(prefix, ("k_pre", "v_pre")))
+        kp, vp = (_view(t, n, device, dtype)
+                  for t, n in zip(prefix, ("k_pre", "v_pre")))
         if kp.shape != vp.shape or tuple(kp.shape[:2]) != (B, H) \
                 or kp.shape[3] != D:
             raise ValueError(f"prefix shapes {tuple(kp.shape)} / "
@@ -321,12 +352,14 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
             raise ValueError("a paged launch takes prefix_lens or spans, "
                              "exactly one")
         for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-            if t.dtype != torch.float32 or t.device != device \
-                    or not t.is_contiguous() or t.dim() != 4 \
+            if t.dtype != dtype:
+                raise TypeError(f"{name}: need {dtype} as q, got {t.dtype}")
+            if t.device != device or not t.is_contiguous() or t.dim() != 4 \
                     or tuple(t.shape[2:]) != (H, D) or t.data_ptr() % 16:
-                raise ValueError(f"{name}: need a contiguous float32 "
+                raise ValueError(f"{name}: need a contiguous {dtype} "
                                  f"(N + 1, page_tokens, {H}, {D}) pool on "
-                                 f"{device}, got {tuple(t.shape)} {t.dtype}")
+                                 f"{device}, got {tuple(t.shape)} {t.dtype} "
+                                 f"on {t.device}")
         if k_pool.shape[1] != v_pool.shape[1]:
             raise ValueError("K and V pools differ in page_tokens")
         if k_table.dim() != 2 or k_table.shape[0] != B:
@@ -358,7 +391,7 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
             p.q_pos, p.qp_stride = q_pos.data_ptr(), q_pos.stride(0)
             p.segment = 1
     p.q_rows, p.cluster = rank_launch_plan(p.n_prefix, Sq)
-    _launch("hstu_rank_attn_f32", p, device)
+    _launch(f"hstu_rank_attn_{TYPES[dtype]}", p, device)
     return out
 
 
@@ -385,33 +418,21 @@ def ssd_intra_heads_per_block(H: int) -> int:
     return -(-H // groups)
 
 
-def _f32_view(t: torch.Tensor, name: str, dims: int, device) -> torch.Tensor:
-    """A float32 ``dims``-d tensor on ``device`` with a unit last stride
-    and 16-byte aligned rows; anything else is refused, never copied."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the SSD kernels compute in float32 only, "
-                        f"got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dim() != dims or t.stride(-1) != 1 or t.data_ptr() % 16 \
-            or any(s % 4 for s in t.stride()[:-1]):
-        raise ValueError(f"{name}: need a {dims}-d view with unit last "
-                         f"stride and 16-byte aligned rows, got shape "
-                         f"{tuple(t.shape)} strides {t.stride()}")
-    return t
-
-
-def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
+def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc, out_dtype=None) -> torch.Tensor:
     """Launch ``ssd_chunk_intra`` (kind "intra", returns (B, nc, Q, H, P))
     or ``ssd_chunk_state`` (kind "state", ``Cc`` unused, returns
-    (B, nc, H, N, P)) on xc's CUDA device and stream.  Inputs as in
-    ``kernels/ssd_chunk.py``, float32.  The caller counts the launch."""
+    (B, nc, H, N, P) float32) on xc's CUDA device and stream.  Inputs as
+    in ``kernels/ssd_chunk.py``: C, B and x float32 or bfloat16 alike,
+    cum and dt float32.  The intra output is ``out_dtype``, xc's type by
+    default (float32 from bfloat16 inputs too).  The caller counts the
+    launch."""
     device = xc.device
     if device.type != "cuda":
         raise ValueError(f"ssd_chunk launches on CUDA tensors, got {device}")
-    xc = _f32_view(xc, "xc", 5, device)
+    dtype = _dtype(xc, "xc", "SSD")
+    xc = _view(xc, "xc", device, dtype, 5)
     B, nc, Q, H, P = xc.shape
-    Bc = _f32_view(Bc, "Bc", 4, device)
+    Bc = _view(Bc, "Bc", device, dtype)
     N = Bc.shape[3]
     if P not in SSD_HEAD_DIMS:
         raise ValueError(f"head dim P={P} not compiled (have {SSD_HEAD_DIMS})")
@@ -434,17 +455,24 @@ def ssd_chunk(kind: str, Cc, Bc, xc, cum, dtc) -> torch.Tensor:
                   heads_per_block=ssd_intra_heads_per_block(H) if kind == "intra"
                   else min(H, SSD_STATE_HEADS_PER_BLOCK))
     if kind == "intra":
-        Cc = _f32_view(Cc, "Cc", 4, device)
+        Cc = _view(Cc, "Cc", device, dtype)
         if Cc.shape != Bc.shape:
             raise ValueError(f"Cc shape {tuple(Cc.shape)} != Bc's")
+        out_dtype = out_dtype or dtype
+        if out_dtype not in (dtype, torch.float32):
+            raise TypeError(f"ssd_chunk_intra writes float32 or xc's type "
+                            f"{dtype}, not {out_dtype}")
         p.C, p.c_stride = Cc.data_ptr(), SsdParams._S3(*Cc.stride()[:3])
-        out = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=device)
+        p.out_bf16 = int(out_dtype == torch.bfloat16)
+        out = torch.empty((B, nc, Q, H, P), dtype=out_dtype, device=device)
     elif kind == "state":
+        if out_dtype not in (None, torch.float32):
+            raise TypeError(f"ssd_chunk_state writes float32, not {out_dtype}")
         out = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=device)
     else:
         raise ValueError(f"kind must be 'intra' or 'state', got {kind!r}")
     p.out, p.o_stride = out.data_ptr(), SsdParams._S4(*out.stride()[:4])
-    _launch(f"ssd_chunk_{kind}_f32", p, device)
+    _launch(f"ssd_chunk_{kind}_{TYPES[dtype]}", p, device)
     return out
 
 

@@ -6,14 +6,18 @@ On CUDA tensors it launches ``csrc/hstu_rank_attn.cu`` with no prefix and
 every query an incremental token (``n_incr = S``), which is exactly the
 causal mask; on CPU tensors it runs the plain version (and autograd
 differentiates it as it would any PyTorch code).  Any other device
-raises.  ``launches`` counts kernel launches, and only those.
+raises.  q, k and v are float32 or bfloat16 alike and the output has
+q's type, as the Pallas kernel's does.  ``launches`` counts kernel
+launches, and only those.
 
 When autograd records (grad mode on and an input that requires grad), a
 CUDA call goes through ``HSTUAttnFunction``: the forward launches the
 same kernel, the backward recomputes the scores with ``torch.matmul`` in
 float32 and forms dq, dk and dv.  The TPU kernel has no VJP — the
 reference differentiates plain jnp attention with XLA — so there is no
-backward kernel to port.
+backward kernel to port.  The Function takes float32 only: a bfloat16
+q, k or v that asks for a gradient on the card raises (training the
+attention in bf16 is ROADMAP Queue 2, item G).
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ def hstu_attn(q, k, v, *, n_total: float = None):
     n_total = n_total or q.shape[2]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.dtype != torch.float32:
+            raise TypeError(f"hstu_attn: a gradient on the card needs "
+                            f"float32, got {q.dtype} (bf16 training of the "
+                            f"attention is ROADMAP Queue 2, item G)")
         return HSTUAttnFunction.apply(q, k, v, n_total)
     return _launch(q, k, v, n_total)
 

@@ -23,7 +23,8 @@ accumulator — so no partial sum reaches device memory.
 
 On CUDA tensors it launches ``csrc/hstu_rank_attn.cu``; on CPU tensors it
 runs the plain version (gather through the tables, then the dense
-oracle).  Any other device raises.  ``launches`` (paged prefix) and
+oracle).  Any other device raises.  q, the new K/V and the pools are
+float32 or bfloat16 alike; the output has q's type.  ``launches`` (paged prefix) and
 ``launches_segment`` count kernel launches, and only those.
 """
 

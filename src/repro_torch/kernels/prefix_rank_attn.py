@@ -11,7 +11,9 @@ On CUDA tensors ``prefix_rank_attn_split`` launches
 ``csrc/hstu_rank_attn.cu``, which reads the prefix and the new tokens
 from two separate views, so no [prefix | new] concatenation is ever
 materialized; on CPU tensors it runs the plain version.  Any other
-device raises.  ``launches`` counts kernel launches, and only those.
+device raises.  q and every K/V are float32 or bfloat16 alike; the
+output has q's type.  ``launches`` counts kernel launches, and only
+those.
 """
 
 from __future__ import annotations

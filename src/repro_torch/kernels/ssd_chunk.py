@@ -8,18 +8,23 @@ Replaces the TPU kernels of ``src/repro/kernels/ssd_chunk.py``:
   ``S = sum_t exp(cum[-1] - cum[t]) dt[t] B[t] (x) x[t]``.
 
 Shapes: Cc, Bc (B, nc, Q, N); xc (B, nc, Q, H, P); cum, dtc
-(B, nc, Q, H); Q <= 128.  On CUDA tensors each wrapper launches
-``csrc/ssd_chunk.cu`` (float32 only, as on the model's path, where
-``mamba2_forward`` casts x, B and C to float32 first); on CPU tensors it
-runs the plain twin.  Any other device raises.  ``launches_intra`` and
-``launches_state`` count kernel launches, and only those.
+(B, nc, Q, H); Q <= 128.  Types: C, B and x float32 or bfloat16 alike
+(the model hands over bf16 slices of its xBC as they are), cum and dt
+float32, every sum in float32, as the Pallas kernels widen on load.
+``ssd_chunk_intra`` returns xc's type, as the Pallas kernel does, or the
+``out_dtype`` asked for (the model asks for float32); ``ssd_chunk_state``
+returns float32.  On CUDA tensors each wrapper launches
+``csrc/ssd_chunk.cu``; on CPU tensors it runs the plain twin.  Any other
+device raises.  ``launches_intra`` and ``launches_state`` count kernel
+launches, and only those.
 
 Gradients.  On a CUDA tensor every call goes through
 ``SSDChunkIntraFunction`` / ``SSDChunkStateFunction``, in grad mode or
 not: the forward is the counted kernel launch, the backward
 ``ssd_chunk_intra_backward`` / ``ssd_chunk_state_backward``, the closed
 forms of the gradients with respect to all five (four) inputs, written
-in torch ops over every chunk at once.  The backward launches no kernel
+in float32 torch ops over every chunk at once and returned in each
+input's type.  The backward launches no kernel
 (the TPU kernels have no VJP: the reference differentiates the plain
 jnp SSD), so under per-layer activation checkpointing a training step
 counts two launches of each kernel a Mamba2 layer: the forward and its
@@ -38,9 +43,10 @@ launches_intra = 0
 launches_state = 0
 
 
-def ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc):
+def ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc, out_dtype=None):
     """Plain twin (mirrors ``repro``'s ``ssd_chunk_intra_ref``):
-    computed in float32, returned in xc's type.  The decay is
+    computed in float32, returned in ``out_dtype`` (xc's type by
+    default).  The decay is
     exponentiated under the causal mask (masked entries as exp(0)), so
     no masked exp(cum[q] - cum[t] > 88) overflows: the same values as
     the reference's ``where(causal, exp(dec), 0)``, and a finite
@@ -53,7 +59,7 @@ def ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc):
     M = torch.where(causal, torch.exp(torch.where(causal, dec, 0.0)), 0.0)
     Mx = M * scores[..., None] * dtc[:, :, None, :, :]
     return torch.einsum("bcqkh,bckhp->bcqhp", Mx,
-                        xc.float()).to(xc.dtype)
+                        xc.float()).to(out_dtype or xc.dtype)
 
 
 def ssd_chunk_state_ref(Bc, xc, cum, dtc):
@@ -64,9 +70,10 @@ def ssd_chunk_state_ref(Bc, xc, cum, dtc):
                         torch.exp(tail) * dtc, xc.float())
 
 
-def _launch_intra(Cc, Bc, xc, cum, dtc):
+def _launch_intra(Cc, Bc, xc, cum, dtc, out_dtype=None):
     global launches_intra
-    out = cuda_lib.ssd_chunk("intra", Cc, Bc, xc, cum, dtc)
+    out = cuda_lib.ssd_chunk("intra", Cc, Bc, xc, cum, dtc,
+                             out_dtype=out_dtype)
     launches_intra += 1
     return out
 
@@ -78,11 +85,11 @@ def _launch_state(Bc, xc, cum, dtc):
     return out
 
 
-def ssd_chunk_intra(Cc, Bc, xc, cum, dtc):
-    """y_intra (B, nc, Q, H, P)."""
+def ssd_chunk_intra(Cc, Bc, xc, cum, dtc, out_dtype=None):
+    """y_intra (B, nc, Q, H, P) in ``out_dtype``, xc's type by default."""
     if ref.runs_plain(xc):
-        return ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc)
-    return SSDChunkIntraFunction.apply(Cc, Bc, xc, cum, dtc)
+        return ssd_chunk_intra_ref(Cc, Bc, xc, cum, dtc, out_dtype)
+    return SSDChunkIntraFunction.apply(Cc, Bc, xc, cum, dtc, out_dtype)
 
 
 def ssd_chunk_state(Bc, xc, cum, dtc):
@@ -97,6 +104,13 @@ def _wide(*ts):
     input is."""
     return torch.float64 if any(t.dtype == torch.float64 for t in ts) \
         else torch.float32
+
+
+def _as_inputs(grads, inputs):
+    """Each gradient in its input's type (a bf16 input's float32
+    gradient rounded once, as the gradient through a float32 copy of it
+    would be)."""
+    return tuple(g.to(t.dtype) for g, t in zip(grads, inputs))
 
 
 def ssd_chunk_intra_backward(Cc, Bc, xc, cum, dtc, dy):
@@ -174,24 +188,28 @@ def ssd_chunk_state_backward(Bc, xc, cum, dtc, dS):
 class SSDChunkIntraFunction(torch.autograd.Function):
     """``ssd_chunk_intra`` on the card with a gradient: the forward is
     the CUDA kernel (one counted launch), the backward
-    ``ssd_chunk_intra_backward`` over the saved inputs."""
+    ``ssd_chunk_intra_backward`` over the saved inputs, each gradient in
+    its input's type."""
 
     @staticmethod
-    def forward(ctx, Cc, Bc, xc, cum, dtc):
+    def forward(ctx, Cc, Bc, xc, cum, dtc, out_dtype=None):
         ctx.save_for_backward(Cc, Bc, xc, cum, dtc)
-        return _launch_intra(Cc, Bc, xc, cum, dtc)
+        return _launch_intra(Cc, Bc, xc, cum, dtc, out_dtype=out_dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        ins = ctx.saved_tensors
         with torch.profiler.record_function("ssd_chunk_intra_backward"):
-            return ssd_chunk_intra_backward(*ctx.saved_tensors, dy)
+            return (*_as_inputs(ssd_chunk_intra_backward(*ins, dy), ins),
+                    None)
 
 
 class SSDChunkStateFunction(torch.autograd.Function):
     """``ssd_chunk_state`` on the card with a gradient: the forward is
     the CUDA kernel (one counted launch), the backward
-    ``ssd_chunk_state_backward`` over the saved inputs."""
+    ``ssd_chunk_state_backward`` over the saved inputs, each gradient in
+    its input's type."""
 
     @staticmethod
     def forward(ctx, Bc, xc, cum, dtc):
@@ -201,5 +219,6 @@ class SSDChunkStateFunction(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dS):
+        ins = ctx.saved_tensors
         with torch.profiler.record_function("ssd_chunk_state_backward"):
-            return ssd_chunk_state_backward(*ctx.saved_tensors, dS)
+            return _as_inputs(ssd_chunk_state_backward(*ins, dS), ins)

@@ -103,13 +103,17 @@ def mamba2_forward(params, u, cfg, state=None):
     A = -torch.exp(params["A_log"].float())               # (H,) negative
     la = dt * A                                           # log-decay <= 0
 
-    xc = x.reshape(B, nc, Q, H, P).float()
-    Bc = xBC[..., di:di + N].reshape(B, nc, Q, N).float()
-    Cc = xBC[..., di + N:].reshape(B, nc, Q, N).float()
+    # x, B and C go to both SSD kernels as the model's slices of xBC, in
+    # its type: the kernels widen each value to float32 as they read it
+    # (the reference casts them to float32 first; the values are equal)
+    xc = x.reshape(B, nc, Q, H, P)
+    Bc = xBC[..., di:di + N].reshape(B, nc, Q, N)
+    Cc = xBC[..., di + N:].reshape(B, nc, Q, N)
     dtc = dt.reshape(B, nc, Q, H)
     cum = torch.cumsum(la.reshape(B, nc, Q, H), dim=2)    # (B, nc, Q, H)
 
-    y_intra = ssd_chunk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc)
+    y_intra = ssd_chunk.ssd_chunk_intra(Cc, Bc, xc, cum, dtc,
+                                        out_dtype=torch.float32)
     S_c = ssd_chunk.ssd_chunk_state(Bc, xc, cum, dtc)     # (B, nc, H, N, P)
     a_tot = torch.exp(cum[:, :, -1, :])                   # (B, nc, H)
 
@@ -121,7 +125,9 @@ def mamba2_forward(params, u, cfg, state=None):
         S = a_tot[:, c, :, None, None] * S + S_c[:, c]
 
     # y_inter[q, h, p] = exp(cum[q, h]) * sum_n C[q, n] S_prev[h, n, p]
-    CS = torch.matmul(Cc, S_prev.permute(0, 1, 3, 2, 4).reshape(B, nc, N, H * P))
+    # (only C is widened here: (B, L, N), beside the float32 states)
+    CS = torch.matmul(Cc.float(),
+                      S_prev.permute(0, 1, 3, 2, 4).reshape(B, nc, N, H * P))
     y_inter = CS.view(B, nc, Q, H, P) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, L, H, P)
     y = y + params["D"].float()[None, None, :, None] * x

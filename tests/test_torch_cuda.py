@@ -36,6 +36,16 @@ decode step (dense, MoE, and the int8 cache) replayed from a graph
 equal to the eager step; for the SSM stacks (RWKV6, Mamba2) and the
 enc-dec, a full-width decode step replayed from a graph equal to the
 eager step, and the cross-attention decode launching ``decode_attn``.
+For bf16 inputs (rows 1-4, 6-7): each launch equal bit for bit to the
+float32 launch on the widened inputs (bf16 outputs rounded), in all
+four rank modes at Sq 1..576 x D 32 / 64 / 128 and at every SSD case of
+the float32 sweep; against float64 within the output's rounding
+(2**-8 of |out|) plus 1e-5 of the largest |out|; the rank kernels
+against their bf16 twins within 2**-6 of the largest |out|; the SSD
+Functions' outputs and gradients equal the float32-copy route bit for
+bit; a bf16 smoke ``hstu-gr`` against the CPU (2**-4 of the largest
+|score|) and served with graphs; the zamba2 smoke prefill and train step
+equal the float32-copy route bit for bit.
 Tolerance: 3e-4 absolute + 3e-4 relative, the repo's f32 kernel
 tolerance.  The bfloat16 decode is held to 2**-6 of the largest
 |plain| output, about two bf16 ulps of it: the plain twin also computes
@@ -216,6 +226,127 @@ def test_rank_kernel_keeps_f32_accuracy(dev, kind, scale):
     assert (tf32 - want).abs().max().item() > lim
 
 
+# --- bfloat16 inputs: widened on load, the float32 kernel's arithmetic ----------
+
+BF16_OUT = 2 ** -8     # a bf16 output's rounding, of its |value|
+# kernel vs the bf16 plain twin, of the twin's largest |out|: the twin
+# rounds its logits and scores to bf16 where the kernel keeps float32
+# (~0.004-0.006 at the path shapes on the CPU, the twin against the
+# float32 twin on widened inputs rounded to bf16); an all-zero output
+# errs by 1
+TWIN_BF16 = 2 ** -6
+
+
+def _f64_close_bf16(got, want):
+    """(b) for a bf16 output: within its rounding (2**-8 of |want|) plus
+    the float32 kernels' 1e-5 of the largest |want| of float64."""
+    top = want.abs().max().item()
+    err = (got.double() - want).abs()
+    lim = BF16_OUT * want.abs() + (1 + BF16_OUT) * 1e-5 * top
+    assert bool((err <= lim).all()), (err - lim).max().item()
+
+
+def _rank_modes(dev, Sq, D, n_incr, pt=32, B=2, H=2):
+    """Inputs of the four rank modes at (Sq, D), and a call for each that
+    takes them: (inputs, {mode: f(q, kn, vn, kp, vp, pool)}, tables)."""
+    q, kn, vn = (_randn(dev, B, H, Sq, D, seed=20 + i) for i in range(3))
+    kp, vp = (_randn(dev, B, H, 100, D, seed=30 + i) for i in range(2))
+    lens, n_pages = [100, 37], 4
+    _, _, _, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq, H, D)
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * pt
+            ).expand(B, n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, pt).int()
+    qpos = (n_pages * pt + torch.arange(Sq, dtype=torch.int32, device=dev)
+            ).expand(B, Sq)
+    calls = {
+        "hstu": lambda q, kn, vn, kp, vp, pool: hk.hstu_attn(q, kn, vn),
+        "dense": lambda q, kn, vn, kp, vp, pool: rk.prefix_rank_attn_split(
+            q, kp, vp, kn, vn, n_incr=n_incr),
+        "paged": lambda q, kn, vn, kp, vp, pool: pk.paged_prefix_rank_attn(
+            q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr),
+        "segment": lambda q, kn, vn, kp, vp, pool: pk.segment_rank_attn(
+            q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn,
+            n_items=Sq - n_incr)}
+    return (q, kn, vn, kp, vp, pool), calls, (kt, vt, plens)
+
+
+@pytest.mark.parametrize("Sq", [1, 15, 16, 17, 80, 90, 129, 576])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_rank_kernel_bf16_tiling_edges_all_modes(dev, Sq, D):
+    """The bf16 load path at the tiling edges of the float32 test above,
+    in all four modes: (a) each bf16 launch equals the float32 launch on
+    the widened inputs, rounded to bf16, bit for bit; two calls bit for
+    bit; paged == dense at equal padded length and segment (one span) ==
+    paged, in bf16."""
+    n_incr = Sq // 5
+    ins, calls, (kt, vt, plens) = _rank_modes(dev, Sq, D, n_incr)
+    bf = tuple(t.bfloat16() for t in ins)
+    wide = tuple(t.float() for t in bf)
+    out = {}
+    for mode, f in calls.items():
+        before = (hk.launches, rk.launches, pk.launches, pk.launches_segment)
+        got = f(*bf)
+        assert sum(after - b for after, b in zip(
+            (hk.launches, rk.launches, pk.launches, pk.launches_segment),
+            before)) == 1, mode
+        assert got.dtype == torch.bfloat16 and got.shape == bf[0].shape, mode
+        assert torch.equal(got, f(*wide).bfloat16()), mode
+        assert torch.equal(f(*bf), got), mode
+        out[mode] = got
+    q, kn, vn, _, _, pool = bf
+    kg, vg = ref.gather_pages(pool, kt, plens), ref.gather_pages(pool, vt, plens)
+    assert torch.equal(rk.prefix_rank_attn_split(q, kg, vg, kn, vn,
+                                                 n_incr=n_incr), out["paged"])
+    assert torch.equal(out["segment"], out["paged"])
+
+
+@pytest.mark.parametrize("kind", ["hstu", "rank"])
+def test_rank_kernel_bf16_against_float64_and_twin(dev, kind):
+    """(b) at the path shapes: against float64 on the widened inputs, the
+    float32 launch on them (the bf16 launch before its rounding) within
+    1e-5 of the largest |out| and the bf16 launch within its rounding
+    plus that; and against the bf16 plain twin (which rounds its logits and
+    scores to bf16, as the reference's oracle does) within TWIN_BF16 of
+    the twin's largest |out|."""
+    g = torch.Generator(device=dev).manual_seed(len(kind))
+    randn = lambda *shape: torch.randn(shape, generator=g,
+                                       device=dev).bfloat16()
+    if kind == "hstu":
+        S = 1024
+        q, k, v = (randn(1, 4, S, 64) for _ in range(3))
+        got = hk.hstu_attn(q, k, v)
+        plain = hk.hstu_attn_plain(q, k, v)
+        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        qkv, n = (q, k, v), S
+    else:
+        P, n_incr, Sq = 2048, 16, 80
+        q, kn, vn = (randn(2, 4, Sq, 64) for _ in range(3))
+        kp, vp = (randn(2, 4, P, 64) for _ in range(2))
+        got = rk.prefix_rank_attn_split(q, kp, vp, kn, vn, n_incr=n_incr)
+        kk, vv = torch.cat([kp, kn], 2), torch.cat([vp, vn], 2)
+        plain = rk.prefix_rank_attn_plain(q, kk, vv, n_prefix=P,
+                                          n_incr=n_incr)
+        mask = ref.rank_mask_ref(P, n_incr, Sq - n_incr, device=dev)
+        qkv, n = (q, kk, vv), P + Sq
+    want = ref.silu_attn_f64(*qkv, mask, n_total=n)
+    _f64_close_bf16(got, want)
+    # the float32 launch on the widened inputs (got before its rounding)
+    # within the float32 kernels' 1e-5 of the largest |out|
+    wide = tuple(t.float() for t in qkv)
+    if kind == "hstu":
+        f32 = hk.hstu_attn(*wide)
+    else:
+        f32 = rk.prefix_rank_attn_split(
+            wide[0], *(t[:, :, :P] for t in wide[1:]),
+            *(t[:, :, P:] for t in wide[1:]), n_incr=n_incr)
+    assert torch.equal(f32.bfloat16(), got)
+    lim = 1e-5 * want.abs().max().item()
+    assert (f32.double() - want).abs().max().item() <= lim
+    top = plain.float().abs().max().item()
+    err = (got.float() - plain.float()).abs().max().item()
+    assert err <= TWIN_BF16 * top, (err / top)
+
+
 # --- the segment mode: cached spans interleaved with fresh tokens -----------------
 
 SEG_ROWS = [   # ('c', n) a cached span, ('f', n) fresh tokens; 80 fresh per row
@@ -307,7 +438,9 @@ def test_segment_wrapper_refuses_what_the_kernel_does_not_take(dev):
         q=q, k_pages=pool, v_pages=pool, k_table=kt, v_table=vt,
         page_pos=ppos, page_valid=pval, q_pos=qpos, k_new=kn, v_new=vn,
         n_items=64), **kw})
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        call(q=q.half(), k_new=kn.half(), v_new=vn.half())
+    with pytest.raises(TypeError, match="k_pool"):
         call(q=q.bfloat16(), k_new=kn.bfloat16(), v_new=vn.bfloat16())
     with pytest.raises(ValueError, match="k_pool"):
         call(k_pages=pool.cpu(), v_pages=pool.cpu())
@@ -341,9 +474,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q = _randn(dev, 1, 2, 8, 64)
     with pytest.raises(TypeError, match="float32"):
         hk.hstu_attn(q.double(), q.double(), q.double())
-    with pytest.raises(TypeError, match="float32"):
-        hk.hstu_attn(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        hk.hstu_attn(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="k_new"):
+        hk.hstu_attn(q.bfloat16(), q, q.bfloat16())
     odd = _randn(dev, 1, 2, 8, 66)[..., 1:65]       # rows not 16-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        hk.hstu_attn(odd, odd, odd)
+    odd = _randn(dev, 1, 2, 8, 72).bfloat16()[..., 4:68]   # 8 bytes in
     with pytest.raises(ValueError, match="aligned"):
         hk.hstu_attn(odd, odd, odd)
     with pytest.raises(ValueError, match="head dim"):
@@ -419,11 +557,11 @@ def test_decode_attn_head_dims_and_strided_cache(dev, D):
     _close(dk.decode_attn(q, k, v), dk.decode_attn_plain(q, k, v))
 
 
-def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False):
-    """x, B, C as slices of one (B, L, H*P + 2N) buffer, as the model's
-    float32 path hands them over; cum a negative cumulative log-decay."""
+def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False, dtype=torch.float32):
+    """x, B, C as slices of one (B, L, H*P + 2N) buffer of ``dtype``, as
+    the model hands them over; cum a negative cumulative log-decay."""
     L = nc * Q
-    xBC = _randn(dev, B, L, H * P + 2 * N, seed=7)
+    xBC = _randn(dev, B, L, H * P + 2 * N, seed=7).to(dtype)
     xc = xBC[..., :H * P].reshape(B, nc, Q, H, P)
     Bc = xBC[..., H * P:H * P + N].reshape(B, nc, Q, N)
     Cc = xBC[..., H * P + N:].reshape(B, nc, Q, N)
@@ -441,13 +579,16 @@ def _ssd_inputs(dev, B, nc, Q, H, P, N, steep=False):
 # P <= 64 and two at P 128, every N (C and B swizzled by 32 or 16
 # columns), and H not a multiple of its head group (19 = 10 + 9, 35 =
 # 12 + 12 + 11)
-@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+SSD_CASES = [
     (2, 4, 128, 64, 64, 64), (2, 2, 128, 4, 64, 64), (2, 2, 128, 2, 128, 32),
     (2, 2, 128, 8, 64, 16), (1, 1, 100, 8, 32, 16), (2, 1, 1, 17, 64, 64),
     (1, 3, 64, 20, 64, 128), (1, 2, 128, 31, 64, 64), (1, 2, 128, 33, 64, 64),
     (1, 2, 128, 3, 128, 128), (1, 1, 77, 5, 64, 48), (1, 2, 100, 40, 32, 16)] + [
     (2, 2, Q, 19 if Q % 2 else 35, P, (16, 48, 64, 128)[(Q + P // 32) % 4])
-    for Q in (1, 8, 15, 16, 17, 100, 127, 128) for P in (32, 64, 128)])
+    for Q in (1, 8, 15, 16, 17, 100, 127, 128) for P in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES)
 def test_ssd_chunk_kernels(dev, B, nc, Q, H, P, N):
     Cc, Bc, xc, cum, dt = _ssd_inputs(dev, B, nc, Q, H, P, N)
     before = (sk.launches_intra, sk.launches_state)
@@ -495,6 +636,85 @@ def test_ssd_chunk_intra_is_deterministic_and_batch_independent(dev):
         s = slice(b, b + 1)
         one = sk.ssd_chunk_intra(Cc[s], Bc[s], xc[s], cum[s], dt[s])
         assert torch.equal(one[0], y[b])
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N", SSD_CASES)
+def test_ssd_chunk_kernels_bf16(dev, B, nc, Q, H, P, N):
+    """The bf16 load path at every case of the float32 sweep, x, B and C
+    as slices of one bf16 xBC: (a) the intra launch writing float32 (the
+    model's) equals the float32 launch on widened inputs bit for bit, the
+    one writing bf16 equals it rounded, and the state (float32) equals
+    the float32 state launch; the plain twins, which widen too, within
+    the float32 tolerance; two calls bit for bit."""
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, B, nc, Q, H, P, N,
+                                      dtype=torch.bfloat16)
+    wC, wB, wx = (t.float() for t in (Cc, Bc, xc))
+    before = (sk.launches_intra, sk.launches_state)
+    y = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt, out_dtype=torch.float32)
+    yb = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt)
+    s = sk.ssd_chunk_state(Bc, xc, cum, dt)
+    assert (sk.launches_intra, sk.launches_state) == (before[0] + 2,
+                                                      before[1] + 1)
+    assert y.dtype == torch.float32 and yb.dtype == torch.bfloat16
+    assert torch.equal(y, sk.ssd_chunk_intra(wC, wB, wx, cum, dt))
+    assert torch.equal(yb, y.bfloat16())
+    assert torch.equal(s, sk.ssd_chunk_state(wB, wx, cum, dt))
+    assert torch.equal(sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt,
+                                          out_dtype=torch.float32), y)
+    assert torch.equal(sk.ssd_chunk_state(Bc, xc, cum, dt), s)
+    _close(y, sk.ssd_chunk_intra_ref(Cc, Bc, xc, cum, dt, torch.float32))
+    _close(s, sk.ssd_chunk_state_ref(Bc, xc, cum, dt))
+
+
+@pytest.mark.parametrize("steep", [False, True])
+def test_ssd_chunk_bf16_against_float64(dev, steep):
+    """(b) at a full head group and chunk: the intra launch on bf16
+    inputs writing float32 within 1e-5 of the largest |out| of float64
+    on the widened inputs (bf16 out: plus its rounding), the state
+    within 1e-5 of its largest |out|; rows of a batch bit for bit."""
+    Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 2, 4, 128, 16, 64, 64,
+                                      steep=steep, dtype=torch.bfloat16)
+    want = ref.ssd_chunk_intra_f64(Cc, Bc, xc, cum, dt)
+    got = sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt, out_dtype=torch.float32)
+    lim = 1e-5 * want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= lim
+    _f64_close_bf16(sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt), want)
+    s = sk.ssd_chunk_state(Bc, xc, cum, dt)
+    ws = _state_f64(Bc, xc, cum, dt)
+    assert (s.double() - ws).abs().max().item() <= 1e-5 * ws.abs().max().item()
+    for b in range(2):
+        sl = slice(b, b + 1)
+        one = sk.ssd_chunk_intra(Cc[sl], Bc[sl], xc[sl], cum[sl], dt[sl],
+                                 out_dtype=torch.float32)
+        assert torch.equal(one[0], got[b])
+
+
+@pytest.mark.parametrize("Q,P,N", [(1, 64, 64), (17, 32, 16), (100, 64, 48),
+                                   (128, 64, 64), (128, 128, 128)])
+def test_ssd_function_bf16_gradients_equal_the_float32_copy_route(dev, Q, P,
+                                                                  N):
+    """The Functions on bf16 x, B and C: outputs and every gradient bit
+    for bit what autograd gives through float32 copies of them (the
+    route before the bf16 load path): the backward computes in float32
+    and rounds each bf16 input's gradient once."""
+    ins = _ssd_inputs(dev, 2, 3, Q, 6, P, N, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(ins[2].shape, generator=g, device=dev)
+    dS = torch.randn((2, 3, 6, N, P), generator=g, device=dev)
+    for kernel, args, dout, kw in (
+            (sk.ssd_chunk_intra, ins, dy, dict(out_dtype=torch.float32)),
+            (sk.ssd_chunk_state, ins[1:], dS, {})):
+        grads = []
+        for widen in (False, True):
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            xs = [t.float() if widen else t for t in leaves]
+            out = kernel(*xs, **kw)
+            out.backward(dout)
+            grads.append((out, [t.grad for t in leaves]))
+        (o1, g1), (o2, g2) = grads
+        assert torch.equal(o1, o2), kernel.__name__
+        for a, b in zip(g1, g2):
+            assert a.dtype == b.dtype and torch.equal(a, b), kernel.__name__
 
 
 def _state_f64(Bc, xc, cum, dt):
@@ -628,8 +848,18 @@ def test_hybrid_on_card_matches_cpu(dev):
 
 def test_hybrid_wrappers_refuse_what_the_kernels_do_not_take(dev):
     Cc, Bc, xc, cum, dt = _ssd_inputs(dev, 1, 1, 128, 4, 64, 64)
-    with pytest.raises(TypeError, match="float32"):
+    for t in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            sk.ssd_chunk_intra(Cc.to(t), Bc.to(t), xc.to(t), cum, dt)
+    with pytest.raises(TypeError, match="Bc"):
         sk.ssd_chunk_intra(Cc, Bc, xc.bfloat16(), cum, dt)
+    with pytest.raises(TypeError, match="writes float32"):
+        sk.ssd_chunk_intra(Cc, Bc, xc, cum, dt, out_dtype=torch.bfloat16)
+    # a bf16 slice 8 bytes off a 16-byte boundary is refused, never copied
+    flat = torch.zeros(1, 128, 4 * 64 + 4, device=dev, dtype=torch.bfloat16)
+    odd = flat[..., 4:].reshape(1, 1, 128, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        sk.ssd_chunk_state(Bc.bfloat16(), odd, cum, dt)
     wide = torch.zeros(1, 1, 128, 4, 48, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         sk.ssd_chunk_state(Bc, wide, cum, dt)
@@ -838,6 +1068,123 @@ def test_serve_replays_graphs_on_card(dev, flags, capsys):
             assert counts[paged] > 0, counts
             reships = int(re.search(r'"launch_reships": (\d+)', out).group(1))
             assert reships > 0, out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batched", "--device-pool"], ["--segments", "--batched",
+                                     "--device-pool"]],
+    ids=["batched-device-pool", "segments-batched-device-pool"])
+def test_serve_bf16_on_card(dev, flags, monkeypatch, capsys):
+    """A bf16 smoke ``hstu-gr`` served on the card with graphs: hits
+    reach HBM, the pool is device-resident and never re-shipped, and the
+    rank kernels launch at bf16 (every launch of the run takes bf16)."""
+    import dataclasses
+    from repro_torch.core.graphs import read_counters, write_counters
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch import serve
+    from repro_torch.models import get_config
+    monkeypatch.setattr(serve, "get_config", lambda arch, smoke=False:
+                        dataclasses.replace(get_config(arch, smoke=smoke),
+                                            dtype="bfloat16"))
+    types = set()
+    launch = cuda_lib.rank_attn
+
+    def spy(q, *a, **k):
+        types.add(q.dtype)
+        return launch(q, *a, **k)
+    monkeypatch.setattr(cuda_lib, "rank_attn", spy)
+    write_counters({n: 0 for n in read_counters()})
+    hits = serve.main(["--device", "cuda", "--requests", "12", *flags])
+    out = capsys.readouterr().out
+    counts = read_counters()
+    assert hits.get("hbm_hit", 0) >= 1, hits
+    assert '"launch_reships": 0' in out and '"device_resident": true' in out
+    paged = "segment_rank_attn" if "--segments" in flags else \
+        "paged_prefix_rank_attn"
+    assert counts["hstu_attn"] > 0 and counts[paged] > 0, counts
+    assert types == {torch.bfloat16}, types
+
+
+def test_hstu_bf16_model_on_card_matches_cpu(dev):
+    """A bf16 smoke ``hstu-gr`` on the card against the same weights on
+    the CPU: ``full_rank`` within 2**-4 of the largest |score| (the
+    kernels round once from float32, the CPU twins round logits and
+    scores to bf16, bf16 ulps apart at every layer), one launch of rows
+    1 and 2 a layer; the relay (``rank_with_cache`` over the prefill's
+    psi) equals the full rank bit for bit."""
+    import dataclasses
+    from repro_torch.models import build_model, get_config
+    cfg = dataclasses.replace(get_config("hstu-gr", smoke=True),
+                              dtype="bfloat16")
+    gpu = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = [rng.integers(0, cfg.vocab, (2, n)) for n in (100, 16, 24)]
+    on = [torch.as_tensor(t, device=dev) for t in toks]
+    counts = (hk.launches, rk.launches)
+    out = gpu.full_rank(*on)
+    assert (hk.launches, rk.launches) == (counts[0] + cfg.n_layers,
+                                          counts[1] + cfg.n_layers)
+    assert out.dtype == torch.bfloat16
+    want = cpu.full_rank(*map(torch.as_tensor, toks)).float()
+    torch.testing.assert_close(out.cpu().float(), want, rtol=0,
+                               atol=2 ** -4 * want.abs().max().item())
+    _, psi = gpu.prefill({"tokens": on[0]})
+    assert psi[0].dtype == torch.bfloat16
+    assert torch.equal(gpu.rank_with_cache(psi, on[1], on[2]), out)
+
+
+def test_hybrid_bf16_ssd_route_equals_float32_copies(dev, monkeypatch):
+    """zamba2's smoke config (bf16) on the card: every SSD launch of a
+    prefill and a train step takes bf16 x, B and C, and the prefill's
+    logits and caches, the step's loss and every gradient equal bit for
+    bit the route that hands each kernel float32 copies of them."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, get_config
+    cfg = get_config("zamba2_1p2b", smoke=True)
+    model = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.shared_attn.lora_b.normal_(
+            generator=torch.Generator(device=dev).manual_seed(1))
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 257)), device=dev)
+    prefill = make_prefill_step(model)
+    types = []
+    launch = cuda_lib.ssd_chunk
+
+    def spy(kind, Cc, Bc, xc, *a, **k):
+        types.append({t.dtype for t in (Cc, Bc, xc) if t is not None})
+        return launch(kind, Cc, Bc, xc, *a, **k)
+    monkeypatch.setattr(cuda_lib, "ssd_chunk", spy)
+
+    def run():
+        logits, cache = prefill({"tokens": toks[:, :256]})
+        model.zero_grad(set_to_none=True)
+        model.requires_grad_(True)
+        loss, _ = model.loss({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        loss.backward()
+        model.requires_grad_(False)
+        return ([logits, *torch.utils._pytree.tree_leaves(cache), loss],
+                {n: p.grad for n, p in model.named_parameters()})
+
+    new, grads = run()
+    assert types and all(t == {torch.bfloat16} for t in types)
+    types.clear()
+    intra, state = sk.ssd_chunk_intra, sk.ssd_chunk_state
+    monkeypatch.setattr(sk, "ssd_chunk_intra",
+                        lambda C, B, x, cum, dt, out_dtype=None: intra(
+                            C.float(), B.float(), x.float(), cum, dt,
+                            out_dtype))
+    monkeypatch.setattr(sk, "ssd_chunk_state",
+                        lambda B, x, cum, dt: state(B.float(), x.float(),
+                                                    cum, dt))
+    old, want = run()
+    assert types and all(t == {torch.float32} for t in types)
+    for a, b in zip(new, old):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for name, g in grads.items():
+        assert g is not None and torch.equal(g, want[name]), name
 
 
 def test_a_failing_capture_raises(dev):

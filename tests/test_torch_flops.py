@@ -182,7 +182,7 @@ def test_a_cuda_tensor_still_reaches_the_kernel(monkeypatch):
         calls.append(("decode_attn",))
         return torch.zeros(q.shape)
 
-    def ssd(kind, Cc, Bc, xc, cum, dtc):
+    def ssd(kind, Cc, Bc, xc, cum, dtc, out_dtype=None):
         calls.append(("ssd_chunk", kind))
         b, nc, Q, H, P = xc.shape
         return torch.zeros((b, nc, Q, H, P) if kind == "intra"

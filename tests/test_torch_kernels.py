@@ -131,6 +131,85 @@ def test_paged_matches_pallas_with_equal_tables(plens, bucket, pt, n_incr,
     _close(got, dense)
 
 
+def _bf16_close(got, want):
+    """A bf16 twin against a bf16 JAX result: ``tests/test_kernels.py``'s
+    bf16 tolerance (6e-2), in float32."""
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL_BF16)
+
+
+@pytest.mark.parametrize("S,bq,bk", [(128, 128, 128), (256, 128, 64),
+                                     (512, 256, 256)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_hstu_attn_bf16_matches_ref_and_pallas(S, bq, bk, D):
+    """Row 1's twin on bf16 q, k, v (``tests/test_kernels.py:31`` sweeps
+    the Pallas kernel in bf16): against the Pallas kernel in interpret
+    mode and the JAX oracle on the same bf16 inputs, in bf16 out."""
+    rng = np.random.default_rng(S + D + 1)
+    (jq, tq), (jk, tk), (jv, tv) = (_jt(_mk(rng, 2, 2, S, D), "bfloat16")
+                                    for _ in range(3))
+    got = hstu_attn.hstu_attn(tq, tk, tv)
+    _bf16_close(got, pallas_hstu_attn(jq, jk, jv, bq=bq, bk=bk,
+                                      interpret=True))
+    _bf16_close(got, jref.hstu_attn_ref(jq, jk, jv))
+
+
+@pytest.mark.parametrize("n_prefix,n_incr,n_items",
+                         [(128, 64, 64), (256, 64, 192), (512, 128, 384)])
+def test_prefix_rank_attn_bf16_matches_ref_and_pallas(n_prefix, n_incr,
+                                                      n_items):
+    """Row 2's twin in bf16 (``tests/test_kernels.py:45``): against the
+    Pallas kernel and the oracle; the split entry point equals the
+    concatenating one bit for bit."""
+    rng = np.random.default_rng(n_prefix + n_items + 1)
+    B, H, D = 2, 2, 64
+    Sq, Sk = n_incr + n_items, n_prefix + n_incr + n_items
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _jt(_mk(rng, B, H, n, D), "bfloat16") for n in (Sq, Sk, Sk))
+    got = prefix_rank_attn.prefix_rank_attn(tq, tk, tv, n_prefix=n_prefix,
+                                            n_incr=n_incr)
+    _bf16_close(got, pallas_prefix_rank_attn(
+        jq, jk, jv, n_prefix=n_prefix, n_incr=n_incr, bq=64, bk=64,
+        interpret=True))
+    _bf16_close(got, jref.prefix_rank_attn_ref(jq, jk, jv, n_prefix=n_prefix,
+                                               n_incr=n_incr))
+    split = prefix_rank_attn.prefix_rank_attn_split(
+        tq, tk[:, :, :n_prefix], tv[:, :, :n_prefix], tk[:, :, n_prefix:],
+        tv[:, :, n_prefix:], n_incr=n_incr)
+    assert torch.equal(split, got)
+
+
+@pytest.mark.parametrize("plens,bucket,pt,n_incr,n_items", [
+    ([128, 128], 128, 64, 32, 32), ([100, 37, 128], 128, 64, 32, 32),
+    ([1, 200, 64], 256, 64, 32, 32), ([90, 128], 128, 32, 16, 48)])
+def test_paged_bf16_matches_pallas_with_equal_tables(plens, bucket, pt,
+                                                     n_incr, n_items):
+    """Row 3's twin on a bf16 pool and bf16 q / new K/V
+    (``tests/test_kernels.py:100``): against the Pallas paged kernel and
+    the oracle on zero-padded dense psi; equal to the port's dense twin
+    on the gathered prefix bit for bit."""
+    q, kp, vp, kn, vn, (kpg, vpg, table, pl_) = _paged_case(
+        plens, bucket, pt, n_incr, n_items)
+    nt = bucket + n_incr + n_items
+    (jq, tq), (jkn, tkn), (jvn, tvn), (jkp, tkp), (jvp, tvp) = (
+        _jt(a, "bfloat16") for a in (q, kn, vn, kpg, vpg))
+    got = paged_prefix_attn.paged_prefix_rank_attn(
+        tq, tkp, tvp, _t(table), _t(table), _t(pl_), tkn, tvn, n_incr=n_incr)
+    _bf16_close(got, pallas_paged_rank_attn(
+        jq, jkp, jvp, *map(jnp.asarray, (table, pl_)), jkn, jvn,
+        n_incr=n_incr, bq=32, bk=pt, n_total=nt, interpret=True))
+    jk, jv = (jnp.asarray(np.concatenate([a, b], 2), jnp.bfloat16)
+              for a, b in ((kp, kn), (vp, vn)))
+    _bf16_close(got, jref.prefix_rank_attn_ref(jq, jk, jv, n_prefix=bucket,
+                                               n_incr=n_incr))
+    kg = ref.gather_pages(tkp, _t(table), _t(pl_))
+    vg = ref.gather_pages(tvp, _t(table), _t(pl_))
+    dense = prefix_rank_attn.prefix_rank_attn_split(tq, kg, vg, tkn, tvn,
+                                                    n_incr=n_incr)
+    assert torch.equal(dense, got)
+
+
 def test_pack_pages_matches_reference_packer():
     from repro.kernels.paged_prefix_attn import pack_pages as jpack
     rng = np.random.default_rng(5)
@@ -654,6 +733,44 @@ def test_ssd_chunk_state_matches_ref_and_pallas(H, P, N):
     _close(got, pallas_ssd_state(*map(jnp.asarray, (Bc, xc, cum, dtc)),
                                  interpret=True))
     _close(got, jstate_ref(Bc, xc, cum, dtc))
+
+
+@pytest.mark.parametrize("H,P,N", [(4, 64, 64), (2, 128, 32)])
+def test_ssd_chunk_state_bf16_matches_ref_and_pallas(H, P, N):
+    """The state twin on bf16 B and x (float32 cum and dt), as the
+    Pallas kernel takes them: float32 out, equal to the twin on the
+    widened inputs bit for bit, and against the Pallas kernel in
+    interpret mode and the JAX oracle on the same bf16 inputs at the
+    float32 tolerance (all three widen on load and sum in float32)."""
+    from repro.kernels.ssd_chunk import ssd_chunk_state_ref as jstate_ref
+    rng = np.random.default_rng(H * P + N + 2)
+    _, Bc, xc, cum, dtc = _ssd_case(rng, 2, 2, 128, H, P, N)
+    (jB, tB), (jx, tx) = (_jt(a, "bfloat16") for a in (Bc, xc))
+    got = ssd_chunk.ssd_chunk_state(tB, tx, _t(cum), _t(dtc))
+    assert got.shape == (2, 2, H, N, P) and got.dtype == torch.float32
+    assert torch.equal(got, ssd_chunk.ssd_chunk_state(
+        tB.float(), tx.float(), _t(cum), _t(dtc)))
+    _close(got, pallas_ssd_state(jB, jx, jnp.asarray(cum), jnp.asarray(dtc),
+                                 interpret=True))
+    _close(got, jstate_ref(jB, jx, jnp.asarray(cum), jnp.asarray(dtc)))
+
+
+@pytest.mark.parametrize("H,P,N", [(4, 64, 64), (2, 128, 32)])
+def test_ssd_chunk_intra_bf16_out_dtype(H, P, N):
+    """On bf16 inputs the intra twin returns bf16 by default, as the
+    Pallas kernel writes ``xc.dtype``, and float32 when asked (the
+    model's route): that float32 result is the twin on widened inputs,
+    bit for bit, and its bf16 rounding is the default result."""
+    rng = np.random.default_rng(H * P + N + 3)
+    Cc, Bc, xc, cum, dtc = _ssd_case(rng, 2, 2, 128, H, P, N)
+    tC, tB, tx = (_jt(a, "bfloat16")[1] for a in (Cc, Bc, xc))
+    wide = ssd_chunk.ssd_chunk_intra(tC, tB, tx, _t(cum), _t(dtc),
+                                     out_dtype=torch.float32)
+    assert wide.dtype == torch.float32
+    assert torch.equal(wide, ssd_chunk.ssd_chunk_intra(
+        tC.float(), tB.float(), tx.float(), _t(cum), _t(dtc)))
+    got = ssd_chunk.ssd_chunk_intra(tC, tB, tx, _t(cum), _t(dtc))
+    assert got.dtype == torch.bfloat16 and torch.equal(got, wide.bfloat16())
 
 
 @pytest.mark.parametrize("H", [1, 2, 7, 8, 9, 13, 16, 17, 20, 33, 64, 65,

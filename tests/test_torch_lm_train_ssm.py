@@ -126,7 +126,7 @@ def test_ssd_functions_wire_the_backward(monkeypatch):
     calls = {"intra": 0, "state": 0}
 
     def fake(kind, fn):
-        def launch(*a):
+        def launch(*a, out_dtype=None):
             calls[kind] += 1
             return fn(*a)
         return launch
