@@ -233,6 +233,22 @@ Phases, each fatal on failure (nothing is caught):
      frames + 512); an ``ssm_mamba2`` stack at zamba2's widths, 2
      layers, 2 x 1024 (two launches of each SSD kernel a layer and
      step);
+ 11b. ``dist``: the port under a process mesh, DIST_W ranks spawned
+     from this process (NCCL with a card each where there are DIST_W
+     cards, else gloo with every rank on cuda:0, printed; a time under
+     shared-card gloo is not a multi-GPU figure): ``hstu-gr`` at full
+     width on (2, 2) in float32, 3 AdamW steps of 4 x 2048 (the loss and
+     grad_norm within 1e-5 of one process's) and a 4 x 2048 prefill with
+     ``rank_with_cache`` (16 + 64), the logits and scores within 1e-4 of
+     the largest |value|, ``hstu_attn`` and ``prefix_rank_attn`` launched
+     on 2 heads a rank; ``qwen3_4b`` at full width and depth, bf16, on
+     (1, 4): a 2 x 2048 prefill and 16 decode steps, ``decode_attn`` on
+     8 q / 2 kv heads a rank, and at 2 layers in float32 the logits
+     within 1e-4 of one process's; ``deepseek_moe_16b`` at full width,
+     2 layers, float32, on (1, 4), expert-parallel (16 experts a rank),
+     likewise; each workload's collectives a step, every rank's, equal
+     to the meta dry-run's at the same shape and mesh; one ``{"dist":
+     ...}`` line is printed before the kernels line;
  12. ``dryrun``: ``repro_torch.launch.dryrun`` on the meta device for
      every arch x input shape at full config and shape, on the 1 x 1,
      16 x 16 and 2 x 16 x 16 meshes, in DRY_JOBS processes (the records
@@ -3488,6 +3504,473 @@ def lmtrain_phase(torch, results):
     log(f"lmtrain phase: {wall:.1f} s of wall")
 
 
+# --- phase 11b: the port under a process mesh -------------------------------------
+
+DIST_W = 4                      # ranks, one process each
+DIST_HSTU = dict(B=4, S=2048, steps=3, incr=16, items=64)
+DIST_LM = dict(B=2, S=2048, steps=16)
+DIST_LM_CHECK_LAYERS = 2        # float32 depth held against one process
+DIST_MOE_LAYERS = 2             # deepseek_moe_16b's depth (full width)
+DIST_LOSS_REL = 1e-5            # loss and grad_norm against one process
+DIST_REL = 1e-4                 # logits and scores, of the largest |value|
+
+
+def dist_transport(torch):
+    """NCCL with one card a rank when there are DIST_W cards, else gloo
+    with every rank on cuda:0 (gloo takes CUDA tensors for all_reduce,
+    the one collective the port calls)."""
+    return "nccl" if torch.cuda.device_count() >= DIST_W else "gloo"
+
+
+def _dist_rank(rank, backend, store, out_dir, plan):
+    """One rank: for each (mesh sizes, job, args) of ``plan`` a
+    ``ProcessMesh`` of those sizes over the one process group and
+    ``job(mesh, device, *args)`` under its rules; the results saved for
+    the parent.  A failure fails the spawn."""
+    import torch
+    from repro_torch.launch.mesh import ProcessMesh, destroy
+    from repro_torch.models.partitioning import logical_rules
+    torch.set_num_threads(2)
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(dev)
+    try:
+        out = []
+        for sizes, job, args in plan:
+            mesh = ProcessMesh.init(sizes, backend=backend,
+                                    init_method=f"file://{store}", rank=rank,
+                                    world_size=DIST_W)
+            with logical_rules(mesh):
+                out.append(job(mesh, dev, *args))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        destroy()
+
+
+def _dist_start(plan, backend):
+    """Spawn the DIST_W ranks on ``plan`` without waiting: (the spawn's
+    context, the directory their results go to)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    ctx = mp.spawn(_dist_rank, args=(backend, os.path.join(d, "store"), d,
+                                     plan), nprocs=DIST_W, join=False)
+    return ctx, d
+
+
+def _dist_join(torch, ctx, d):
+    """Wait for every rank (a failed rank raises here) and load their
+    results, rank by rank."""
+    while not ctx.join():
+        pass
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+            for r in range(DIST_W)]
+
+
+def _fan_in_d(torch, model, cfg):
+    """Every attention's wq and wk rescaled to fan-in d_model (the init
+    rule takes a (d, heads, hd) weight's fan-in from its head count);
+    the global head counts, so that a shard is scaled as its whole."""
+    import math
+    with torch.no_grad():
+        model.layers.attn.wq.mul_(math.sqrt(max(cfg.n_heads, cfg.head_pad)
+                                            / cfg.d_model))
+        model.layers.attn.wk.mul_(math.sqrt(cfg.n_kv_heads / cfg.d_model))
+    return model
+
+
+def _spy_heads(torch):
+    """Record the heads every rank / decode launch is given: (kernel,
+    q heads[, kv heads]) sets, by patching the launchers the wrappers
+    call (the launches themselves are unchanged)."""
+    from repro_torch.kernels import cuda_lib
+    seen = set()
+    rank_attn, decode_attn = cuda_lib.rank_attn, cuda_lib.decode_attn
+
+    def rank_spy(q, *a, **kw):
+        seen.add(("rank_attn", q.shape[1]))
+        return rank_attn(q, *a, **kw)
+
+    def decode_spy(q, k, v):
+        seen.add(("decode_attn", q.shape[1], k.shape[2]))
+        return decode_attn(q, k, v)
+    cuda_lib.rank_attn, cuda_lib.decode_attn = rank_spy, decode_spy
+    return seen
+
+
+def _counted(fn):
+    """(fn(), the kernel launches it counted)."""
+    from repro_torch.core.graphs import read_counters, write_counters
+    write_counters({n: 0 for n in read_counters()})
+    out = fn()
+    return out, {n: c for n, c in read_counters().items() if c}
+
+
+def _dist_hstu(mesh, dev, cfg, seed, batches, prompt, incr, items):
+    """hstu-gr on a (data, model) mesh: the train steps, then prefill
+    and ``rank_with_cache``; per part the launches, the heads each
+    launch was given, the collectives and the time (rank 0's clock)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.partitioning import shard_batch
+    from repro_torch.training import optimizer as opt
+    seen = _spy_heads(torch)
+    model = build_model(cfg, device=dev).init(
+        torch.Generator().manual_seed(seed))
+    step = make_train_step(model, opt.AdamWConfig(warmup_steps=1))
+    state = opt.init_state(step.params)
+    ax = {"tokens": ("batch", None), "labels": ("batch", None)}
+    out = {"train": [], "tally": {}}
+    for i, b in enumerate(batches):
+        b = {k: torch.as_tensor(v, device=dev)
+             for k, v in shard_batch(b, ax).items()}
+        mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, c = _counted(lambda: step(state, b))
+        torch.cuda.synchronize()
+        out["train"].append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, launches=c,
+            **{k: float(v) for k, v in m.items()}))
+        out["tally"]["train"] = mesh.collectives()
+    model.requires_grad_(False)
+    rows = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(
+        {"p": prompt, "i": incr, "t": items},
+        {"p": ("batch", None), "i": ("batch", None),
+         "t": ("batch", None)}).items()}
+    mesh.reset_tally()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (logits, psi), c_pre = _counted(lambda: model.prefill({"tokens": rows["p"]}))
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    out["tally"]["prefill"] = mesh.collectives()
+    mesh.reset_tally()
+    t0 = time.perf_counter()
+    scores, c_rank = _counted(lambda: model.rank_with_cache(
+        psi, rows["i"], rows["t"]))
+    torch.cuda.synchronize()
+    out.update(prefill_ms=pre_ms, rank_ms=(time.perf_counter() - t0) * 1e3,
+               launches_prefill=c_pre, launches_rank=c_rank,
+               heads=sorted(seen), logits=logits.float().cpu().numpy(),
+               scores=scores.float().cpu().numpy(),
+               local_heads=model.layers["uvqk"].shape[3])
+    out["tally"]["rank"] = mesh.collectives()
+    return out
+
+
+def _dist_lm(mesh, dev, runs):
+    """Transformers on a (1, 4) mesh: per run (tag, cfg, seed, prompt,
+    decode tokens, keep logits) a prefill and one decode step per token
+    column (eager: no graphs around collectives), with the launches,
+    the heads each launch was given, one step's collectives and the
+    times; the logits where asked."""
+    import gc
+    import torch
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.partitioning import shard_batch
+    seen = _spy_heads(torch)
+    out = {}
+    for tag, cfg, seed, prompt, tokens, keep in runs:
+        seen.clear()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev).init(
+            torch.Generator().manual_seed(seed))
+        draw_s = time.perf_counter() - t0
+        if keep:
+            _fan_in_d(torch, model, cfg)
+        serve = make_serve_step(model, graphs=False)
+        mine = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(
+            {"p": prompt, "t": tokens},
+            {"p": ("batch", None), "t": ("batch", None)}).items()}
+        mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, cache), c_pre = _counted(
+            lambda: model.prefill({"tokens": mine["p"]}))
+        torch.cuda.synchronize()
+        rec = dict(draw_s=draw_s, prefill_ms=(time.perf_counter() - t0) * 1e3,
+                   launches_prefill=c_pre, tally_prefill=mesh.collectives(),
+                   logits=[logits.float().cpu().numpy()] if keep else [],
+                   step_ms=[], launches_decode={}, finite=True)
+        B, S = mine["p"].shape
+        for i in range(mine["t"].shape[1]):
+            mesh.reset_tally()
+            pos = torch.full((B,), S + i, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lg, cache), c = _counted(lambda: serve(
+                cache, {"token": mine["t"][:, i:i + 1], "pos": pos}))
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["tally_decode"] = mesh.collectives()
+            for n, k in c.items():
+                rec["launches_decode"][n] = rec["launches_decode"].get(n, 0) + k
+            rec["finite"] &= bool(torch.isfinite(lg).all())
+            if keep:
+                rec["logits"].append(lg.float().cpu().numpy())
+        rec.update(heads=sorted(seen),
+                   local_experts=(model.layers.moe.wi.shape[1]
+                                  if cfg.family == "moe" else None),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        out[tag] = rec
+        del model, cache, logits, serve
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _assemble(parts, axes, shape, sizes):
+    """The full array from every rank's shard (rank order)."""
+    import numpy as np
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.models.partitioning import Rules, shard_slices
+    out = np.full(shape, np.nan)
+    for r, part in enumerate(parts):
+        m = ProcessMesh.meta(sizes, rank=r)
+        out[shard_slices(shape, Rules(m).spec(axes, shape=shape), m)] = part
+    assert not np.isnan(out).any(), axes
+    return out
+
+
+def _rel(got, want):
+    import numpy as np
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def _world1_hstu(torch, hcfg, batches, prompt, incr, items):
+    """One process's hstu-gr: the train steps' metrics, then the prefill
+    logits and the scores."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.training import optimizer as opt
+    whole = build_model(hcfg, device="cuda").init(
+        torch.Generator().manual_seed(7))
+    step = make_train_step(whole, opt.AdamWConfig(warmup_steps=1))
+    state = opt.init_state(step.params)
+    train = [{k: float(v) for k, v in step(state, {
+        k: torch.as_tensor(v, device="cuda") for k, v in b.items()}).items()}
+        for b in batches]
+    whole.requires_grad_(False)
+    logits, psi = whole.prefill({"tokens": torch.as_tensor(
+        prompt, device="cuda")})
+    scores = whole.rank_with_cache(psi, torch.as_tensor(incr, device="cuda"),
+                                   torch.as_tensor(items, device="cuda"))
+    return train, logits.float().cpu().numpy(), scores.float().cpu().numpy()
+
+
+def _world1_lm(torch, cfg, seed, prompt, tokens):
+    """One process's logits of a prefill and a decode step per token
+    column (wq / wk at fan-in d, as the ranks')."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+    whole = _fan_in_d(torch, build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(seed)), cfg)
+    serve = make_serve_step(whole, graphs=False)
+    lg, cache = whole.prefill({"tokens": torch.as_tensor(prompt,
+                                                         device="cuda")})
+    out = [lg.float().cpu().numpy()]
+    for i in range(tokens.shape[1]):
+        pos = torch.full((prompt.shape[0],), prompt.shape[1] + i,
+                         device="cuda")
+        lg, cache = serve(cache, {"token": torch.as_tensor(
+            tokens[:, i:i + 1], device="cuda"), "pos": pos})
+        out.append(lg.float().cpu().numpy())
+    return out
+
+
+def dist_phase(torch, results):
+    """The port under a process mesh: DIST_W ranks spawned once from this
+    process (which has built the kernels), NCCL with a card each or gloo
+    on one shared card (``dist_transport``), each rank running a (2, 2)
+    mesh and then a (1, 4) mesh over its one process group, while this
+    process computes the same workloads alone on the same weights and
+    batches:
+
+    * ``hstu-gr`` at full width on (2, 2), float32: DIST_HSTU's train
+      steps (loss and grad_norm within DIST_LOSS_REL of one process),
+      then prefill and ``rank_with_cache`` (logits and scores within
+      DIST_REL of the largest |value|), ``hstu_attn`` and
+      ``prefix_rank_attn`` on 2 heads a rank;
+    * ``qwen3_4b`` at full width and depth, bf16, on (1, 4): a DIST_LM
+      prefill and decode steps, ``decode_attn`` on 8 q / 2 kv heads a
+      rank; at DIST_LM_CHECK_LAYERS layers in float32 the logits within
+      DIST_REL of one process's;
+    * ``deepseek_moe_16b`` at full width and DIST_MOE_LAYERS layers on
+      (1, 4), expert-parallel (16 experts a rank), float32, its logits
+      against one process's likewise (data 1: the same capacity);
+    * each workload's live collectives a step (rank 0's, every rank's
+      equal) against the meta dry-run's at the same shape and mesh.
+
+    The float32 LM checks rescale wq / wk to fan-in d on both sides: at
+    the reference init deepseek's attention logits reach a std of ~128
+    and float32 reorderings flip its top-6 routing (the ``lm`` phase's
+    LM_REL_INIT); qwen3's qk-norm undoes the scale.  A time under gloo
+    on one card is not a multi-GPU figure."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.launch.dryrun import trace_collectives
+    from repro_torch.models import get_config
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.partitioning import make_mesh
+
+    t_phase = time.perf_counter()
+    backend = dist_transport(torch)
+    multi = backend == "nccl"
+    log(f"dist: {DIST_W} ranks over {backend}"
+        + ("" if multi else " on one shared card (cuda:0): its times are "
+           "not multi-GPU figures"))
+    rec = {"transport": backend, "ranks": DIST_W,
+           "cards": torch.cuda.device_count(), "times_multi_gpu": multi}
+    rng = np.random.default_rng(0)
+    g = lambda cfg, B, S: rng.integers(0, cfg.vocab, (B, S))
+    H, D = DIST_HSTU, DIST_LM
+    hcfg = get_config("hstu-gr")
+    batches = []
+    for _ in range(H["steps"]):
+        t = g(hcfg, H["B"], H["S"] + 1)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    prompt, incr, items = (g(hcfg, H["B"], n) for n in
+                           (H["S"], H["incr"], H["items"]))
+    qcfg = get_config("qwen3_4b")
+    q32 = dataclasses.replace(qcfg, n_layers=DIST_LM_CHECK_LAYERS,
+                              dtype="float32")
+    dcfg = dataclasses.replace(get_config("deepseek_moe_16b"),
+                               n_layers=DIST_MOE_LAYERS, dtype="float32")
+    runs = [("qwen3_4b", qcfg, 11, g(qcfg, D["B"], D["S"]),
+             g(qcfg, D["B"], D["steps"]), False),
+            ("qwen3_4b_f32_2l", q32, 12, g(q32, D["B"], D["S"]),
+             g(q32, D["B"], 2), True),
+            ("deepseek_moe_16b", dcfg, 13, g(dcfg, D["B"], D["S"]),
+             g(dcfg, D["B"], 2), True)]
+    t0 = time.perf_counter()
+    ctx, out_dir = _dist_start([
+        ((2, 2), _dist_hstu, (hcfg, 7, batches, prompt, incr, items)),
+        ((1, 4), _dist_lm, (runs,))], backend)
+    want_train, w_logits, w_scores = _world1_hstu(torch, hcfg, batches,
+                                                  prompt, incr, items)
+    want = {tag: _world1_lm(torch, cfg, seed, p, toks)
+            for tag, cfg, seed, p, toks, keep in runs if keep}
+    torch.cuda.empty_cache()
+    world1_s = time.perf_counter() - t0
+    outs = _dist_join(torch, ctx, out_dir)
+    spawn_s = time.perf_counter() - t0
+    rec.update(spawn_s=spawn_s, world1_s=world1_s)
+
+    # hstu-gr, (2, 2), float32 ---------------------------------------------
+    houts = [o[0] for o in outs]
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for o in houts:
+        for got, w in zip(o["train"], want_train):
+            for k in worst:
+                worst[k] = max(worst[k], abs(got[k] / w[k] - 1))
+    assert max(worst.values()) <= DIST_LOSS_REL, worst
+    s_rel = _rel(_assemble([o["scores"] for o in houts],
+                           ("batch", None, None), w_scores.shape, (2, 2)),
+                 w_scores)
+    l_rel = _rel(_assemble([o["logits"] for o in houts],
+                           ("batch", None, "vocab"), w_logits.shape, (2, 2)),
+                 w_logits)
+    assert max(s_rel, l_rel) <= DIST_REL, (s_rel, l_rel)
+    L = hcfg.n_layers
+    for o in houts:
+        assert o["local_heads"] == 2
+        assert o["heads"] == [("rank_attn", 2)], o["heads"]
+        assert o["launches_prefill"] == {"hstu_attn": L}, o["launches_prefill"]
+        assert o["launches_rank"] == {"prefix_rank_attn": L}, o["launches_rank"]
+        assert all(t["launches"] == {"hstu_attn": 2 * L} for t in o["train"])
+        assert o["tally"] == houts[0]["tally"]
+        results["hstu_attn"]["launches"] += L + 2 * L * len(o["train"])
+        results["prefix_rank_attn"]["launches"] += L
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    meta = {"train": trace_collectives(
+        hcfg, InputShape("t", H["S"], H["B"], "train"), mesh22),
+        "prefill": trace_collectives(
+        hcfg, InputShape("p", H["S"], H["B"], "prefill"), mesh22)}
+    for k, v in meta.items():
+        assert houts[0]["tally"][k] == v, (k, houts[0]["tally"][k], v)
+    o0 = houts[0]
+    rec["hstu_gr"] = dict(
+        mesh="2x2", dtype=hcfg.dtype, batch=H["B"], seq=H["S"],
+        loss_rel=worst["loss"], grad_norm_rel=worst["grad_norm"],
+        scores_rel=s_rel, logits_rel=l_rel,
+        losses=[t["loss"] for t in o0["train"]],
+        train_ms=[t["ms"] for t in o0["train"]], prefill_ms=o0["prefill_ms"],
+        rank_ms=o0["rank_ms"], heads_per_rank=2, tally=o0["tally"],
+        tally_equals_meta=True)
+    log(f"dist hstu-gr (2, 2) f32 B {H['B']} x {H['S']}: losses "
+        f"{rec['hstu_gr']['losses']} (|rel| to one process "
+        f"{worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e}); prefill "
+        f"logits {l_rel:.2e}, scores {s_rel:.2e} of max; hstu_attn and "
+        f"prefix_rank_attn on 2 heads a rank; train "
+        f"{[round(t, 1) for t in rec['hstu_gr']['train_ms']]} ms, prefill "
+        f"{o0['prefill_ms']:.1f} ms, rank {o0['rank_ms']:.1f} ms (rank 0, "
+        f"{backend}); collectives a train step "
+        f"{o0['tally']['train']['total_bytes']} B, = meta")
+
+    # qwen3_4b (full, bf16; 2 layers f32) and deepseek_moe_16b, (1, 4) -----
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    for tag, cfg, seed, p, toks, keep in runs:
+        steps = toks.shape[1]
+        rs = [o[1][tag] for o in outs]
+        L = cfg.n_layers
+        ok_heads = [("decode_attn", cfg.n_heads // 4, cfg.n_kv_heads // 4)]
+        for r in rs:
+            assert r["finite"], tag
+            assert r["heads"] == ok_heads, (tag, r["heads"])
+            assert "decode_attn" not in r["launches_prefill"], tag
+            assert r["launches_decode"] == {"decode_attn": L * steps}, \
+                (tag, r["launches_decode"])
+            assert r["tally_prefill"] == rs[0]["tally_prefill"]
+            assert r["tally_decode"] == rs[0]["tally_decode"]
+            results["decode_attn"]["launches"] += L * steps
+        pm = trace_collectives(cfg, InputShape("p", p.shape[1], p.shape[0],
+                                               "prefill"), mesh14)
+        dm = trace_collectives(cfg, InputShape("d", p.shape[1], p.shape[0],
+                                               "decode"), mesh14)
+        assert rs[0]["tally_prefill"] == pm, (tag, rs[0]["tally_prefill"], pm)
+        assert rs[0]["tally_decode"] == dm, (tag, rs[0]["tally_decode"], dm)
+        r0 = rs[0]
+        row = dict(mesh="1x4", dtype=cfg.dtype, layers=L, batch=p.shape[0],
+                   prompt=p.shape[1], steps=steps,
+                   q_heads_per_rank=ok_heads[0][1],
+                   kv_heads_per_rank=ok_heads[0][2],
+                   experts_per_rank=r0["local_experts"],
+                   draw_s=r0["draw_s"], prefill_ms=r0["prefill_ms"],
+                   step_ms=r0["step_ms"], peak_bytes=r0["peak_bytes"],
+                   tally_prefill=r0["tally_prefill"],
+                   tally_decode=r0["tally_decode"], tally_equals_meta=True)
+        if keep:
+            rels = [_rel(_assemble([r["logits"][i] for r in rs],
+                                   ("batch", None, "vocab"), w.shape, (1, 4)),
+                         w) for i, w in enumerate(want[tag])]
+            row["logits_rel"] = max(rels)
+            assert row["logits_rel"] <= DIST_REL, (tag, rels)
+        rec[tag] = row
+        log(f"dist {tag} (1, 4) {cfg.dtype} {L} layers, B {p.shape[0]} x "
+            f"{p.shape[1]} + {steps} steps: decode_attn on "
+            f"{ok_heads[0][1]} q / {ok_heads[0][2]} kv heads a rank"
+            + (f", {r0['local_experts']} experts a rank"
+               if r0["local_experts"] else "")
+            + (f"; logits {row['logits_rel']:.2e} of max against one "
+               f"process (wq / wk at fan-in d)" if keep else "")
+            + f"; drawn in {r0['draw_s']:.1f} s, prefill "
+            f"{r0['prefill_ms']:.1f} ms, decode "
+            f"{statistics.median(r0['step_ms']):.2f} ms a step (median, "
+            f"rank 0, {backend}); collectives: prefill "
+            f"{r0['tally_prefill']['total_bytes']} B, a decode step "
+            f"{r0['tally_decode']['total_bytes']} B, = meta")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    results["_dist"] = rec
+    log(f"dist phase: {rec['wall_s']:.1f} s of wall (the ranks "
+        f"{spawn_s:.1f} s, one process's references {world1_s:.1f} s of "
+        f"it, alongside)")
+
+
 # --- phase 12: the dry-run, and the roofline of every timed step ------------------
 
 DRY_JOBS = 8       # dry-run combinations traced at once, a process each
@@ -3648,7 +4131,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="kernels,serve,relay,bf16,graphs,costmodel,"
-                            "hybrid,train,lm,ssm,encdec,lmtrain,dryrun")
+                            "hybrid,train,lm,ssm,encdec,lmtrain,dist,dryrun")
     ap.add_argument("--requests", type=int, default=24)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3708,6 +4191,8 @@ def main(argv=None):
         encdec_phase(torch, results)
     if "lmtrain" in phases:
         lmtrain_phase(torch, results)
+    if "dist" in phases:
+        dist_phase(torch, results)
     if "dryrun" in phases:
         dryrun_phase(torch, results, smi.splitlines()[0])
 
@@ -3748,6 +4233,8 @@ def main(argv=None):
                    "results": results}, f, indent=1)
     log(f"phases {sorted(phases)}: {time.perf_counter() - wall0:.1f} s of "
         f"wall, the build included")
+    if "_dist" in results:
+        print(json.dumps({"dist": results["_dist"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

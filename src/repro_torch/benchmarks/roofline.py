@@ -6,7 +6,7 @@ Per (arch x shape x mesh) record of ``repro_torch.launch.dryrun``:
 
   compute    = FLOPs_per_device / peak_FLOPs(config dtype)   [s]
   memory     = HBM_bytes_per_device / HBM_bw                 [s]
-  collective = null: the port lowers no collective (one card)
+  collective = collective_bytes_per_device / NVLink_bw       [s]
 
   * FLOPs: the step's matmul and convolution FLOPs counted on the meta
     device (``launch.flops.step_flops``), divided by the devices.  The
@@ -15,6 +15,11 @@ Per (arch x shape x mesh) record of ``repro_torch.launch.dryrun``:
   * HBM traffic proxy: argument + output bytes per device, plus twice a
     temporary size where a record has one (the reference's rule; a
     PyTorch record has none, so its proxy is a floor).
+  * collective bytes: the ``total_bytes`` of the record's
+    ``collectives`` (one device's all-reduces, as the dry-run tallies
+    them), over one direction of NVLink 4 (450e9 B/s); null where the
+    record's collectives are (a step the port does not run under a
+    mesh yet).
 
 Also reports MODEL_FLOPS = 6 N D (train) or 2 N_active tokens (serve)
 and the usefulness ratio MODEL_FLOPS / counted FLOPs.  These are bounds
@@ -29,7 +34,7 @@ import sys
 from pathlib import Path
 from typing import List
 
-from repro_torch.launch.mesh import HBM_BW, peak_flops
+from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, peak_flops
 from repro_torch.models import INPUT_SHAPES, get_config
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -69,18 +74,21 @@ def analyse_record(rec: dict) -> dict:
     t_comp = flops_chip / peak_flops(cfg.dtype)
     t_mem = traffic / HBM_BW
     terms = {"compute_s": t_comp, "memory_s": t_mem}
+    coll = (rec.get("collectives") or {}).get("total_bytes")
+    if coll is not None:
+        terms["collective_s"] = coll / NVLINK_BW
     dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, shape)
     return {
         "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
-        **{k: round(v, 6) for k, v in terms.items()},
         "collective_s": None,
+        **{k: round(v, 6) for k, v in terms.items()},
         "dominant": dominant.replace("_s", ""),
         "model_flops": mf,
         "hlo_flops_global": rec["jaxpr_flops_global"],
         "useful_ratio": round(mf / max(rec["jaxpr_flops_global"], 1), 3),
         "hbm_bytes_chip": traffic,
-        "coll_bytes_chip": None,
+        "coll_bytes_chip": coll,
         "roofline_bound_s": round(max(terms.values()), 6),
         "fsdp": rec.get("fsdp", False),
     }

@@ -15,9 +15,10 @@ CUDA call goes through ``HSTUAttnFunction``: the forward launches the
 same kernel, the backward recomputes the scores with ``torch.matmul`` in
 float32 and forms dq, dk and dv.  The TPU kernel has no VJP — the
 reference differentiates plain jnp attention with XLA — so there is no
-backward kernel to port.  The Function takes float32 only: a bfloat16
-q, k or v that asks for a gradient on the card raises (training the
-attention in bf16 is ROADMAP Queue 2, item G).
+backward kernel to port.  With bfloat16 q, k, v the forward launches
+the bf16 kernel, and the backward widens the saved inputs and the
+incoming gradient to float32, computes there and rounds dq, dk and dv
+to bf16 once each.
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ def hstu_attn(q, k, v, *, n_total: float = None):
     n_total = n_total or q.shape[2]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise TypeError(f"hstu_attn: a gradient on the card needs "
-                            f"float32, got {q.dtype} (bf16 training of the "
-                            f"attention is ROADMAP Queue 2, item G)")
         return HSTUAttnFunction.apply(q, k, v, n_total)
     return _launch(q, k, v, n_total)
 
@@ -111,10 +108,11 @@ def hstu_attn_backward(q, k, v, dout, n_total: float):
 
 class HSTUAttnFunction(torch.autograd.Function):
     """Causal HSTU attention on the card with a gradient: the forward is
-    the CUDA kernel (one counted launch), the backward
-    ``hstu_attn_backward`` over the saved q, k, v.  Under activation
-    checkpointing the forward runs again in the backward and launches
-    again."""
+    the CUDA kernel (one counted launch, float32 or bf16 as the inputs),
+    the backward ``hstu_attn_backward`` over the saved q, k, v in
+    float32 (bf16 inputs widened), its gradients in the inputs' type.
+    Under activation checkpointing the forward runs again in the
+    backward and launches again."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_total):
@@ -126,6 +124,8 @@ class HSTUAttnFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
+        dt = q.dtype
         with torch.profiler.record_function("hstu_attn_backward"):
-            dq, dk, dv = hstu_attn_backward(q, k, v, dout, ctx.n_total)
-        return dq, dk, dv, None
+            dq, dk, dv = hstu_attn_backward(
+                *(t.float() for t in (q, k, v, dout)), ctx.n_total)
+        return dq.to(dt), dk.to(dt), dv.to(dt), None

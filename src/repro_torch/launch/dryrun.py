@@ -14,14 +14,28 @@ For each combination this module:
      step's arguments (parameters, optimizer state, batch, cache) and
      of the tensors it returns anew, as the reference reads them from
      XLA's ``memory_analysis``;
-  4. writes one JSON record per mesh into ``build/dryrun/``, read by
+  4. counts the collectives of one device's step on each mesh
+     (``collectives``, the reference's record layout: {kind: {"count",
+     "bytes"}, "total_bytes"}): the step runs once more on meta, built
+     from its rank's shards under a ``meta`` ``ProcessMesh`` at rank 0's
+     coordinates, and the mesh tallies every collective the model code
+     calls (``models.partitioning``), the recompute of every
+     checkpointed layer included;
+  5. writes one JSON record per mesh into ``build/dryrun/``, read by
      ``repro_torch.benchmarks.roofline``.
 
 The meshes are the reference's (16 x 16, 2 x 16 x 16) and one card
-(1 x 1).  Two of the reference's fields have no counterpart here and
-are null, each with its reason: ``temp_size_in_bytes`` (PyTorch has no
-compile-time temporary size; ``chip_smoke.py`` measures the card's
-peak) and ``collectives`` (the port runs on one card and lowers none).
+(1 x 1).  ``temp_size_in_bytes`` has no counterpart here and is null
+with its reason (PyTorch has no compile-time temporary size;
+``chip_smoke.py`` measures the card's peak).  ``collectives`` is null,
+with its reason, where the port does not run the step under a mesh yet
+(ROADMAP Queue 1, item 10): the SSM, hybrid and enc-dec families, FSDP
+and a decode whose cache shards its sequence.  The port's collectives
+are all all-reduces (an all-gather is one over a zero-padded buffer);
+XLA picks its own (reduce-scatters, fused all-reduces), so the counts
+are held against a closed form and the live run's tally
+(``tests/test_torch_dryrun.py``, ``chip_smoke.py --phases dist``), not
+against the reference's bytes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun            # all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_4b \\
@@ -58,8 +72,53 @@ MESHES = {"card": make_smoke_mesh, "single": make_production_mesh,
 TEMP_REASON = ("PyTorch has no compile-time temporary size; the card's "
                "peak (torch.cuda.max_memory_allocated) is measured by "
                "chip_smoke.py")
-COLLECTIVES_REASON = ("the port runs on one card and lowers no "
-                      "collective (multi-GPU: ROADMAP Queue 1, item 10)")
+MESH_FAMILIES = ("dense", "moe", "vlm", "hstu")
+COLLECTIVES_REASONS = {
+    "family": "the port does not run the SSM, hybrid and enc-dec "
+              "families under a mesh yet (ROADMAP Queue 1, item 10: "
+              "hybrid, SSM and enc-dec under a mesh)",
+    "fsdp": "the port does not shard weights over data (ROADMAP Queue 1, "
+            "item 10: FSDP and ZeRO-2)",
+    "kv_seq": "the port does not shard a decode cache's sequence "
+              "(ROADMAP Queue 1, item 10: kv_seq decode)",
+}
+
+
+def collectives_reason(cfg, shape, use_fsdp, ovr):
+    """Why a record's ``collectives`` is null, or None where the port
+    runs its step under the mesh."""
+    family = "hstu" if cfg.hstu else cfg.family
+    if family not in MESH_FAMILIES:
+        return COLLECTIVES_REASONS["family"]
+    if use_fsdp:
+        return COLLECTIVES_REASONS["fsdp"]
+    from repro_torch.models.arch import kv_seq_axis
+    if (shape.kind == "decode" and ovr.get("kv_seq")
+            and kv_seq_axis(shape.global_batch, shape.seq_len)):
+        return COLLECTIVES_REASONS["kv_seq"]
+    return None
+
+
+def trace_collectives(cfg, shape, mesh, overrides=None) -> dict:
+    """The collectives of rank 0's step of ``shape`` (an ``InputShape``
+    or its name) on ``mesh`` (a ``MeshShape``), fsdp off, for the model
+    of ``cfg`` (a ``ModelConfig`` or an arch id): the model built on
+    meta from rank 0's shards under a ``meta`` ``ProcessMesh``, the step
+    run once on rank 0's shards of its arguments, the mesh's tally by
+    kind."""
+    from repro_torch.launch.mesh import ProcessMesh
+    from repro_torch.launch.steps import local_inputs, make_step, step_inputs
+    from repro_torch.models import build_model
+    from repro_torch.models.partitioning import logical_rules
+
+    shape = INPUT_SHAPES.get(shape, shape)
+    cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+    pm = ProcessMesh.meta(mesh.sizes, mesh.axis_names, rank=0)
+    with logical_rules(pm, overrides):
+        model = build_model(cfg, device="meta")
+        fn, arg_specs, arg_axes = make_step(model, shape)
+        fn(*step_inputs(shape, local_inputs(arg_specs, arg_axes), "meta"))
+    return pm.collectives()
 
 
 def _should_skip(cfg, shape):
@@ -193,6 +252,8 @@ def size_record(arch: str, shape, mesh_key: str, traced: dict,
     if shape.kind == "decode" and shape.global_batch == 1:
         ovr.setdefault("kv_seq", "data")
     rules = Rules(mesh, ovr, fsdp=use_fsdp)
+    reason = collectives_reason(cfg, shape, use_fsdp, ovr)
+    coll = None if reason else trace_collectives(cfg, shape, mesh, ovr)
     arg_axes = traced["arg_axes"]
     if zero2 and shape.kind == "train":
         from repro_torch.training import optimizer as opt
@@ -214,7 +275,7 @@ def size_record(arch: str, shape, mesh_key: str, traced: dict,
                    "output_size_in_bytes": out_b,
                    "temp_size_in_bytes": None,
                    "temp_reason": TEMP_REASON},
-        "collectives": None, "collectives_reason": COLLECTIVES_REASON,
+        "collectives": coll, "collectives_reason": reason,
         "n_chips": mesh.size,
     }
 

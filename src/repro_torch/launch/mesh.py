@@ -4,9 +4,14 @@
 The meshes are the reference's, by axis names and sizes: one pod
 (data 16, model 16) and two pods (pod 2, data 16, model 16), so each
 dry-run record pairs with the reference's record of the same name.
-They are descriptions (``MeshShape``), not device groups: the port runs
-on one card, and the dry-run sizes every step on them without
-allocating anything.
+They are descriptions (``MeshShape``): the dry-run sizes every step on
+them without allocating anything.
+
+``ProcessMesh`` is a mesh of processes, one per device, with the
+reference's axis names: live over ``torch.distributed`` (NCCL, or gloo
+for ranks that share a card or run on the CPU), or ``meta`` (a rank's
+coordinates and no process group: the dry-run traces one rank's step
+and counts its collectives).
 
 The constants price the roofline (``repro_torch.benchmarks.roofline``)
 and ``chip_smoke.py``'s bounds.  They are one NVIDIA H100 SXM's
@@ -16,7 +21,13 @@ at the 700 W limit), not measurements.
 
 from __future__ import annotations
 
-from repro_torch.models.partitioning import MeshShape, make_mesh
+import math
+from typing import Dict, Sequence, Tuple
+
+from repro_torch.models.partitioning import (COLLECTIVES, MeshShape,
+                                             make_mesh)
+
+BACKENDS = ("nccl", "gloo")
 
 
 def make_production_mesh(multi_pod: bool = False) -> MeshShape:
@@ -28,6 +39,128 @@ def make_production_mesh(multi_pod: bool = False) -> MeshShape:
 def make_smoke_mesh() -> MeshShape:
     """One device with the production axis names: one card's sizing."""
     return make_mesh((1, 1), ("data", "model"))
+
+
+class ProcessMesh:
+    """A (data, model)-style mesh of processes.  It reads as a
+    ``MeshShape`` does (``axis_names``, ``shape``, ``size``, ``name``),
+    so ``Rules``, ``Rules.spec`` and ``device_bytes`` take it, and knows
+    this rank's coordinate on every axis (``coords``, row-major over
+    the ranks as ``init_device_mesh`` lays them out).
+
+    ``ProcessMesh.init`` joins a live process group and wraps
+    ``torch.distributed.device_mesh.init_device_mesh``; ``ProcessMesh.
+    meta`` has coordinates and no group.  ``backend`` is the caller's
+    choice, never a fallback: "nccl" (one card a rank) or "gloo" (CUDA
+    or CPU tensors; ranks may share a card: gloo takes CUDA tensors for
+    ``all_reduce``, the one collective the port calls).
+
+    Every ``all_reduce`` is counted in ``tally`` by (kind, axes):
+    {"count", "bytes"}, the bytes of the reduced buffer (the output, as
+    the reference counts an HLO collective); ``collectives()`` sums it
+    by kind in the reference's record layout."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
+                 rank: int, device_mesh=None):
+        self.axis_names = tuple(axis_names)
+        self.sizes = tuple(int(s) for s in sizes)
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"{len(self.axis_names)} axis names for "
+                             f"{len(self.sizes)} sizes")
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.device_mesh = device_mesh
+        coords, r = {}, rank
+        for a, n in reversed(list(zip(self.axis_names, self.sizes))):
+            coords[a], r = r % n, r // n
+        self.coords: Dict[str, int] = {a: coords[a] for a in self.axis_names}
+        self.tally: Dict[Tuple[str, Tuple[str, ...]], Dict[str, int]] = {}
+
+    @classmethod
+    def meta(cls, sizes, axis_names=("data", "model"), rank: int = 0):
+        """No process group: the collectives count and return their
+        input (the dry-run's trace of rank ``rank``)."""
+        return cls(sizes, axis_names, rank)
+
+    @classmethod
+    def init(cls, sizes, axis_names=("data", "model"), *, backend: str,
+             init_method: str, rank: int, world_size: int):
+        """Join the process group (``init_method`` such as
+        ``file:///tmp/store`` or ``tcp://localhost:port``) as ``rank`` of
+        ``world_size`` and lay it out as a mesh of ``sizes``."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        if math.prod(sizes) != world_size:
+            raise ValueError(f"a {tuple(sizes)} mesh for {world_size} ranks")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        if not dist.is_initialized():
+            dist.init_process_group(backend, init_method=init_method,
+                                    rank=rank, world_size=world_size)
+        dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                              tuple(sizes), mesh_dim_names=tuple(axis_names))
+        mesh = cls(sizes, axis_names, rank, dm)
+        if [mesh.coords[a] for a in mesh.axis_names] != list(
+                dm.get_coordinate()):
+            raise RuntimeError(f"rank {rank}: coordinates {mesh.coords} != "
+                               f"the device mesh's {dm.get_coordinate()}")
+        return mesh
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(s) for s in self.sizes)
+
+    @property
+    def is_meta(self) -> bool:
+        return self.device_mesh is None
+
+    def all_reduce(self, x, axes: Tuple[str, ...], op: str = "sum",
+                   kind: str = "all-reduce"):
+        """A new tensor: ``x`` reduced (``op`` "sum" or "max") over the
+        ranks that share this rank's coordinates off ``axes``; counted
+        once under ``kind``.  Over several axes, one axis after
+        another."""
+        rec = self.tally.setdefault((kind, tuple(axes)),
+                                    {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += x.numel() * x.element_size()
+        y = x.detach().clone()
+        if self.is_meta or y.device.type == "meta":
+            return y
+        import torch.distributed as dist
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        for a in axes:
+            dist.all_reduce(y, rop, group=self.device_mesh.get_group(a))
+        return y
+
+    def reset_tally(self):
+        self.tally = {}
+
+    def collectives(self) -> dict:
+        """The tally by kind, the reference's dry-run record layout:
+        {kind: {"count", "bytes"}, ..., "total_bytes"}."""
+        out = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
+        for (kind, _), rec in self.tally.items():
+            out[kind]["count"] += rec["count"]
+            out[kind]["bytes"] += rec["bytes"]
+        out["total_bytes"] = sum(v["bytes"] for v in out.values())
+        return out
+
+
+def destroy():
+    """Leave the process group (a rank's last call)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 # --- one NVIDIA H100 SXM (NVIDIA's data sheet) ------------------------------

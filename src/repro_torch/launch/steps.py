@@ -24,6 +24,10 @@ from repro_torch.core.graphs import tensor_leaves, resolve_runner
 from repro_torch.models.arch import zeros_from_specs
 from repro_torch.models.config import InputShape
 from repro_torch.models.convert import param_tree
+from repro_torch.models.partitioning import (active_axes, batch_axis,
+                                             current_rules, local_spec_tree,
+                                             psum, refuse_under_mesh,
+                                             tree_specs)
 from repro_torch.training import optimizer as opt
 from repro_torch.tree import leaves, tree_map
 
@@ -37,11 +41,24 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
     ``loss``, ``ce``, a Transformer's ``aux`` (the MoE load-balance loss,
     zero for a dense model), ``grad_norm`` (device scalars) and ``lr``.
     Every family trains through it.  Turns the model's gradients on;
-    ``train_step.params`` is its parameter tree."""
+    ``train_step.params`` is its parameter tree.
+
+    Under a process mesh (data- and tensor-parallel) the model holds
+    this rank's shards and ``batch`` this rank's rows: ``loss`` is the
+    rank's share of the global mean, the gradients are summed over the
+    batch axes (every weight is replicated over them: one all-reduce
+    per gradient type), the clip reads the global norm
+    (``opt.global_norm`` with the weights' partition specs) and the
+    metrics are the global batch's."""
     adamw = adamw or opt.AdamWConfig()
     model.requires_grad_(True)
     params = param_tree(model)
     grads_of = leaves(params)
+    rules = current_rules()
+    specs = None
+    if rules is not None and rules.mesh is not None and rules.mesh.size > 1:
+        specs = tree_specs(rules.mesh, model.param_axes(),
+                           model.abstract_params())
 
     def train_step(state, batch):
         for p in grads_of:
@@ -49,13 +66,34 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
         loss, metrics = model.loss(batch)
         loss.backward()
         grads = tree_map(lambda p: p.grad, params)
+        sum_over_batch(leaves(grads))
         with torch.profiler.record_function("adamw"):
-            _, _, om = opt.apply_updates(adamw, params, grads, state)
+            _, _, om = opt.apply_updates(adamw, params, grads, state,
+                                         specs=specs)
+        loss = metrics.pop("loss", loss)
         return dict({k: v.detach() for k, v in metrics.items()}, **om,
                     loss=loss.detach())
 
     train_step.params = params
     return train_step
+
+
+def sum_over_batch(grads):
+    """Sum each gradient over the batch axes, in place: one all-reduce
+    of every gradient of a type, flattened into one buffer.  Nothing
+    without a process mesh that shards the batch."""
+    if not active_axes(batch_axis()):
+        return
+    by_type = {}
+    for g in grads:
+        if g is not None:
+            by_type.setdefault(g.dtype, []).append(g)
+    for gs in by_type.values():
+        flat = psum(torch.cat([g.reshape(-1) for g in gs]), batch_axis())
+        i = 0
+        for g in gs:
+            g.copy_(flat[i:i + g.numel()].view_as(g))
+            i += g.numel()
 
 
 def make_prefill_step(model):
@@ -86,8 +124,14 @@ def make_serve_step(model, graphs=None):
     enc-dec's self ring and cross K/V, and HSTU's psi) is left alone.
     The eager step returns what ``decode_step`` returns.  A key holds
     the cache's storage, so another cache of the same shapes is
-    captured anew."""
+    captured anew.  Under a process mesh of more than one device the
+    step runs eagerly (``graphs=False``): graphs around collectives are
+    not ported yet."""
     runner = resolve_runner(graphs, model.device)
+    if runner is not None:
+        refuse_under_mesh("a CUDA graph around collectives (pass "
+                          "graphs=False)", "ROADMAP Queue 1, item 10: CUDA "
+                                           "graphs around NCCL")
 
     def eager_step(cache, batch):
         return model.decode_step(cache, batch)
@@ -139,7 +183,11 @@ def make_step(model, shape: InputShape, zero2: bool = False):
     but the first: ``fn(*step_inputs(shape, arg_specs, device))``.
     ``zero2`` shards the optimizer moments over "data"
     (``opt.state_axes``).  A train step turns the model's gradients
-    on."""
+    on.  The stand-ins are global; ``local_inputs`` cuts them to one
+    rank's shards under a process mesh."""
+    if zero2:
+        refuse_under_mesh("ZeRO-2 (opt_data)",
+                          "ROADMAP Queue 1, item 10: FSDP and ZeRO-2")
     p_sds, p_axes = model.abstract_params(), model.param_axes()
     b_sds, b_axes = model.batch_specs(shape), model.batch_axes(shape)
     if shape.kind == "train":
@@ -160,6 +208,13 @@ def input_specs(model, shape: InputShape):
     nothing is allocated."""
     _, arg_specs, _ = make_step(model, shape)
     return arg_specs
+
+
+def local_inputs(arg_specs, arg_axes):
+    """``make_step``'s stand-ins as this rank's shards under the current
+    rules (the parameters, optimizer state, batch and cache one device
+    holds); the stand-ins themselves outside a process mesh."""
+    return tuple(local_spec_tree(s, a) for s, a in zip(arg_specs, arg_axes))
 
 
 def step_inputs(shape: InputShape, arg_specs, device="meta"):

@@ -10,6 +10,7 @@ MoE and VLM: ``TransformerModel``), the attention-free SSM stacks
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict
 
 import torch
@@ -24,6 +25,11 @@ from .layers import (DTYPES, ParamSpec, abstract_tree, attention,
                      attention_specs, axes_tree, cross_entropy, ffn,
                      ffn_specs, rms_norm)
 from .moe import moe_aux, moe_ffn, moe_specs, shared_expert_ffn
+from .partitioning import (axis_index, axis_size, batch_axis,
+                           checkpoint_in_rules, current_rules, enter,
+                           is_process_mesh, local_shape, local_spec_tree,
+                           pmax, psum, reduce, refuse_under_mesh,
+                           shard_slices, sharded_axis)
 
 
 def stack_specs(specs, n: int):
@@ -43,38 +49,95 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
-def _embed(tok, tokens):
-    return tok[tokens]
+def _embed(tok, tokens, vp: int = None):
+    """The rows of ``tok`` (vp rows in all) at ``tokens``.  Under a
+    vocab-sharded ``tok`` (the reference's ("vocab", "embed") weight) a
+    rank holds rows [v0, v0 + Vl): it looks up the tokens in its range,
+    zeros the others, and the sum over "model" gives every rank the
+    whole embedding (one rank's row plus zeros: exact).  ``vp`` None:
+    ``tok`` is whole."""
+    ax = sharded_axis(tok.shape[0], vp, "vocab") if vp else None
+    if ax is None:
+        return tok[tokens]
+    vl = tok.shape[0]
+    t = tokens - axis_index(ax) * vl
+    mine = (t >= 0) & (t < vl)
+    e = torch.where(mine[..., None], tok[t.clamp(0, vl - 1)], 0)
+    # ref arch.py:57: constrain(e, ("batch", "seq", "embed"))
+    return reduce(e, ax)
 
 
-def _logits(final_norm, unembed, x):
-    return rms_norm(x, final_norm) @ unembed
+def _logits(final_norm, unembed, x, vp: int = None):
+    """Logits (..., vp), or under a vocab-sharded ``unembed`` this
+    rank's columns (ref arch.py:63: constrain(lg, ("batch", "seq",
+    "vocab")))."""
+    xn = rms_norm(x, final_norm)
+    ax = sharded_axis(unembed.shape[1], vp, "vocab") if vp else None
+    return (enter(xn, ax) if ax else xn) @ unembed
+
+
+def vocab_parallel_ce(logits, labels, vocab: int, ax):
+    """``layers.cross_entropy`` of logits whose last dimension is this
+    rank's columns of the vocabulary on mesh axis ``ax``: the row max
+    (``pmax``), the sum of exponentials and the label's logit (each
+    ``reduce``) are one all-reduce each over ``ax``; the padded ids
+    (>= vocab) are masked on whichever rank holds them."""
+    vl = logits.shape[-1]
+    v0 = axis_index(ax) * vl
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    vid = v0 + torch.arange(vl, device=logits.device)
+    logits = torch.where(vid < vocab, logits, -1e30)
+    m = pmax(logits.detach().amax(dim=-1), ax)
+    se = reduce((logits - m[..., None]).exp().sum(dim=-1), ax)
+    t = labels.long() - v0
+    mine = (t >= 0) & (t < vl)
+    gold = torch.where(mine, logits.gather(
+        -1, t.clamp(0, vl - 1)[..., None])[..., 0], 0.0)
+    return m + se.log() - reduce(gold, ax)
 
 
 CE_CHUNK = 512
 
 
 def ce_loss(final_norm, unembed, x, labels, vocab: int,
-            chunk: int = CE_CHUNK):
+            chunk: int = CE_CHUNK, vp: int = None):
     """Sequence-chunked cross-entropy: the (B, S, vocab_padded) logits
     are the largest training temporary (1.64 GB f32 per 512-token chunk
     at B 8 for hstu-gr), so each chunk's logits are computed under a
     ``torch.utils.checkpoint`` and only one (B, chunk, Vp) slice is
     alive at a time, in the backward too.  The same value as the
     unchunked mean (sum / (B S)); S <= chunk or S % chunk != 0 computes
-    it unchunked."""
+    it unchunked.
+
+    Under a process mesh ``x`` holds this rank's rows of the batch: the
+    result is their share of the global mean (their sum over the global
+    count), which ``psum`` over the batch axes makes whole; the CE is
+    vocab-parallel where ``unembed`` is vocab-sharded."""
     B, S, _ = x.shape
+    ax = sharded_axis(unembed.shape[1], vp, "vocab") if vp else None
+
+    def ce(xx, ll):
+        lg = _logits(final_norm, unembed, xx, vp)
+        return (vocab_parallel_ce(lg, ll, vocab, ax) if ax
+                else cross_entropy(lg, ll, vocab))
+
+    n = B * S * axis_size(batch_axis())
     if S <= chunk or S % chunk:
-        return cross_entropy(_logits(final_norm, unembed, x), labels,
-                             vocab).mean()
+        return ce(x, labels).sum() / n if n != B * S else ce(x, labels).mean()
 
     def one(xx, ll):
-        return cross_entropy(_logits(final_norm, unembed, xx), ll,
-                             vocab).sum()
+        return ce(xx, ll).sum()
 
-    tot = sum(checkpoint(one, x[:, i:i + chunk], labels[:, i:i + chunk],
-                         use_reentrant=False) for i in range(0, S, chunk))
-    return tot / (B * S)
+    tot = sum(checkpoint_in_rules(one, x[:, i:i + chunk],
+                                  labels[:, i:i + chunk])
+              for i in range(0, S, chunk))
+    return tot / n
+
+
+def global_ce(ce):
+    """The step's CE metric: a rank's share (``ce_loss``) summed over
+    the batch axes, detached."""
+    return psum(ce.detach(), batch_axis())
 
 
 def flat_specs(specs, prefix: str = "") -> Dict[str, ParamSpec]:
@@ -102,6 +165,36 @@ def add_params(module: nn.Module, specs, device):
             module.add_module(k, ParamTree(s, device))
 
 
+def local_param_specs(specs):
+    """``specs`` as this rank's shards under the current rules (each
+    sharded dimension divided: ``partitioning.local_shape``); the specs
+    themselves outside a process mesh."""
+    rules = current_rules()
+    if rules is None or not is_process_mesh(rules.mesh):
+        return specs
+    if isinstance(specs, ParamSpec):
+        return dataclasses.replace(specs, shape=local_shape(
+            specs.shape, rules.spec(specs.axes, shape=specs.shape),
+            rules.mesh))
+    return {k: local_param_specs(s) for k, s in specs.items()}
+
+
+MESH_ITEM = "ROADMAP Queue 1, item 10"
+
+
+def check_mesh(what: str, supported: bool):
+    """Refuse, under a process mesh of more than one device, a family
+    that does not run sharded yet and the weight sharding the port does
+    not do (fsdp)."""
+    if not supported:
+        refuse_under_mesh(what, f"{MESH_ITEM}: hybrid, SSM and enc-dec "
+                                f"under a mesh")
+    rules = current_rules()
+    if rules is not None and rules.fsdp:
+        refuse_under_mesh(f"{what} with fsdp=True",
+                          f"{MESH_ITEM}: FSDP and ZeRO-2")
+
+
 class ParamTree(nn.Module):
     """A subtree of parameters (see ``add_params``)."""
 
@@ -117,15 +210,90 @@ class ParamTree(nn.Module):
         return out
 
 
+# the most elements one draw holds on the host (64 MB of float32)
+DRAW_CHUNK = 1 << 24
+
+
+def draw_into(spec: ParamSpec, dst, generator: torch.Generator,
+              slices=None):
+    """Fill ``dst`` with ``spec.initialise(generator)[slices]`` (the
+    whole tensor without ``slices``), drawing the full tensor in flat
+    chunks of at most DRAW_CHUNK elements, whole rows of its trailing
+    dimensions each, so that the host holds one chunk at a time.
+
+    A CPU ``torch.randn`` of n elements equals consecutive draws of its
+    parts when every part but the last is a multiple of 16 elements and
+    the last has at least 16 (it fills 16 at a time and redraws the
+    last 16 of a ragged tail), so the chunks keep the stacked draw's
+    numbers bit for bit.  Every chunk is drawn, on every rank, and each
+    keeps the rows and columns of its shard."""
+    shape = tuple(spec.shape)
+    slices = slices or tuple(slice(0, n) for n in shape)
+    dt = DTYPES[spec.dtype]
+    if spec.init != "normal":
+        dst.copy_(spec.initialise(generator)[slices])
+        return
+    n = 1
+    for v in shape:
+        n *= v
+    j = 0                      # rows: the trailing dims [j:] fit a chunk
+    while j < len(shape) and n > DRAW_CHUNK:
+        n //= shape[j]
+        j += 1
+    if j == 0:
+        dst.copy_(spec.initialise(generator)[slices])
+        return
+    unit = 16 // math.gcd(n, 16)                 # rows a chunk is made of
+    per = max(DRAW_CHUNK // n // unit, 1) * unit
+    lead = shape[:j]
+    rows_total = math.prod(lead)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = spec.scale / math.sqrt(max(fan_in, 1))
+    lo = torch.tensor([s.start for s in slices[:j]])
+    hi = torch.tensor([s.stop for s in slices[:j]])
+    local_lead = (hi - lo).tolist()
+    out = dst.view((-1,) + tuple(dst.shape[j:]))
+    starts = list(range(0, rows_total, per))
+    if len(starts) > 1 and (rows_total - starts[-1]) * n < 16:
+        starts.pop()                             # a tail of >= 16 elements
+    for i, r0 in enumerate(starts):
+        r1 = starts[i + 1] if i + 1 < len(starts) else rows_total
+        x = torch.randn((r1 - r0) * n, generator=generator,
+                        dtype=torch.float32)
+        x = (x.view((r1 - r0,) + shape[j:]) * std).to(dt)
+        rows = torch.arange(r0, r1)
+        idx, rest = [], rows
+        for size in reversed(lead):
+            idx.append(rest % size)
+            rest = rest // size
+        idx = torch.stack(idx[::-1], dim=1)                   # (rows, j)
+        keep = ((idx >= lo) & (idx < hi)).all(dim=1)
+        if not keep.any():
+            continue
+        local = torch.zeros_like(rows)
+        for d in range(j):
+            local = local * local_lead[d] + (idx[:, d] - lo[d])
+        out[local[keep]] = x[keep][(slice(None),) + tuple(slices[j:])].to(
+            out.device)
+
+
 def draw_params(model: nn.Module, generator: torch.Generator):
     """Fill every parameter of ``model`` (laid out by ``add_params`` from
     ``model.param_specs()``) on the CPU from ``generator`` (so the
-    weights do not depend on the device), in sorted-name order."""
+    weights do not depend on the device), in sorted-name order, a
+    bounded chunk at a time (``draw_into``).  Under a process mesh
+    every rank draws the full weights, as one device does, and keeps
+    its shard."""
     params = dict(model.named_parameters())
     specs = flat_specs(model.param_specs())
+    rules = current_rules()
+    sharded = rules is not None and is_process_mesh(rules.mesh)
     with torch.no_grad():
         for name in sorted(specs):
-            params[name].copy_(specs[name].initialise(generator))
+            s = specs[name]
+            sl = (shard_slices(s.shape, rules.spec(s.axes, shape=s.shape),
+                               rules.mesh) if sharded else None)
+            draw_into(s, params[name], generator, sl)
     return model
 
 
@@ -165,6 +333,16 @@ def kv_seq_axis(batch: int, seq_len: int):
     dry-run's long-context rule) for one sequence of 65536 or more
     tokens, else None — the reference's rule in every family."""
     return "kv_seq" if (batch == 1 and seq_len >= 65536) else None
+
+
+def refuse_kv_seq(batch: int, seq_len: int):
+    """A decode whose cache the rules shard on its sequence axis does not
+    run under a process mesh yet."""
+    rules = current_rules()
+    if (rules is not None and kv_seq_axis(batch, seq_len)
+            and rules.table.get("kv_seq") is not None):
+        refuse_under_mesh("a decode with a kv_seq-sharded cache",
+                          "ROADMAP Queue 1, item 10: kv_seq decode")
 
 
 class StepSpecs:
@@ -230,9 +408,10 @@ class TransformerModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
+        check_mesh("TransformerModel", True)
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, self.param_specs(), self.device)
+        add_params(self, local_param_specs(self.param_specs()), self.device)
 
     @property
     def is_moe(self):
@@ -318,8 +497,8 @@ class TransformerModel(StepSpecs, nn.Module):
         if remat:
             aux = x.new_zeros((), dtype=torch.float32)
             for l in range(L):
-                x, a = checkpoint(self._train_block, l, x, positions, window,
-                                  use_reentrant=False)
+                x, a = checkpoint_in_rules(self._train_block, l, x,
+                                           positions, window)
                 aux = aux + a
             return x, aux, None
         kv = cache
@@ -356,7 +535,7 @@ class TransformerModel(StepSpecs, nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, cfg.vocab_padded)
         if cfg.family == "vlm":
             x = self._prepend_frontend(x, batch)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
@@ -364,8 +543,12 @@ class TransformerModel(StepSpecs, nn.Module):
                               remat=True)
         if cfg.family == "vlm":
             x = x[:, cfg.n_frontend_tokens:]
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab)
-        return ce + aux, {"ce": ce, "aux": aux}
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
+                     vp=cfg.vocab_padded)
+        if axis_size(batch_axis()) == 1:
+            return ce + aux, {"ce": ce, "aux": aux}
+        ce_all = global_ce(ce)
+        return ce + aux, {"ce": ce_all, "aux": aux, "loss": ce_all + aux}
 
     @torch.no_grad()
     def prefill(self, batch):
@@ -374,12 +557,13 @@ class TransformerModel(StepSpecs, nn.Module):
         frontend's F positions come first, positions run over F + S."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, cfg.vocab_padded)
         if cfg.family == "vlm" and "frontend" in batch:
             x = self._prepend_frontend(x, batch)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, _, kv = self._run(x, positions, window=cfg.sliding_window)
-        return _logits(self.final_norm, self.unembed, x[:, -1:]), kv
+        return _logits(self.final_norm, self.unembed, x[:, -1:],
+                       cfg.vocab_padded), kv
 
     @torch.no_grad()
     def decode_step(self, cache, batch):
@@ -387,10 +571,12 @@ class TransformerModel(StepSpecs, nn.Module):
         ``cache`` -> (logits (B, 1, Vp), the same cache, updated)."""
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
-        x = _embed(self.tok, token)
+        refuse_kv_seq(token.shape[0], cache[0].shape[2])
+        x = _embed(self.tok, token, self.cfg.vocab_padded)
         x, _, cache = self._run(x, pos[:, None], cache=tuple(cache),
                                 cache_index=pos)
-        return _logits(self.final_norm, self.unembed, x), cache
+        return _logits(self.final_norm, self.unembed, x,
+                       self.cfg.vocab_padded), cache
 
     def cache_specs(self, batch: int, seq_len: int):
         """The cache's (shape, dtype) tuple (no sharding axes): a ring of
@@ -416,9 +602,12 @@ class TransformerModel(StepSpecs, nn.Module):
     def init_cache(self, batch: int, seq_len: int):
         """Zeros of ``cache_specs`` (the reference's ``init_cache`` takes
         the unquantized layout only; here the int8 one too, with zero
-        scales)."""
-        return zeros_from_specs(self.cache_specs(batch, seq_len),
-                                self.device)
+        scales); under a process mesh this rank's shard of the global
+        ``batch`` rows."""
+        refuse_kv_seq(batch, seq_len)
+        return zeros_from_specs(local_spec_tree(
+            self.cache_specs(batch, seq_len),
+            self.cache_axes(batch, seq_len)), self.device)
 
     def batch_specs(self, shape: InputShape):
         """The entry point's batch as {name: (shape, dtype)}."""
@@ -469,6 +658,7 @@ class SSMModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
+        check_mesh("SSMModel", False)
         self.cfg = cfg
         self.device = resolve_device(device)
         add_params(self, self.param_specs(), self.device)
@@ -616,6 +806,7 @@ class HybridModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
+        check_mesh("HybridModel", False)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_sections = cfg.n_layers // cfg.attn_every

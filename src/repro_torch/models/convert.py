@@ -37,6 +37,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.partitioning import current_rules, shard
 from repro_torch.tree import flatten, unflatten
 
 
@@ -46,10 +47,24 @@ def state_from_tree(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in flatten(tree, ".").items()}
 
 
+def shard_state(full: Mapping[str, Any], axes: Mapping[str, Any],
+                rules=None) -> Dict[str, Any]:
+    """Each full weight of ``full`` ({state_dict name: tensor or numpy})
+    cut to this rank's shard by ``Rules.spec`` of its logical axes
+    (``axes``, by the same names: ``flatten(model.param_axes())``) at
+    the rank's coordinates (``partitioning.shard``); the weights
+    themselves outside a process mesh."""
+    return {k: shard(v, axes[k], rules) for k, v in full.items()}
+
+
 def load_jax_params(model: torch.nn.Module, tree: Mapping[str, Any]):
     """Load a ``repro`` parameter tree (numpy leaves) into ``model`` in
-    place; every key must match in name and shape."""
+    place; every key must match in name and shape.  A model built under
+    a process mesh takes its rank's shard of each full weight
+    (``shard_state``)."""
     state = state_from_tree(tree)
+    if current_rules() is not None:
+        state = shard_state(state, flatten(model.param_axes(), "."))
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"parameter names differ: missing "

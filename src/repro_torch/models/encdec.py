@@ -19,8 +19,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 
 from .arch import (StepSpecs, _embed, _logits, _no_tf32, add_params,
-                   base_batch_axes, base_batch_specs, ce_loss, draw_params,
-                   embed_specs, kv_seq_axis, stack_specs, zeros_from_specs)
+                   base_batch_axes, base_batch_specs, ce_loss, check_mesh,
+                   draw_params, embed_specs, kv_seq_axis, stack_specs,
+                   zeros_from_specs)
 from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
                      ffn_specs, rms_norm)
@@ -54,6 +55,7 @@ class EncDecModel(StepSpecs, nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
+        check_mesh("EncDecModel", False)
         _no_tf32()
         self.cfg = cfg
         self.device = resolve_device(device)

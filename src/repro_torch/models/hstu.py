@@ -30,15 +30,18 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 
-from .arch import (StepSpecs, _embed, _logits, ce_loss, embed_specs,
-                   kv_seq_axis, stack_specs)
+from .arch import (StepSpecs, _embed, _logits, ce_loss, check_mesh,
+                   draw_params, embed_specs, global_ce, kv_seq_axis,
+                   local_param_specs, refuse_kv_seq, stack_specs)
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
+from .partitioning import (axis_size, batch_axis, checkpoint_in_rules,
+                           enter, gather, local_spec_tree, reduce,
+                           refuse_under_mesh, sharded_axis)
 
 
 def hstu_block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -71,9 +74,10 @@ class HSTUModel(StepSpecs, nn.Module):
         # float32 products stay float32 on the card (no TF32 rounding)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        check_mesh("HSTUModel", True)
         self.cfg = cfg
         self.device = resolve_device(device)
-        specs = self.param_specs()
+        specs = local_param_specs(self.param_specs())
 
         def param(spec: ParamSpec) -> nn.Parameter:
             return nn.Parameter(torch.empty(spec.shape,
@@ -102,28 +106,28 @@ class HSTUModel(StepSpecs, nn.Module):
             }
         return specs
 
-    @torch.no_grad()
     def init(self, generator: torch.Generator) -> "HSTUModel":
         """Draw every parameter on the CPU from ``generator`` (so the
-        weights do not depend on the device), in sorted-name order."""
-        params = dict(self.named_parameters())
-        specs = {}
-        for name, s in self.param_specs().items():
-            if isinstance(s, dict):
-                specs.update({f"{name}.{k}": v for k, v in s.items()})
-            else:
-                specs[name] = s
-        for name in sorted(specs):
-            params[name].copy_(specs[name].initialise(generator))
-        return self
+        weights do not depend on the device), in sorted-name order
+        (``arch.draw_params``: a bounded chunk at a time; under a process
+        mesh the rank's shard of the full draw)."""
+        return draw_params(self, generator)
 
     # --- core block -------------------------------------------------------
     def _block(self, l, x, rope, attend):
+        """One layer.  Under a "heads"-sharded ``uvqk`` (ref hstu.py:
+        96-123) the rank computes its h heads: the normed input enters
+        the column-parallel ``uvqk``, ``ln_attn``'s RMS over all heads
+        sums its squares over the axis, and ``wo`` leaves a partial sum,
+        reduced over it."""
         cfg = self.cfg
-        h, hd = cfg.n_heads, cfg.head_dim
-        B, S, d = x.shape
         p = self.layers
+        d, _, h, hd = p["uvqk"].shape[1:]
+        B, S, _ = x.shape
+        tp = sharded_axis(h, cfg.n_heads, "heads")
         xn = rms_norm(x, p["ln"][l])
+        if tp:
+            xn = enter(xn, tp)
         uvqk = F.silu(xn @ p["uvqk"][l].reshape(d, 4 * h * hd))
         uvqk = uvqk.view(B, S, 4, h, hd)
         u, v, qk = uvqk[:, :, 0], uvqk[:, :, 1], uvqk[:, :, 2:]
@@ -131,10 +135,17 @@ class HSTUModel(StepSpecs, nn.Module):
             qk = rotate_pairs(qk, *rope)
         q, k = qk.unbind(2)
         av = attend(l, q, k, v)                          # (B, S, H, D)
-        av = rms_norm(av.reshape(B, S, h * hd), p["ln_attn"][l])
+        w = p["ln_attn"][l]
+        w_ax = sharded_axis(w.shape[0], cfg.n_heads * cfg.head_dim, "heads")
+        if w_ax and not tp:
+            # heads the axis does not divide are replicated, but h * hd
+            # may still split: the reference's GSPMD gathers the weight
+            w = gather(w, w_ax).reshape(-1)
+        av = rms_norm(av.reshape(B, S, h * hd), w, axis=tp)
         y = (av.view(B, S, h, hd) * u).reshape(B, S, h * hd) \
             @ p["wo"][l].reshape(h * hd, d)
-        return x + y, (k, v)
+        # ref hstu.py:123: constrain(y, ("batch", "seq", "embed"))
+        return x + (reduce(y, tp) if tp else y), (k, v)
 
     def _run(self, x, positions, attend, keep_kv: bool = False,
              remat: bool = False):
@@ -152,9 +163,8 @@ class HSTUModel(StepSpecs, nn.Module):
         ks, vs = [], []
         for l in range(self.cfg.n_layers):
             if remat:
-                x = checkpoint(lambda xc, l=l: self._block(l, xc, rope,
-                                                           attend)[0],
-                               x, use_reentrant=False)
+                x = checkpoint_in_rules(
+                    lambda xc, l=l: self._block(l, xc, rope, attend)[0], x)
                 continue
             x, (k, v) = self._block(l, x, rope, attend)
             if keep_kv:
@@ -170,17 +180,22 @@ class HSTUModel(StepSpecs, nn.Module):
         arange(S), every layer rematerialised, the CE chunked
         (``arch.ce_loss``).  Gradients flow to the parameters that
         require them (``launch.steps.make_train_step`` turns them on)."""
+        cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, cfg.vocab_padded)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         x, _ = self._run(
             x, positions,
             lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
             remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
-        return ce, {"ce": ce}
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
+                     vp=cfg.vocab_padded)
+        if axis_size(batch_axis()) == 1:
+            return ce, {"ce": ce}
+        ce_all = global_ce(ce)
+        return ce, {"ce": ce_all, "loss": ce_all}
 
     @torch.no_grad()
     def decode_step(self, cache, batch):
@@ -193,13 +208,15 @@ class HSTUModel(StepSpecs, nn.Module):
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
         pk, pv = cache
+        refuse_kv_seq(token.shape[0], pk.shape[2])
         n_total = pk.shape[2] + 1
-        x = _embed(self.tok, token)
+        vp = self.cfg.vocab_padded
+        x = _embed(self.tok, token, vp)
         x, _ = self._run(
             x, pos[:, None],
             lambda l, q, k, v: ops.rank_attention(
                 q, k, v, pk[l], pv[l], n_incr=1, n_total=n_total))
-        return _logits(self.final_norm, self.unembed, x), cache
+        return _logits(self.final_norm, self.unembed, x, vp), cache
 
     # --- RelayGR prefix / rank protocol -------------------------------------
     @torch.no_grad()
@@ -207,26 +224,31 @@ class HSTUModel(StepSpecs, nn.Module):
         """Pre-inference: {"tokens": (B, S)} -> (last-position logits,
         psi = per-layer (K, V), each (L, B, S, H, D))."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = _embed(self.tok, tokens.long())
+        vp = self.cfg.vocab_padded
+        x = _embed(self.tok, tokens.long(), vp)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         x, kv = self._run(
             x, positions,
             lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
             keep_kv=True)
-        return _logits(self.final_norm, self.unembed, x[:, -1:]), kv
+        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), kv
 
     def _rank(self, incr_tokens, item_tokens, n_prefix: int, attend_for):
         n_incr = incr_tokens.shape[1]
         x = _embed(self.tok, torch.cat([incr_tokens, item_tokens],
-                                       dim=1).long())
+                                       dim=1).long(), self.cfg.vocab_padded)
         Sq = x.shape[1]
         positions = (n_prefix + torch.arange(Sq, device=x.device))[None, :]
         x, _ = self._run(x, positions,
                          attend_for(n_incr=n_incr, n_total=n_prefix + Sq))
         items_h = x[:, n_incr:]
         tw = self.task_tower
-        return F.silu(items_h @ tw["w1"]) @ tw["w2"]
+        tp = sharded_axis(tw["w1"].shape[1], 4 * self.cfg.d_model, "ff")
+        if tp:
+            items_h = enter(items_h, tp)
+        scores = F.silu(items_h @ tw["w1"]) @ tw["w2"]
+        return reduce(scores, tp) if tp else scores
 
     @torch.no_grad()
     def rank_with_cache(self, cache: Optional[Tuple], incr_tokens,
@@ -237,7 +259,8 @@ class HSTUModel(StepSpecs, nn.Module):
         cfg = self.cfg
         if cache is None:
             B = incr_tokens.shape[0]
-            z = torch.zeros((cfg.n_layers, B, 0, cfg.n_heads, cfg.head_dim),
+            z = torch.zeros((cfg.n_layers, B, 0, self.layers["uvqk"].shape[3],
+                             cfg.head_dim),
                             dtype=DTYPES[cfg.dtype], device=self.device)
             cache = (z, z)
         pk, pv = cache
@@ -259,7 +282,10 @@ class HSTUModel(StepSpecs, nn.Module):
         prefix_lens: (B,) int32 resident psi tokens per row
 
         The prefix spans ``n_pages * page_tokens`` positions, exactly
-        the padded psi length the dense path ranks against."""
+        the padded psi length the dense path ranks against.  Not under a
+        process mesh: the relay runs it per instance."""
+        refuse_under_mesh("rank_with_pages", "the relay runs it per "
+                          "instance, never under a mesh")
         n_prefix = tables.shape[-1] * pool.shape[1]
 
         def attend_for(n_incr, n_total):
@@ -284,7 +310,10 @@ class HSTUModel(StepSpecs, nn.Module):
         Positions and normalizer are ``rank_with_pages``'s, as in the
         reference's rank: the fresh tokens sit at ``n_pages *
         page_tokens + arange(Sq)`` (RoPE and ``q_pos`` alike), and
-        n_total is ``n_pages * page_tokens + Sq``."""
+        n_total is ``n_pages * page_tokens + Sq``.  Not under a process
+        mesh: the relay runs it per instance."""
+        refuse_under_mesh("rank_with_segments", "the relay runs it per "
+                          "instance, never under a mesh")
         n_prefix = tables.shape[-1] * pool.shape[1]
         B = incr_tokens.shape[0]
         Sq = incr_tokens.shape[1] + item_tokens.shape[1]
@@ -318,10 +347,12 @@ class HSTUModel(StepSpecs, nn.Module):
         return (axes, axes)
 
     def init_cache(self, batch: int, seq_len: int):
-        """A zero psi of ``seq_len`` tokens: (K, V), each (L, B, S, H, D)."""
-        (kv, _), _ = self.cache_specs(batch, seq_len)
+        """A zero psi of ``seq_len`` tokens: (K, V), each (L, B, S, H, D)
+        (under a process mesh this rank's shard)."""
+        refuse_kv_seq(batch, seq_len)
+        specs, axes = self.cache_specs(batch, seq_len)
         return tuple(torch.zeros(kv[0], dtype=kv[1], device=self.device)
-                     for _ in range(2))
+                     for kv in local_spec_tree(specs, axes))
 
     def kv_bytes(self, seq_len: int) -> int:
         """psi footprint per user — drives trigger admission control."""

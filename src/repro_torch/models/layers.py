@@ -20,6 +20,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
+from .partitioning import (axis_index, axis_size, enter, reduce,
+                           sharded_axis)
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -73,12 +76,19 @@ def _wide(dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def rms_norm(x, weight, eps: float = 1e-6):
+def rms_norm(x, weight, eps: float = 1e-6, axis=None):
     """RMS norm computed in float32 (float64 for float64 input) whatever
-    the input type."""
+    the input type.  ``axis``: the last dimension is sharded over that
+    mesh axis (HSTU's ``ln_attn`` over its heads): the sum of squares is
+    summed over it (``reduce``, then ``enter``: every rank's slice
+    depends on the whole sum) before the mean."""
     dt = x.dtype
     x = x.to(_wide(dt))
-    var = x.square().mean(dim=-1, keepdim=True)
+    if axis is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = enter(reduce(x.square().sum(dim=-1, keepdim=True), axis),
+                    axis) / (x.shape[-1] * axis_size(axis))
     out = x * torch.rsqrt(var + eps) * weight.to(x.dtype)
     return out.to(dt)
 
@@ -238,24 +248,37 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     projects it together with another product (the hybrid's shared
     attention)."""
     B, S, d = x.shape
-    h = cfg.n_heads
     wq, wo = params["wq"], params["wo"]
-    if wq.shape[1] > h:
-        wq, wo = wq[:, :h], wo[:h]
+    tp, h0, n_real, kv_lo, kv_hi = _local_heads(cfg, wq.shape[1],
+                                                params["wk"].shape[1])
+    if wq.shape[1] > n_real:
+        wq, wo = wq[:, :n_real], wo[:n_real]
+    wk, wv = params["wk"], params["wv"]
+    q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
+    if tp:
+        # ref layers.py:139-146, 163-164: q on this rank's heads; a
+        # replicated weight or activation entering them sums its partial
+        # gradients over "model"
+        x = enter(x, tp)
+        if cfg.qk_norm:
+            q_norm, k_norm = enter(q_norm, tp), enter(k_norm, tp)
+        if kv_hi - kv_lo < wk.shape[1]:          # kv heads replicated
+            wk, wv = enter(wk, tp), enter(wv, tp)
     q = torch.einsum("bsd,dhk->bshk", x, wq)
     if kv_override is None:
-        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+        k = torch.einsum("bsd,dhk->bshk", x, wk)
+        v = torch.einsum("bsd,dhk->bshk", x, wv)
     else:
         k, v = kv_override
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
+        q = rms_norm(q, q_norm)
         if kv_override is None:
-            k = rms_norm(k, params["k_norm"])
+            k = rms_norm(k, k_norm)
     if cfg.rope_theta and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    mine = slice(kv_lo, kv_hi)                   # the kv heads q reads
 
     if kv_override is not None:
         out = (ops.cache_decode_attention(q, k, v) if S == 1
@@ -287,22 +310,62 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
         if cfg.kv_quant:
             ck = dequantize_kv(ck, cache[2], k.dtype)
             cv = dequantize_kv(cv, cache[3], v.dtype)
-        out = ops.cache_decode_attention(q, ck, cv)
+        out = (ops.cache_decode_attention(q, ck[:, :, mine], cv[:, :, mine])
+               if n_real else q)
         new_cache = cache
     else:
         qc = cfg.attn_q_chunk
-        if qc and S >= 4 * qc and S % qc == 0 and causal:
-            out = _sdpa_q_chunked(q, k, v, scale, qc, prefix_len=prefix_len,
-                                  window=window)
+        ka, va = k[:, :, mine], v[:, :, mine]
+        if not n_real:
+            out = q
+        elif qc and S >= 4 * qc and S % qc == 0 and causal:
+            out = _sdpa_q_chunked(q, ka, va, scale, qc,
+                                  prefix_len=prefix_len, window=window)
         else:
             mask = (_causal_mask(0, S, S, x.device, prefix_len, window)
                     if causal else None)
-            out = _sdpa(q, k, v, mask, scale)
+            out = _sdpa(q, ka, va, mask, scale)
         new_cache = (k, v)
     if not project:
         return out, new_cache
     y = torch.einsum("bshk,hkd->bsd", out, wo)
-    return y, new_cache
+    # ref layers.py:235: constrain(y, ("batch", "seq", "embed"))
+    return (reduce(y, tp) if tp else y), new_cache
+
+
+def _local_heads(cfg, hl: int, kvl: int):
+    """This rank's attention heads from its local ``wq`` / ``wk`` head
+    counts: (the "model" axis the heads are sharded on or None, the
+    first local head's global index, how many local heads are real (not
+    ``head_pad``'s), and the kv heads [kv_lo, kv_hi) of the local
+    ``wk`` they read).  q head h reads kv head ``h * KV // n_heads``;
+    with kv heads replicated (a count the axis does not divide) a rank
+    keeps only those its own q heads read, so that ``decode_attn`` is
+    given this rank's (G, KV) and never the first heads of the ring."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hp = max(h, cfg.head_pad)
+    tp = sharded_axis(hl, hp, "heads")
+    kv_ax = sharded_axis(kvl, kv, "kv_heads")
+    h0 = axis_index(tp) * hl if tp else 0
+    n_real = max(0, min(hl, h - h0))
+    if not tp:
+        if kv_ax:
+            raise ValueError(f"kv heads sharded ({kvl} of {kv}) under "
+                             f"replicated q heads ({hl})")
+        return None, 0, n_real, 0, kvl
+    if not n_real:
+        return tp, h0, 0, 0, 0
+    kv0 = axis_index(kv_ax) * kvl if kv_ax else 0
+    kv_lo = h0 * kv // h - kv0
+    kv_hi = (h0 + n_real - 1) * kv // h + 1 - kv0
+    nk = kv_hi - kv_lo
+    if not (0 <= kv_lo < kv_hi <= kvl) or any(
+            (h0 + i) * kv // h - kv0 - kv_lo != i * nk // n_real
+            for i in range(n_real)):
+        raise ValueError(f"heads [{h0}, {h0 + n_real}) of {h} do not read "
+                         f"whole groups of the local kv heads "
+                         f"[{kv0}, {kv0 + kvl}) of {kv}")
+    return tp, h0, n_real, kv_lo, kv_hi
 
 
 # ---------------------------------------------------------------------------
@@ -319,11 +382,20 @@ def ffn_specs(cfg, d_ff=None) -> Dict[str, ParamSpec]:
     return specs
 
 
-def ffn(params, x, cfg):
+def ffn(params, x, cfg, d_ff: int = None):
+    """The GLU (or plain) FFN of width ``d_ff`` (default ``cfg.d_ff``).
+    Under an "ff"-sharded ``wi`` (ref layers.py:300-324): the input
+    enters the column-parallel ``wi`` / ``wg``, the row-parallel ``wo``
+    leaves a partial sum, reduced over the axis."""
     act = _act(cfg.act)
+    tp = sharded_axis(params["wi"].shape[1], d_ff or cfg.d_ff, "ff")
+    if tp:
+        x = enter(x, tp)
     h = x @ params["wi"]
     h = act(x @ params["wg"]) * h if cfg.glu else act(h)
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    # ref layers.py:322, 324: constrain(h, (.., "ff")), then (.., "embed")
+    return reduce(y, tp) if tp else y
 
 
 # ---------------------------------------------------------------------------

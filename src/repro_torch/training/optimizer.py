@@ -28,6 +28,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.models.partitioning import psum
 from repro_torch.tree import leaves, tree_map
 
 
@@ -92,21 +93,46 @@ def tree_map_specs(fn, tree):
     return fn(tree)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (None leaves
-    count as zeros)."""
-    sq = [g.float().square().sum() for g in leaves(tree)
-          if g is not None]
-    return torch.stack(sq).sum().sqrt()
+    count as zeros).  ``specs`` (a tree of partition specs beside
+    ``tree``, under a process mesh): a leaf sharded over some mesh axes
+    holds a part of its squares, summed over those axes (one all-reduce
+    per set of axes), and a replicated leaf counts once, so the norm is
+    the whole model's."""
+    if specs is None:
+        sq = [g.float().square().sum() for g in leaves(tree)
+              if g is not None]
+        return torch.stack(sq).sum().sqrt()
+    groups = {}
+    for g, spec in zip(leaves(tree), leaves_of_specs(specs)):
+        if g is not None:
+            axes = tuple(sorted({a for m in spec if m is not None
+                                 for a in (m if isinstance(m, tuple)
+                                           else (m,))}))
+            groups.setdefault(axes, []).append(g.float().square().sum())
+    total = [psum(torch.stack(sq).sum(), axes) for axes, sq in
+             sorted(groups.items())]
+    return torch.stack(total).sum().sqrt()
+
+
+def leaves_of_specs(specs):
+    """The partition specs of a spec tree (dicts of tuples), in the
+    order ``tree.leaves`` gives the tensors of the matching tree."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in leaves_of_specs(specs[k])]
+    return [specs]
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None):
     """One AdamW step, in place: ``p - lr (m^ / (sqrt(n^) + eps) + wd p)``
-    with the gradient clipped to ``grad_clip`` by its global norm.
-    Returns (params, state, {"grad_norm": device scalar, "lr": float})."""
+    with the gradient clipped to ``grad_clip`` by its global norm
+    (``specs``: the leaves' partition specs under a process mesh, see
+    ``global_norm``).  Returns (params, state, {"grad_norm": device
+    scalar, "lr": float})."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = float(schedule(cfg, step))
     stepf = step.float()

@@ -74,3 +74,22 @@ def test_serve_relay_example_runs(monkeypatch, capsys):
     hits = ast.literal_eval(hits.group(1))
     assert sum(hits.values()) == 12 and hits.get("hbm_hit", 0) > 0, hits
     assert '"admitted"' in out
+
+
+@pytest.mark.parametrize("chunk", [256, 4000, 1 << 24])
+@pytest.mark.parametrize("arch", JARCH_IDS)
+def test_bounded_draw_keeps_the_stacked_draw(arch, chunk, monkeypatch):
+    """``init`` draws each weight in flat chunks of at most
+    ``arch.DRAW_CHUNK`` elements (whole rows of its trailing dims), and
+    every smoke weight equals the stacked draw (each ``ParamSpec.
+    initialise`` of the whole tensor, in sorted-name order) bit for bit,
+    at chunk sizes that cut every stacked weight, some rows, and none."""
+    from repro_torch.models import arch as parch
+    monkeypatch.setattr(parch, "DRAW_CHUNK", chunk)
+    model = models.get_model(arch, smoke=True, device="cpu").init(
+        torch.Generator().manual_seed(3))
+    specs = parch.flat_specs(model.param_specs())
+    g = torch.Generator().manual_seed(3)
+    own = dict(model.named_parameters())
+    for name in sorted(specs):
+        assert torch.equal(own[name], specs[name].initialise(g)), name

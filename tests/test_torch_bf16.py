@@ -377,3 +377,35 @@ def test_zamba2_bf16_ssd_route_equals_float32_copies(monkeypatch):
         assert a.dtype == b.dtype and torch.equal(a, b)
     for name, g in grads.items():
         assert g is not None and torch.equal(g, want[name]), name
+
+
+def test_loss_gradients_at_bf16_match_reference(pair):
+    """The bf16 ``hstu-gr`` loss and every gradient against
+    ``jax.value_and_grad`` of the reference's bf16 loss, each leaf within
+    2**-5 of its largest |g| (on the card the attention's gradient is
+    ``HSTUAttnFunction``'s, held in ``tests/test_torch_cuda.py``)."""
+    jm, params, tm = pair
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, 512, (2, 65)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(
+        params, jax.tree.map(jnp.asarray, batch))
+    tm.requires_grad_(True)
+    try:
+        loss, _ = tm.loss({k: torch.as_tensor(v) for k, v in batch.items()})
+        loss.backward()
+        assert abs(loss.item() / float(jloss) - 1) <= REL
+        from repro_torch.models.convert import state_from_tree
+        got = dict(tm.named_parameters())
+        for name, g in state_from_tree(jax.tree.map(
+                lambda a: np.asarray(a, np.float32), jgrads)).items():
+            if got[name].grad is None:           # off the loss's path
+                assert not np.abs(g).any(), name
+                continue
+            assert got[name].grad.dtype == got[name].dtype
+            err = np.abs(_np(got[name].grad) - g).max()
+            assert err <= REL * np.abs(g).max(), (name, err)
+    finally:
+        tm.requires_grad_(False)
+        for p in tm.parameters():
+            p.grad = None

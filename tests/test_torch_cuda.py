@@ -53,6 +53,8 @@ in float32 and rounds once, and at S = 8192 the outputs are ~0.02, so
 the 6e-2 of ``tests/test_kernels.py`` would pass a kernel writing zeros.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1228,6 +1230,68 @@ def test_hstu_attn_function_gradients_against_float64(dev, S, D,
         rel = ((a.grad.double() - b.grad).abs().max()
                / b.grad.abs().max()).item()
         assert rel <= 1e-5, f"d{name}: {rel:.2e}"
+
+
+@pytest.mark.parametrize("S", [17, 130])
+def test_hstu_attn_function_bf16_gradients_equal_the_widened_float32(
+        dev, S, monkeypatch):
+    """bf16 q, k, v through ``HSTUAttnFunction``: the forward is the bf16
+    launch (equal to the float32 launch on the widened inputs, rounded
+    to bf16), and dq, dk, dv are the float32 Function's gradients on the
+    widened inputs and the widened bf16 dout, each rounded to bf16 once:
+    bit for bit."""
+    q, k, v, dout = (_randn(dev, 2, 3, S, 64, seed=i).bfloat16()
+                     for i in range(4))
+    monkeypatch.setattr(hk, "BWD_BLOCK_ELEMS", 2 * 3 * 64 * S)
+    bf = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    wide = [t.float().requires_grad_(True) for t in (q, k, v)]
+    before = hk.launches
+    out = hk.hstu_attn(*bf)
+    assert hk.launches == before + 1 and out.dtype == torch.bfloat16
+    ref_out = hk.hstu_attn(*wide)
+    assert torch.equal(out.float(), ref_out.detach().bfloat16().float())
+    out.backward(dout)
+    ref_out.backward(dout.float())
+    for name, a, b in zip("qkv", bf, wide):
+        assert a.grad.dtype == torch.bfloat16, name
+        assert torch.equal(a.grad, b.grad.bfloat16()), f"d{name}"
+
+
+def test_two_ranks_over_gloo_share_one_card(dev, tmp_path):
+    """hstu-gr smoke with 4 heads on a (1, 2) mesh of two processes on
+    one card, joined by gloo with CUDA tensors: each rank launches
+    ``hstu_attn`` once a layer on its 2 heads in the prefill and
+    ``prefix_rank_attn`` once a layer in ``rank_with_cache``; the
+    reassembled logits, psi and scores equal one process's within 1e-5
+    of their largest |value|."""
+    import dataclasses
+    import sys
+    sys.path.insert(0, str(Path(__file__).parent))
+    import _dist_workers as W
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models.convert import export_params
+    cfg = dataclasses.replace(get_config("hstu-gr", smoke=True), n_heads=4)
+    whole = build_model(cfg, device=dev).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (2, 64))
+    incr, items = (rng.integers(0, cfg.vocab, (2, n)) for n in (8, 16))
+    lg, psi = whole.prefill({"tokens": torch.as_tensor(prompt, device=dev)})
+    sc = whole.rank_with_cache(psi, torch.as_tensor(incr, device=dev),
+                               torch.as_tensor(items, device=dev))
+    # the ranks load the kernels this process has built
+    outs = W.spawn(W.cuda_hstu_worker, (1, 2), tmp_path, cfg,
+                   export_params(whole), prompt, incr, items)
+    pairs = [("logits", lg, ("batch", None, "vocab")),
+             ("scores", sc, ("batch", None, None))]
+    pairs += [(f"psi{j}", t, whole.cache_axes(2, 64)[j])
+              for j, t in enumerate(psi)]
+    for key, want, axes in pairs:
+        want = want.float().cpu().numpy()
+        got = W.assemble([o[key] for o in outs], axes, want.shape, (1, 2))
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), key
+    for o in outs:
+        assert o["launches"] == {"hstu_attn": cfg.n_layers,
+                                 "prefix_rank_attn": cfg.n_layers}
 
 
 def _train_pair(dev):

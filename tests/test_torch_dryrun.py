@@ -227,7 +227,15 @@ def test_dryrun_writes_the_reference_records(tmp_path, capsys):
                 "jaxpr_flops_global", "memory", "collectives", "n_chips"):
         assert key in ok
     assert ok["status"] == "ok" and ok["n_chips"] == 256
-    assert ok["collectives"] is None and ok["collectives_reason"]
+    assert ok["collectives_reason"] is None
+    for name, rec in recs.items():
+        if rec["status"] == "ok":
+            shape = INPUT_SHAPES[rec["shape"]]
+            got = rec["collectives"]
+            if shape.kind == "train":
+                got = _closed_counts(got)
+            assert got == _closed_form(get_config("hstu_gr"), shape,
+                                       rec["mesh"]), name
     mem = ok["memory"]
     assert mem["temp_size_in_bytes"] is None and mem["temp_reason"]
     assert sum(mem["argument_parts"]) == mem["argument_size_in_bytes"]
@@ -252,9 +260,111 @@ def test_dryrun_writes_the_reference_records(tmp_path, capsys):
             m = rec["memory"]
             assert r["hbm_bytes_chip"] == (m["argument_size_in_bytes"]
                                            + m["output_size_in_bytes"])
-            assert r["collective_s"] is None
+            coll = rec["collectives"]["total_bytes"]
+            assert r["coll_bytes_chip"] == coll
+            assert r["collective_s"] == round(coll / pmesh.NVLINK_BW, 6)
             assert r["roofline_bound_s"] == max(r["compute_s"],
-                                                r["memory_s"])
+                                                r["memory_s"],
+                                                r["collective_s"])
         assert len(roofline.load(mesh=None)) == 9
     finally:
         mp.undo()
+
+
+# --- collectives: a closed form of what the model code calls ------------------
+
+
+def _kinds(**counts):
+    """A record's ``collectives`` from {kind: (count, bytes)}."""
+    out = {k: {"count": 0, "bytes": 0} for k in (
+        "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+        "collective-permute")}
+    for k, (n, b) in counts.items():
+        out[k.replace("_", "-")] = {"count": n, "bytes": b}
+    out["total_bytes"] = sum(v["bytes"] or 0 for v in out.values())
+    return out
+
+
+def _closed_form(cfg, shape, mesh_name):
+    """rank 0's collectives of one step of hstu-gr or qwen3_4b (full
+    configs) on a (data, model) or (pod, data, model) mesh, fsdp off:
+
+    * serve (prefill, decode: S tokens, 1 for decode): one all-reduce of
+      the embedding (B_l S d) over "model" (vocab-parallel lookup), then
+      per layer one of the attention's and one of the FFN's output where
+      their heads / ff are sharded (qwen3: 32 heads and 9728 ff on 16);
+      hstu-gr's 4 heads stay whole on 16, but ``ln_attn``'s 256 weights
+      split, so each layer gathers them (one all-gather of 256 floats);
+    * train: the forward's as above; under per-layer remat the
+      recompute stops after the last op that saves a tensor, so it
+      repeats a layer's attention all-reduce but not the FFN's; the
+      backward sums over "model" the gradients of what enters a sharded
+      product (the attention's and the FFN's input; qwen3's q_norm and
+      k_norm; its wk and wv, whose 8 kv heads stay whole on 16); the CE
+      over 512-token chunks, each (max, sum of exponentials, label
+      logit) forward, (max, sum) in its recompute, and the gradient of
+      its normed input; then the CE metric over the batch axes, one
+      all-reduce of the gradients a type over them, and the global norm
+      over "model"."""
+    sizes = [int(x) for x in mesh_name.split("x")]
+    if sizes[-1] == 1:
+        rec = _kinds()
+        return _closed_counts(rec) if shape.kind == "train" else rec
+    n_batch = sizes[0] * (sizes[1] if len(sizes) == 3 else 1)
+    L, d = cfg.n_layers, cfg.d_model
+    isz = 4 if cfg.dtype == "float32" else 2
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    act = shape.global_batch // n_batch * S * d * isz
+    hstu = cfg.hstu
+    if shape.kind != "train":
+        if hstu:
+            return _kinds(all_reduce=(1, act),
+                          all_gather=(L, L * cfg.n_heads * cfg.head_dim * 4))
+        return _kinds(all_reduce=(1 + 2 * L, (1 + 2 * L) * act))
+    chunks = shape.seq_len // 512
+    tail = 1 + (1 if hstu else 2) + 1   # CE metric, gradients, norm
+    if hstu:
+        return _closed_counts(_kinds(all_reduce=(1 + 6 * chunks + tail, None),
+                                     all_gather=(2 * L, None)))
+    per_layer = 2 + 1 + 2 + 2 * cfg.qk_norm + 2
+    return _closed_counts(_kinds(all_reduce=(
+        1 + per_layer * L + 6 * chunks + tail, None)))
+
+
+def _closed_counts(rec):
+    """A closed form that fixes the counts only (bytes None)."""
+    return {k: v["count"] for k, v in rec.items() if isinstance(v, dict)}
+
+
+@pytest.mark.parametrize("arch", ["hstu_gr", "qwen3_4b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_collectives_equal_a_closed_form(arch, shape):
+    """rank 0's tally on the meta device (``dryrun.trace_collectives``)
+    on 16 x 16 and 2 x 16 x 16 against ``_closed_form``: counts and
+    bytes of the serve steps, counts of the train step."""
+    cfg = get_config(arch)
+    for mesh in (pmesh.make_production_mesh(),
+                 pmesh.make_production_mesh(multi_pod=True)):
+        got = dryrun.trace_collectives(cfg, shape, mesh)
+        want = _closed_form(cfg, INPUT_SHAPES[shape], mesh.name)
+        if INPUT_SHAPES[shape].kind == "train":
+            got = _closed_counts(got)
+        assert got == want, (arch, shape, mesh.name)
+
+
+def test_records_outside_the_mesh_port_keep_null_collectives():
+    """The families, fsdp and kv_seq decodes the port does not run under
+    a mesh: ``collectives`` null and a reason naming ROADMAP Queue 1,
+    item 10; a 1 x 1 record counts nothing."""
+    rec = dryrun.run_combo("rwkv6_1p6b", "decode_32k", ["single"])[0]
+    assert rec["collectives"] is None and "item 10" in rec[
+        "collectives_reason"]
+    rec = dryrun.run_combo("qwen3_4b", "decode_32k", ["single", "card"],
+                           fsdp="on")
+    assert rec[0]["collectives"] is None and "FSDP" in rec[0][
+        "collectives_reason"]
+    rec = dryrun.run_combo("starcoder2_7b", "long_500k", ["single"])[0]
+    assert rec["collectives"] is None and "kv_seq" in rec[
+        "collectives_reason"]
+    rec = dryrun.run_combo("qwen3_4b", "decode_32k", ["card"])[0]
+    assert rec["collectives"]["total_bytes"] == 0

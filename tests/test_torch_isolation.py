@@ -2,7 +2,8 @@
 
 Every module of the package is imported in a fresh interpreter in which
 ``import jax`` fails (``sys.modules["jax"] = None``), and afterwards no
-``jax`` or ``repro`` module may be loaded.  A second check reads the
+``jax`` or ``repro`` module may be loaded; a sharded model's prefill
+under a meta process mesh then runs there too.  A second check reads the
 sources: no file under ``src/repro_torch`` imports either.
 """
 
@@ -30,7 +31,23 @@ leaked = sorted(k for k, v in sys.modules.items()
 print(len(names), "modules;", "leaked:", leaked)
 assert not leaked, leaked
 assert {"repro_torch.training.optimizer", "repro_torch.training.checkpoint",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train", "repro_torch.launch.mesh",
+        "repro_torch.models.partitioning"} <= set(names), names
+# the sharded path without JAX: a meta process mesh counts the
+# collectives of a sharded model's step
+import dataclasses, torch
+from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.models import build_model, get_config
+from repro_torch.models.partitioning import logical_rules
+mesh = ProcessMesh.meta((2, 2))
+with logical_rules(mesh):
+    m = build_model(get_config("qwen3_4b", smoke=True), device="meta")
+    m.prefill({"tokens": torch.zeros((2, 8), dtype=torch.long,
+                                     device="meta")})
+assert mesh.collectives()["all-reduce"]["count"] == 1 + 2 * m.cfg.n_layers
+leaked = sorted(k for k, v in sys.modules.items() if v is not None and (
+    k in ("jax", "repro") or k.startswith(("jax.", "repro."))))
+assert not leaked, leaked
 """
 
 
