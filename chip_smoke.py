@@ -154,10 +154,10 @@ Phases, each fatal on failure (nothing is caught):
      later, all), tokens/s, peak memory, the graph pool and each step's
      byte bound (every weight but the embedding table, plus the K/V
      ring); a profiled graph step split by kernel class; the same for
-     ``deepseek_moe_16b`` at
-     full width cut to 4 of 28 layers (2 x 2048, 32 steps) and
-     ``internvl2_2b`` at full width and depth (2 x (256 frontend + 2048),
-     8 steps); last, card against CPU for float32 copies of qwen3_4b and
+     ``deepseek_moe_16b`` at full width cut to 2 of 28 layers (2 x 2048,
+     32 steps) and ``internvl2_2b`` at full width cut to 8 of 24 layers
+     (2 x (256 frontend + 2048), 8 steps), both cut for the run's time;
+     last, card against CPU for float32 copies of qwen3_4b and
      deepseek_moe_16b at full width and 2 layers (2 x 256 + 4 decode
      steps), logits within 5e-4 of the largest |logit| — 2e-3 for
      deepseek_moe_16b at the reference init (no qk-norm: attention logits
@@ -2358,8 +2358,8 @@ def train_phase(torch, results):
 LM_B = 2                                  # prompts
 # (arch, layers kept (None: all), prompt tokens, decode steps)
 LM_RUNS = (("qwen3_4b", None, 8192, 32),
-           ("deepseek_moe_16b", 4, 2048, 32),
-           ("internvl2_2b", None, 2048, 8))
+           ("deepseek_moe_16b", 2, 2048, 32),
+           ("internvl2_2b", 8, 2048, 8))
 LM_CPU_LAYERS, LM_CPU_S, LM_CPU_STEPS = 2, 256, 4   # card-vs-CPU check
 LM_REL = 5e-4                   # card vs CPU, of the largest |logit|
 # ... deepseek_moe_16b at the reference init: no qk-norm, and the init
@@ -2762,9 +2762,9 @@ def lm_serve(torch, results, arch, n_layers, S, steps):
 def lm_phase(torch, results):
     """The Transformer family's serve path: ``decode_attn`` at its
     groups, qwen3_4b at full width and depth (2 x 8192 prefill, 32
-    decode steps), deepseek_moe_16b at full width cut to 4 layers (2 x
-    2048, 32 steps), internvl2_2b at full width and depth (2 x (256 +
-    2048), 8 steps), then card against CPU for qwen3_4b and
+    decode steps), deepseek_moe_16b at full width cut to 2 layers (2 x
+    2048, 32 steps), internvl2_2b at full width cut to 8 layers (2 x
+    (256 + 2048), 8 steps), then card against CPU for qwen3_4b and
     deepseek_moe_16b (the latter also with LM_PLANTED's faults, and with
     wq / wk at fan-in d)."""
     import dataclasses
@@ -3546,22 +3546,14 @@ def _dist_rank(rank, backend, store, out_dir, plan):
         destroy()
 
 
-def _dist_start(plan, backend):
-    """Spawn the DIST_W ranks on ``plan`` without waiting: (the spawn's
-    context, the directory their results go to)."""
+def _dist_run(torch, plan, backend):
+    """Spawn the DIST_W ranks on ``plan``, wait for every one (a failed
+    rank raises here) and load their results, rank by rank."""
     import tempfile
     import torch.multiprocessing as mp
     d = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
-    ctx = mp.spawn(_dist_rank, args=(backend, os.path.join(d, "store"), d,
-                                     plan), nprocs=DIST_W, join=False)
-    return ctx, d
-
-
-def _dist_join(torch, ctx, d):
-    """Wait for every rank (a failed rank raises here) and load their
-    results, rank by rank."""
-    while not ctx.join():
-        pass
+    mp.spawn(_dist_rank, args=(backend, os.path.join(d, "store"), d, plan),
+             nprocs=DIST_W, join=True)
     return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
             for r in range(DIST_W)]
 
@@ -3595,6 +3587,29 @@ def _spy_heads(torch):
         return decode_attn(q, k, v)
     cuda_lib.rank_attn, cuda_lib.decode_attn = rank_spy, decode_spy
     return seen
+
+
+def _timed_all_reduce(torch):
+    """Time every ``torch.distributed.all_reduce`` while ``acc["on"]``:
+    the card drained first (what was queued counts as compute), then
+    the call's wall to the end of its copies on the card, the wait for
+    the slowest rank included; the calls and seconds summed in ``acc``."""
+    import torch.distributed as dist
+    real = dist.all_reduce
+    acc = {"on": False, "calls": 0, "s": 0.0}
+
+    def spy(*a, **kw):
+        if not acc["on"]:
+            return real(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        acc["calls"] += 1
+        acc["s"] += time.perf_counter() - t0
+        return out
+    dist.all_reduce = spy
+    return acc
 
 
 def _counted(fn):
@@ -3664,13 +3679,15 @@ def _dist_lm(mesh, dev, runs):
     decode tokens, keep logits) a prefill and one decode step per token
     column (eager: no graphs around collectives), with the launches,
     the heads each launch was given, one step's collectives and the
-    times; the logits where asked."""
+    times; the logits where asked.  The last decode step is profiled
+    (``_timed_all_reduce``) and kept out of ``step_ms``."""
     import gc
     import torch
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import build_model
     from repro_torch.models.partitioning import shard_batch
     seen = _spy_heads(torch)
+    acc = _timed_all_reduce(torch)
     out = {}
     for tag, cfg, seed, prompt, tokens, keep in runs:
         seen.clear()
@@ -3695,15 +3712,23 @@ def _dist_lm(mesh, dev, runs):
                    logits=[logits.float().cpu().numpy()] if keep else [],
                    step_ms=[], launches_decode={}, finite=True)
         B, S = mine["p"].shape
-        for i in range(mine["t"].shape[1]):
+        n_steps = mine["t"].shape[1]
+        for i in range(n_steps):
             mesh.reset_tally()
             pos = torch.full((B,), S + i, device=dev)
+            acc.update(on=i == n_steps - 1, calls=0, s=0.0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             (lg, cache), c = _counted(lambda: serve(
                 cache, {"token": mine["t"][:, i:i + 1], "pos": pos}))
             torch.cuda.synchronize()
-            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            ms = (time.perf_counter() - t0) * 1e3
+            if acc["on"]:
+                rec["profile"] = dict(step_ms=ms, all_reduces=acc["calls"],
+                                      all_reduce_ms=acc["s"] * 1e3)
+                acc["on"] = False
+            else:
+                rec["step_ms"].append(ms)
             rec["tally_decode"] = mesh.collectives()
             for n, k in c.items():
                 rec["launches_decode"][n] = rec["launches_decode"].get(n, 0) + k
@@ -3786,9 +3811,10 @@ def dist_phase(torch, results):
     """The port under a process mesh: DIST_W ranks spawned once from this
     process (which has built the kernels), NCCL with a card each or gloo
     on one shared card (``dist_transport``), each rank running a (2, 2)
-    mesh and then a (1, 4) mesh over its one process group, while this
-    process computes the same workloads alone on the same weights and
-    batches:
+    mesh and then a (1, 4) mesh over its one process group.  This
+    process first computes the same workloads alone on the same weights
+    and batches, so that nothing else runs on the card while the ranks
+    time their steps:
 
     * ``hstu-gr`` at full width on (2, 2), float32: DIST_HSTU's train
       steps (loss and grad_norm within DIST_LOSS_REL of one process),
@@ -3803,7 +3829,9 @@ def dist_phase(torch, results):
       (1, 4), expert-parallel (16 experts a rank), float32, its logits
       against one process's likewise (data 1: the same capacity);
     * each workload's live collectives a step (rank 0's, every rank's
-      equal) against the meta dry-run's at the same shape and mesh.
+      equal) against the meta dry-run's at the same shape and mesh;
+    * each LM's last decode step profiled on every rank: the time in
+      ``all_reduce`` against the step's (``_timed_all_reduce``).
 
     The float32 LM checks rescale wq / wk to fan-in d on both sides: at
     the reference init deepseek's attention logits reach a std of ~128
@@ -3847,17 +3875,19 @@ def dist_phase(torch, results):
              g(q32, D["B"], 2), True),
             ("deepseek_moe_16b", dcfg, 13, g(dcfg, D["B"], D["S"]),
              g(dcfg, D["B"], 2), True)]
+    # one process's references first, so that nothing else shares the
+    # card while the ranks time their steps
     t0 = time.perf_counter()
-    ctx, out_dir = _dist_start([
-        ((2, 2), _dist_hstu, (hcfg, 7, batches, prompt, incr, items)),
-        ((1, 4), _dist_lm, (runs,))], backend)
     want_train, w_logits, w_scores = _world1_hstu(torch, hcfg, batches,
                                                   prompt, incr, items)
     want = {tag: _world1_lm(torch, cfg, seed, p, toks)
             for tag, cfg, seed, p, toks, keep in runs if keep}
     torch.cuda.empty_cache()
     world1_s = time.perf_counter() - t0
-    outs = _dist_join(torch, ctx, out_dir)
+    t0 = time.perf_counter()
+    outs = _dist_run(torch, [
+        ((2, 2), _dist_hstu, (hcfg, 7, batches, prompt, incr, items)),
+        ((1, 4), _dist_lm, (runs,))], backend)
     spawn_s = time.perf_counter() - t0
     rec.update(spawn_s=spawn_s, world1_s=world1_s)
 
@@ -3942,6 +3972,7 @@ def dist_phase(torch, results):
                    experts_per_rank=r0["local_experts"],
                    draw_s=r0["draw_s"], prefill_ms=r0["prefill_ms"],
                    step_ms=r0["step_ms"], peak_bytes=r0["peak_bytes"],
+                   decode_profile={r: o["profile"] for r, o in enumerate(rs)},
                    tally_prefill=r0["tally_prefill"],
                    tally_decode=r0["tally_decode"], tally_equals_meta=True)
         if keep:
@@ -3951,6 +3982,8 @@ def dist_phase(torch, results):
             row["logits_rel"] = max(rels)
             assert row["logits_rel"] <= DIST_REL, (tag, rels)
         rec[tag] = row
+        shares = [round(r["profile"]["all_reduce_ms"]
+                        / r["profile"]["step_ms"], 3) for r in rs]
         log(f"dist {tag} (1, 4) {cfg.dtype} {L} layers, B {p.shape[0]} x "
             f"{p.shape[1]} + {steps} steps: decode_attn on "
             f"{ok_heads[0][1]} q / {ok_heads[0][2]} kv heads a rank"
@@ -3961,14 +3994,17 @@ def dist_phase(torch, results):
             + f"; drawn in {r0['draw_s']:.1f} s, prefill "
             f"{r0['prefill_ms']:.1f} ms, decode "
             f"{statistics.median(r0['step_ms']):.2f} ms a step (median, "
-            f"rank 0, {backend}); collectives: prefill "
+            f"rank 0, {backend}); the last step profiled, every rank's "
+            f"all_reduce share of it {shares} "
+            f"({r0['profile']['all_reduces']} calls, rank 0 "
+            f"{r0['profile']['all_reduce_ms']:.1f} of "
+            f"{r0['profile']['step_ms']:.1f} ms); collectives: prefill "
             f"{r0['tally_prefill']['total_bytes']} B, a decode step "
             f"{r0['tally_decode']['total_bytes']} B, = meta")
     rec["wall_s"] = time.perf_counter() - t_phase
     results["_dist"] = rec
-    log(f"dist phase: {rec['wall_s']:.1f} s of wall (the ranks "
-        f"{spawn_s:.1f} s, one process's references {world1_s:.1f} s of "
-        f"it, alongside)")
+    log(f"dist phase: {rec['wall_s']:.1f} s of wall (one process's "
+        f"references {world1_s:.1f} s, then the ranks {spawn_s:.1f} s)")
 
 
 # --- phase 12: the dry-run, and the roofline of every timed step ------------------
@@ -4167,34 +4203,30 @@ def main(argv=None):
     results = {n: dict(launches=0, max_abs_err=0.0, shapes=[])
                for n in REPLACES}
     results["_serve"] = {}
-    if "kernels" in phases:
-        kernel_phase(torch, results)
-    if "serve" in phases:
-        serve_phase(torch, results, args.requests)
-    if "relay" in phases:
-        relay_phase(torch, results)
-    if "bf16" in phases:
-        bf16_phase(torch, results, args.requests)
-    if "graphs" in phases:
-        graphs_phase(torch, results, args.requests)
-    if "costmodel" in phases:
-        costmodel_phase(torch, results)
-    if "hybrid" in phases:
-        hybrid_phase(torch, results)
-    if "train" in phases:
-        train_phase(torch, results)
-    if "lm" in phases:
-        lm_phase(torch, results)
-    if "ssm" in phases:
-        ssm_phase(torch, results)
-    if "encdec" in phases:
-        encdec_phase(torch, results)
-    if "lmtrain" in phases:
-        lmtrain_phase(torch, results)
-    if "dist" in phases:
-        dist_phase(torch, results)
-    if "dryrun" in phases:
-        dryrun_phase(torch, results, smi.splitlines()[0])
+    walls = {}
+
+    def run(name, phase, *extra):
+        if name in phases:
+            t0 = time.perf_counter()
+            phase(torch, results, *extra)
+            walls[name] = time.perf_counter() - t0
+
+    run("kernels", kernel_phase)
+    run("serve", serve_phase, args.requests)
+    run("relay", relay_phase)
+    run("bf16", bf16_phase, args.requests)
+    run("graphs", graphs_phase, args.requests)
+    run("costmodel", costmodel_phase)
+    run("hybrid", hybrid_phase)
+    run("train", train_phase)
+    run("lm", lm_phase)
+    run("ssm", ssm_phase)
+    run("encdec", encdec_phase)
+    run("lmtrain", lmtrain_phase)
+    run("dist", dist_phase)
+    run("dryrun", dryrun_phase, smi.splitlines()[0])
+    log("phase walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in walls.items()))
 
     kernels = []
     for name, path in REPLACES.items():
@@ -4230,7 +4262,7 @@ def main(argv=None):
         json.dump({"card": smi, "card_ids": card,
                    "build_log": cuda_lib.BUILD_LOG,
                    "wall_s": time.perf_counter() - wall0,
-                   "results": results}, f, indent=1)
+                   "phase_walls_s": walls, "results": results}, f, indent=1)
     log(f"phases {sorted(phases)}: {time.perf_counter() - wall0:.1f} s of "
         f"wall, the build included")
     if "_dist" in results:

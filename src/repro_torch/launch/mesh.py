@@ -21,8 +21,11 @@ at the 700 W limit), not measurements.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import itertools
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from repro_torch.models.partitioning import (COLLECTIVES, MeshShape,
                                              make_mesh)
@@ -41,10 +44,23 @@ def make_smoke_mesh() -> MeshShape:
     return make_mesh((1, 1), ("data", "model"))
 
 
-class ProcessMesh:
-    """A (data, model)-style mesh of processes.  It reads as a
-    ``MeshShape`` does (``axis_names``, ``shape``, ``size``, ``name``),
-    so ``Rules``, ``Rules.spec`` and ``device_bytes`` take it, and knows
+def axis_groups(sizes: Sequence[int], axis_names: Sequence[str],
+                axes: Sequence[str]) -> List[List[int]]:
+    """The process groups of a reduction over ``axes`` on a mesh of
+    ``sizes`` laid out row-major over the ranks: for every coordinate
+    off ``axes``, the ranks that vary over them, in rank order."""
+    coords = list(itertools.product(*(range(n) for n in sizes)))
+    off = [i for i, a in enumerate(axis_names) if a not in axes]
+    groups: Dict[tuple, List[int]] = {}
+    for r, c in enumerate(coords):
+        groups.setdefault(tuple(c[i] for i in off), []).append(r)
+    return list(groups.values())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessMesh(MeshShape):
+    """A (data, model)-style mesh of processes: a ``MeshShape`` (so
+    ``Rules``, ``Rules.spec`` and ``device_bytes`` take it) that knows
     this rank's coordinate on every axis (``coords``, row-major over
     the ranks as ``init_device_mesh`` lays them out).
 
@@ -55,40 +71,45 @@ class ProcessMesh:
     or CPU tensors; ranks may share a card: gloo takes CUDA tensors for
     ``all_reduce``, the one collective the port calls).
 
-    Every ``all_reduce`` is counted in ``tally`` by (kind, axes):
-    {"count", "bytes"}, the bytes of the reduced buffer (the output, as
-    the reference counts an HLO collective); ``collectives()`` sums it
-    by kind in the reference's record layout."""
+    Every ``all_reduce`` is one collective, over one process group (a
+    reduction over several axes has a group of its own, made at
+    ``init``), and is counted in ``tally`` by (kind, axes): {"count",
+    "bytes"}, the bytes of the reduced buffer (the output, as the
+    reference counts an HLO collective); ``collectives()`` sums it by
+    kind in the reference's record layout."""
+    rank: int = 0
+    device_mesh: object = None
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict)
+    tally: Dict[Tuple[str, Tuple[str, ...]], Dict[str, int]] = \
+        dataclasses.field(default_factory=dict)
 
-    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
-                 rank: int, device_mesh=None):
-        self.axis_names = tuple(axis_names)
-        self.sizes = tuple(int(s) for s in sizes)
-        if len(self.axis_names) != len(self.sizes):
-            raise ValueError(f"{len(self.axis_names)} axis names for "
-                             f"{len(self.sizes)} sizes")
-        if not 0 <= rank < self.size:
-            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
-        self.rank = rank
-        self.device_mesh = device_mesh
-        coords, r = {}, rank
+    def __post_init__(self):
+        super().__post_init__()
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} outside a mesh of "
+                             f"{self.size}")
+
+    @functools.cached_property
+    def coords(self) -> Dict[str, int]:
+        coords, r = {}, self.rank
         for a, n in reversed(list(zip(self.axis_names, self.sizes))):
             coords[a], r = r % n, r // n
-        self.coords: Dict[str, int] = {a: coords[a] for a in self.axis_names}
-        self.tally: Dict[Tuple[str, Tuple[str, ...]], Dict[str, int]] = {}
+        return {a: coords[a] for a in self.axis_names}
 
     @classmethod
     def meta(cls, sizes, axis_names=("data", "model"), rank: int = 0):
         """No process group: the collectives count and return their
         input (the dry-run's trace of rank ``rank``)."""
-        return cls(sizes, axis_names, rank)
+        return cls(tuple(axis_names), tuple(int(s) for s in sizes), rank)
 
     @classmethod
     def init(cls, sizes, axis_names=("data", "model"), *, backend: str,
              init_method: str, rank: int, world_size: int):
         """Join the process group (``init_method`` such as
         ``file:///tmp/store`` or ``tcp://localhost:port``) as ``rank`` of
-        ``world_size`` and lay it out as a mesh of ``sizes``."""
+        ``world_size`` and lay it out as a mesh of ``sizes``; every
+        rank makes the groups of the reductions over several axes."""
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
         if math.prod(sizes) != world_size:
@@ -98,26 +119,23 @@ class ProcessMesh:
         if not dist.is_initialized():
             dist.init_process_group(backend, init_method=init_method,
                                     rank=rank, world_size=world_size)
+        axis_names = tuple(axis_names)
         dm = init_device_mesh("cuda" if backend == "nccl" else "cpu",
-                              tuple(sizes), mesh_dim_names=tuple(axis_names))
-        mesh = cls(sizes, axis_names, rank, dm)
+                              tuple(sizes), mesh_dim_names=axis_names)
+        groups = {}
+        for n in range(2, len(axis_names) + 1):
+            for axes in itertools.combinations(axis_names, n):
+                for ranks in axis_groups(sizes, axis_names, axes):
+                    g = dist.new_group(ranks)     # every rank, every group
+                    if rank in ranks:
+                        groups[axes] = g
+        mesh = cls(axis_names, tuple(int(s) for s in sizes), rank, dm,
+                   groups)
         if [mesh.coords[a] for a in mesh.axis_names] != list(
                 dm.get_coordinate()):
             raise RuntimeError(f"rank {rank}: coordinates {mesh.coords} != "
                                f"the device mesh's {dm.get_coordinate()}")
         return mesh
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return dict(zip(self.axis_names, self.sizes))
-
-    @property
-    def size(self) -> int:
-        return math.prod(self.sizes)
-
-    @property
-    def name(self) -> str:
-        return "x".join(str(s) for s in self.sizes)
 
     @property
     def is_meta(self) -> bool:
@@ -126,11 +144,10 @@ class ProcessMesh:
     def all_reduce(self, x, axes: Tuple[str, ...], op: str = "sum",
                    kind: str = "all-reduce"):
         """A new tensor: ``x`` reduced (``op`` "sum" or "max") over the
-        ranks that share this rank's coordinates off ``axes``; counted
-        once under ``kind``.  Over several axes, one axis after
-        another."""
-        rec = self.tally.setdefault((kind, tuple(axes)),
-                                    {"count": 0, "bytes": 0})
+        ranks that share this rank's coordinates off ``axes``, in one
+        collective; counted once under ``kind``."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        rec = self.tally.setdefault((kind, axes), {"count": 0, "bytes": 0})
         rec["count"] += 1
         rec["bytes"] += x.numel() * x.element_size()
         y = x.detach().clone()
@@ -138,12 +155,13 @@ class ProcessMesh:
             return y
         import torch.distributed as dist
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        for a in axes:
-            dist.all_reduce(y, rop, group=self.device_mesh.get_group(a))
+        group = (self.device_mesh.get_group(axes[0]) if len(axes) == 1
+                 else self.groups[axes])
+        dist.all_reduce(y, rop, group=group)
         return y
 
     def reset_tally(self):
-        self.tally = {}
+        self.tally.clear()
 
     def collectives(self) -> dict:
         """The tally by kind, the reference's dry-run record layout:

@@ -49,7 +49,8 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
     batch axes (every weight is replicated over them: one all-reduce
     per gradient type), the clip reads the global norm
     (``opt.global_norm`` with the weights' partition specs) and the
-    metrics are the global batch's."""
+    metrics are the global batch's (``ce`` summed over the batch axes,
+    ``aux`` a global mean already)."""
     adamw = adamw or opt.AdamWConfig()
     model.requires_grad_(True)
     params = param_tree(model)
@@ -70,9 +71,11 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
         with torch.profiler.record_function("adamw"):
             _, _, om = opt.apply_updates(adamw, params, grads, state,
                                          specs=specs)
-        loss = metrics.pop("loss", loss)
-        return dict({k: v.detach() for k, v in metrics.items()}, **om,
-                    loss=loss.detach())
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        # every family's loss is its CE plus a Transformer's MoE aux;
+        # the metrics are already the global batch's
+        return dict(metrics, **om,
+                    loss=metrics["ce"] + metrics.get("aux", 0))
 
     train_step.params = params
     return train_step

@@ -136,8 +136,9 @@ def ce_loss(final_norm, unembed, x, labels, vocab: int,
 
 def global_ce(ce):
     """The step's CE metric: a rank's share (``ce_loss``) summed over
-    the batch axes, detached."""
-    return psum(ce.detach(), batch_axis())
+    the batch axes (a new, detached tensor); ``ce`` itself off a mesh
+    that shards the batch."""
+    return psum(ce, batch_axis())
 
 
 def flat_specs(specs, prefix: str = "") -> Dict[str, ParamSpec]:
@@ -247,8 +248,6 @@ def draw_into(spec: ParamSpec, dst, generator: torch.Generator,
     per = max(DRAW_CHUNK // n // unit, 1) * unit
     lead = shape[:j]
     rows_total = math.prod(lead)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = spec.scale / math.sqrt(max(fan_in, 1))
     lo = torch.tensor([s.start for s in slices[:j]])
     hi = torch.tensor([s.stop for s in slices[:j]])
     local_lead = (hi - lo).tolist()
@@ -260,7 +259,10 @@ def draw_into(spec: ParamSpec, dst, generator: torch.Generator,
         r1 = starts[i + 1] if i + 1 < len(starts) else rows_total
         x = torch.randn((r1 - r0) * n, generator=generator,
                         dtype=torch.float32)
-        x = (x.view((r1 - r0,) + shape[j:]) * std).to(dt)
+        x = (x.view((r1 - r0,) + shape[j:]) * spec.std).to(dt)
+        if local_lead == list(lead):             # every row is this rank's
+            out[r0:r1].copy_(x[(slice(None),) + tuple(slices[j:])])
+            continue
         rows = torch.arange(r0, r1)
         idx, rest = [], rows
         for size in reversed(lead):
@@ -545,10 +547,7 @@ class TransformerModel(StepSpecs, nn.Module):
             x = x[:, cfg.n_frontend_tokens:]
         ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
                      vp=cfg.vocab_padded)
-        if axis_size(batch_axis()) == 1:
-            return ce + aux, {"ce": ce, "aux": aux}
-        ce_all = global_ce(ce)
-        return ce + aux, {"ce": ce_all, "aux": aux, "loss": ce_all + aux}
+        return ce + aux, {"ce": global_ce(ce), "aux": aux}
 
     @torch.no_grad()
     def prefill(self, batch):

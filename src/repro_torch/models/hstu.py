@@ -39,9 +39,9 @@ from .arch import (StepSpecs, _embed, _logits, ce_loss, check_mesh,
                    local_param_specs, refuse_kv_seq, stack_specs)
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
-from .partitioning import (axis_size, batch_axis, checkpoint_in_rules,
-                           enter, gather, local_spec_tree, reduce,
-                           refuse_under_mesh, sharded_axis)
+from .partitioning import (checkpoint_in_rules, enter, gather,
+                           local_spec_tree, reduce, refuse_under_mesh,
+                           sharded_axis)
 
 
 def hstu_block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -192,10 +192,7 @@ class HSTUModel(StepSpecs, nn.Module):
             remat=True)
         ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
                      vp=cfg.vocab_padded)
-        if axis_size(batch_axis()) == 1:
-            return ce, {"ce": ce}
-        ce_all = global_ce(ce)
-        return ce, {"ce": ce_all, "loss": ce_all}
+        return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
     def decode_step(self, cache, batch):

@@ -49,10 +49,14 @@ class ParamSpec:
             return torch.ones(self.shape, dtype=dt)
         if self.init == "value":
             return torch.full(self.shape, self.value, dtype=dt)
-        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
-        std = self.scale / math.sqrt(max(fan_in, 1))
         x = torch.randn(self.shape, generator=generator, dtype=torch.float32)
-        return (x * std).to(dt)
+        return (x * self.std).to(dt)
+
+    @property
+    def std(self) -> float:
+        """The "normal" draw's stddev: ``scale / sqrt(fan_in)``."""
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return self.scale / math.sqrt(max(fan_in, 1))
 
 
 def abstract_tree(specs):
@@ -382,13 +386,13 @@ def ffn_specs(cfg, d_ff=None) -> Dict[str, ParamSpec]:
     return specs
 
 
-def ffn(params, x, cfg, d_ff: int = None):
-    """The GLU (or plain) FFN of width ``d_ff`` (default ``cfg.d_ff``).
+def ffn(params, x, cfg):
+    """The GLU (or plain) FFN of width ``cfg.d_ff``.
     Under an "ff"-sharded ``wi`` (ref layers.py:300-324): the input
     enters the column-parallel ``wi`` / ``wg``, the row-parallel ``wo``
     leaves a partial sum, reduced over the axis."""
     act = _act(cfg.act)
-    tp = sharded_axis(params["wi"].shape[1], d_ff or cfg.d_ff, "ff")
+    tp = sharded_axis(params["wi"].shape[1], cfg.d_ff, "ff")
     if tp:
         x = enter(x, tp)
     h = x @ params["wi"]

@@ -236,6 +236,26 @@ def gradient_worker(mesh):
     return out
 
 
+def multi_axis_worker(mesh):
+    """A sum over both axes of the mesh (``psum`` over ("data",
+    "model")): its value, the ``dist.all_reduce`` calls it made and its
+    tally."""
+    import torch.distributed as dist
+    from repro_torch.models.partitioning import psum
+    calls = []
+    real = dist.all_reduce
+
+    def spy(*a, **kw):
+        calls.append(kw.get("group"))
+        return real(*a, **kw)
+    dist.all_reduce = spy
+    try:
+        y = psum(torch.full((3,), float(mesh.rank + 1)), ("data", "model"))
+    finally:
+        dist.all_reduce = real
+    return {"y": _np(y), "calls": len(calls), "tally": mesh.collectives()}
+
+
 def jobs_worker(mesh, jobs):
     """Several workers in one spawn: ``[fn(mesh, *args) for fn, args in
     jobs]``, each from an empty tally."""

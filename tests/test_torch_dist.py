@@ -33,7 +33,7 @@ import torch
 import _dist_workers as W
 import _lm_train as lm
 from repro_torch.launch.dryrun import trace_collectives
-from repro_torch.launch.mesh import ProcessMesh
+from repro_torch.launch.mesh import ProcessMesh, axis_groups
 from repro_torch.launch.steps import make_serve_step, make_step
 from repro_torch.models import arch, build_model, get_config, moe
 from repro_torch.models.config import InputShape
@@ -161,6 +161,7 @@ def runs(tmp_path_factory):
         (W.train_worker, (tcfg, qparams, train_batches, ADAMW)),
         (W.gradient_worker, ()),
         (W.collectives_worker, (_tally_cases(),)),
+        (W.multi_axis_worker, ()),
     ])
     out14 = W.spawn(W.lm_worker, (1, 4), tmp, _tcfg("qwen3_4b"), qparams,
                     *qin)
@@ -195,7 +196,7 @@ def _check_lm(outs, sizes, qin):
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         jm.loss, has_aux=True))(jp, jax.tree.map(jnp.asarray, train))
     for o in outs:
-        assert abs(o["metrics"].get("loss", o["metrics"]["ce"])
+        assert abs((o["metrics"]["ce"] + o["metrics"]["aux"])
                    / float(jloss) - 1) <= LOSS_REL
         assert abs(o["metrics"]["ce"] / float(jmet["ce"]) - 1) <= LOSS_REL
     axes = W.param_axes_flat(tm)
@@ -222,7 +223,7 @@ def test_dense_with_replicated_kv_heads_matches_reference(runs):
     """qwen3 smoke on (1, 4): 2 q heads a rank and 2 kv heads that 4 do
     not divide, so each rank reads the kv head its q heads use."""
     o = _check_lm(runs["14"], (1, 4), runs["qin"])
-    assert "loss" not in o["metrics"]            # one data shard
+    assert set(o["metrics"]) == {"ce", "aux"}   # on every mesh
 
 
 def test_hstu_matches_reference(runs):
@@ -246,7 +247,7 @@ def test_hstu_matches_reference(runs):
                       js.shape, (2, 2)), js)
     (jloss, _), jgrads = jax.jit(jax.value_and_grad(
         jm.loss, has_aux=True))(jp, jax.tree.map(jnp.asarray, train))
-    assert abs(outs[0]["metrics"]["loss"] / float(jloss) - 1) <= LOSS_REL
+    assert abs(outs[0]["metrics"]["ce"] / float(jloss) - 1) <= LOSS_REL
     axes = W.param_axes_flat(tm)
     for name, g in state_from_tree(jax.tree.map(np.asarray,
                                                 jgrads)).items():
@@ -363,6 +364,29 @@ def test_live_collectives_equal_the_meta_tally(runs):
         assert want["total_bytes"] > 0
         for r in live:
             assert r[i] == want, (cfg.name, shape.kind, r[i], want)
+
+
+def test_a_reduction_over_several_axes_is_one_collective(runs):
+    """A sum over both axes of (2, 2) is one ``all_reduce`` over a group
+    of all four ranks, tallied once, with the sum of every rank's
+    value."""
+    for o in _job(runs, 6):
+        np.testing.assert_array_equal(o["y"], np.full(3, 1.0 + 2 + 3 + 4))
+        assert o["calls"] == 1
+        assert o["tally"]["all-reduce"] == {"count": 1, "bytes": 12}
+
+
+def test_axis_groups_of_the_two_pod_mesh():
+    """On 2 x 16 x 16 the batch axes (pod, data) group the 32 ranks
+    of each model coordinate; the model axis groups 16 consecutive
+    ranks."""
+    sizes, names = (2, 16, 16), ("pod", "data", "model")
+    groups = axis_groups(sizes, names, ("pod", "data"))
+    assert len(groups) == 16
+    for m, g in enumerate(groups):
+        assert g == [p * 256 + d * 16 + m for p in range(2)
+                     for d in range(16)]
+    assert axis_groups(sizes, names, ("model",))[3] == list(range(48, 64))
 
 
 # --- in one process: shards, refusals ---------------------------------------
