@@ -138,7 +138,13 @@ Phases, each fatal on failure (nothing is caught):
      the plain twin (as in phase 6) and float64 (float32 within 1e-5,
      bf16 within 2**-8 + 1e-5 of the largest |out|: the output's rounding),
      two calls bit for bit, timed
-     per call and by graph beside the byte bound and SDPA.  Then, bf16,
+     per call and by graph beside the byte bound and SDPA; then its
+     log-sum-exp (``lse=True``, written by the same launch) at the
+     hybrid's main shape, at ``qwen3_4b``'s heads over one rank's 16384
+     slots of the kv_seq ring and in float32 over a ragged ring: within
+     1e-4 of its twin's and float64's, ``out`` the same bits with it, a
+     ring in 4 parts merged by the parts' lse against one launch, the
+     call timed with and without it.  Then, bf16,
      random weights from a seed: ``qwen3_4b`` at full width and depth
      (36 layers, 4.41 B) — after a warm-up prefill at the same shape,
      2 prompts x 8192 tokens through
@@ -246,9 +252,20 @@ Phases, each fatal on failure (nothing is caught):
      8 q / 2 kv heads a rank, and at 2 layers in float32 the logits
      within 1e-4 of one process's; ``deepseek_moe_16b`` at full width,
      2 layers, float32, on (1, 4), expert-parallel (16 experts a rank),
-     likewise; each workload's collectives a step, every rank's, equal
-     to the meta dry-run's at the same shape and mesh; one ``{"dist":
-     ...}`` line is printed before the kernels line;
+     likewise; ``zamba2_1p2b`` at full width, one section (6 Mamba2
+     blocks and the shared attention), bf16, on (1, 4): a 2 x 2048
+     prefill, 16 decode steps and 2 AdamW steps, the SSD kernels on 16
+     of 64 heads and ``decode_attn`` on 8 of 32 a rank, within 2^-5 of
+     one process's logits, loss and grad_norm; ``rwkv6_1p6b`` 2 layers
+     in float32 on (1, 4) and ``seamless_m4t_large_v2`` 2 + 2 layers in
+     float32 on (2, 2), within 1e-4 / 1e-5; one sequence over a
+     65536-slot ring on (4, 1) under the kv_seq rule (``qwen3_4b`` bf16
+     2 layers and the zamba2 section, 16 steps each, ``decode_attn`` on
+     16384 slots a rank, merged by its log-sum-exp), within 2^-5 of one
+     process's decode of the whole ring; each workload's collectives a
+     step, every rank's, equal to the meta dry-run's at the same shape
+     and mesh; one ``{"dist": ...}`` line is printed before the kernels
+     line;
  12. ``dryrun``: ``repro_torch.launch.dryrun`` on the meta device for
      every arch x input shape at full config and shape, on the 1 x 1,
      16 x 16 and 2 x 16 x 16 meshes, in DRY_JOBS processes (the records
@@ -2459,6 +2476,78 @@ def lm_kernel_checks(torch, results):
     f64 = results["decode_attn"]["f64_rel"]
     log(f"decode_attn at G 1-12, D 128: agrees with its twin and float64 "
         f"(worst float64 error {max(f64.values()):.2e} of max |out|)")
+    decode_lse_checks(torch, results)
+
+
+def decode_lse_checks(torch, results):
+    """Row 5's log-sum-exp (``decode_attn(..., lse=True)``, written by
+    the same launch): at the hybrid's main shape (B 2, H = KV = 32, S
+    8192, D 64, bf16), at ``qwen3_4b``'s heads over one rank's share of
+    the kv_seq ring (32 q / 8 kv, D 128, 16384 slots, bf16) and in
+    float32 over a ragged ring: the lse within LSE_TOL of its twin's
+    (``torch.logsumexp``) and of float64's, ``out`` the same bits with
+    and without it; the ring cut into DIST_W parts, launched once a part
+    on one card and merged by the parts' lse (``layers.merge_ring``'s
+    arithmetic, no mesh), against one launch over the whole ring
+    (float32 within 1e-5 of the largest |out|, bf16 within BF16_REL);
+    the call timed with and without the lse in turns.  Comparisons,
+    outside the main path's counts."""
+    from repro_torch.kernels import decode_attn as dk
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = results["decode_attn"].setdefault("lse", [])
+    for tag, B, H, KV, S, D, dtype in (
+            ("zamba2 decode (main)", HYB_B, 32, 32, HYB_S, 64, torch.bfloat16),
+            ("qwen3_4b kv_seq shard", 1, 32, 8, KV_SEQ_RING // DIST_W, 128,
+             torch.bfloat16),
+            ("float32 ragged", HYB_B, 32, 8, 4096 + 37, 64, torch.float32)):
+        q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+        o, lse = dk.decode_attn(q, k, v, lse=True)
+        assert torch.equal(o, dk.decode_attn(q, k, v)), \
+            f"decode_attn {tag}: out differs when the lse is asked for"
+        _, twin = dk.decode_attn_plain(q, k, v, lse=True)
+        l64 = torch.cat([dk.decode_attn_plain(*(t[b:b + 1].double()
+                                                for t in (q, k, v)),
+                                              lse=True)[1]
+                         for b in range(B)])
+        e_twin = (lse - twin).abs().max().item()
+        e_f64 = (lse.double() - l64).abs().max().item()
+        assert max(e_twin, e_f64) <= LSE_TOL, (tag, e_twin, e_f64)
+        cut = [i * S // DIST_W for i in range(DIST_W + 1)]
+        cut[1:-1] = [c - c % 8 for c in cut[1:-1]]       # 16-byte rows
+        parts = [dk.decode_attn(q, k[:, a:b], v[:, a:b], lse=True)
+                 for a, b in zip(cut[:-1], cut[1:])]
+        pl = torch.stack([p[1] for p in parts])
+        wgt = torch.exp(pl - pl.amax(0))
+        merged = (torch.stack([p[0].float() for p in parts])
+                  * wgt[..., None]).sum(0) / wgt.sum(0)[..., None]
+        scale = o.float().abs().max().item()
+        lim = (1e-5 if dtype == torch.float32 else BF16_REL) * scale
+        e_merge = (merged - o.float()).abs().max().item()
+        assert e_merge <= lim, (tag, e_merge, lim)
+        runs = {"lse": [], "out": []}
+        for who in ("out", "lse", "lse", "out") * 2:
+            runs[who].append(_time_ms(
+                torch, (lambda: dk.decode_attn(q, k, v, lse=True))
+                if who == "lse" else (lambda: dk.decode_attn(q, k, v))))
+        row = dict(case=tag, B=B, H=H, KV=KV, S=S, D=D, dtype=str(dtype),
+                   lse_twin_err=e_twin, lse_f64_err=e_f64,
+                   merge_err=e_merge, merge_lim=lim,
+                   ms=statistics.median(runs["out"]),
+                   ms_lse=statistics.median(runs["lse"]),
+                   graph_ms=_graph_ms(torch, lambda: dk.decode_attn(q, k, v)),
+                   graph_ms_lse=_graph_ms(torch, lambda: dk.decode_attn(
+                       q, k, v, lse=True)), runs=runs)
+        out.append(row)
+        log(f"decode_attn lse, {tag} (B {B}, {H} q / {KV} kv, S {S}, D {D}, "
+            f"{str(dtype)[6:]}): |lse - twin| {e_twin:.2e}, |lse - float64| "
+            f"{e_f64:.2e}; out the same bits with it; {DIST_W} parts merged "
+            f"by their lse {e_merge:.2e} of one launch (limit {lim:.2e}); "
+            f"{row['ms']:.4f} ms without, {row['ms_lse']:.4f} ms with (a "
+            f"call, in turns); by graph replay {row['graph_ms']:.4f} / "
+            f"{row['graph_ms_lse']:.4f} ms")
 
 
 def _kernel_classes(kernels):
@@ -3513,6 +3602,19 @@ DIST_LM_CHECK_LAYERS = 2        # float32 depth held against one process
 DIST_MOE_LAYERS = 2             # deepseek_moe_16b's depth (full width)
 DIST_LOSS_REL = 1e-5            # loss and grad_norm against one process
 DIST_REL = 1e-4                 # logits and scores, of the largest |value|
+# zamba2_1p2b at full width, one section (attn_every Mamba2 blocks and the
+# shared attention), bf16, on (1, 4): prefill, decode steps, train steps
+DIST_ZAMBA = dict(B=2, S=2048, steps=16, train=2, f32_steps=4)
+DIST_UNCHECKED = ("qwen3_4b",)  # full bf16 depth: no one-process reference
+DIST_RWKV = dict(B=2, S=256, steps=8, layers=2)       # f32, (1, 4)
+DIST_ENCDEC = dict(B=4, S=256, steps=8, layers=2)     # f32, 2 + 2, (2, 2)
+DIST_BF16_REL = 2 ** -5         # bf16 logits against one process, of the max
+DIST_BF16_LOSS = 2 ** -9        # bf16 loss and grad_norm, relative
+KV_SEQ_RING = 65536             # one sequence's ring, kv_seq-sharded on (4, 1)
+KV_SEQ_STEPS = 16
+KV_SEQ_QUARTER = 0.5            # the ring's mean rises by this a rank's part
+KV_SEQ_FAULT_STEPS = 2          # steps decoded under each planted merge fault
+LSE_TOL = 1e-4                  # decode_attn's lse against twin and float64
 
 
 def dist_transport(torch):
@@ -3559,33 +3661,50 @@ def _dist_run(torch, plan, backend):
 
 
 def _fan_in_d(torch, model, cfg):
-    """Every attention's wq and wk rescaled to fan-in d_model (the init
-    rule takes a (d, heads, hd) weight's fan-in from its head count);
-    the global head counts, so that a shard is scaled as its whole."""
+    """Every attention's wq and wk (a Transformer's, the hybrid's shared
+    one, an enc-dec's self- and cross-attention) rescaled to fan-in
+    d_model (the init rule takes a (d, heads, hd) weight's fan-in from
+    its head count); the global head counts, so that a shard is scaled
+    as its whole."""
     import math
     with torch.no_grad():
-        model.layers.attn.wq.mul_(math.sqrt(max(cfg.n_heads, cfg.head_pad)
-                                            / cfg.d_model))
-        model.layers.attn.wk.mul_(math.sqrt(cfg.n_kv_heads / cfg.d_model))
+        for name, p in model.named_parameters():
+            if name.endswith("attn.wq"):
+                p.mul_(math.sqrt(max(cfg.n_heads, cfg.head_pad)
+                                 / cfg.d_model))
+            elif name.endswith("attn.wk"):
+                p.mul_(math.sqrt(cfg.n_kv_heads / cfg.d_model))
     return model
 
 
-def _spy_heads(torch):
-    """Record the heads every rank / decode launch is given: (kernel,
-    q heads[, kv heads]) sets, by patching the launchers the wrappers
-    call (the launches themselves are unchanged)."""
+def _spy_heads(torch, slots=None):
+    """Record the heads every rank / decode / SSD launch is given:
+    (kernel, q heads[, kv heads]) sets, by patching the launchers the
+    wrappers call (the launches themselves are unchanged); ``slots``, a
+    set, also takes each decode launch's ring slots and each rank
+    launch's dense prefix tokens."""
     from repro_torch.kernels import cuda_lib
     seen = set()
     rank_attn, decode_attn = cuda_lib.rank_attn, cuda_lib.decode_attn
+    ssd = cuda_lib.ssd_chunk
 
     def rank_spy(q, *a, **kw):
         seen.add(("rank_attn", q.shape[1]))
+        if slots is not None and kw.get("prefix") is not None:
+            slots.add(kw["prefix"][0].shape[2])
         return rank_attn(q, *a, **kw)
 
-    def decode_spy(q, k, v):
+    def decode_spy(q, k, v, **kw):
         seen.add(("decode_attn", q.shape[1], k.shape[2]))
-        return decode_attn(q, k, v)
+        if slots is not None:
+            slots.add(k.shape[1])
+        return decode_attn(q, k, v, **kw)
+
+    def ssd_spy(kind, Cc, Bc, xc, *a, **kw):
+        seen.add((f"ssd_chunk_{kind}", xc.shape[3]))
+        return ssd(kind, Cc, Bc, xc, *a, **kw)
     cuda_lib.rank_attn, cuda_lib.decode_attn = rank_spy, decode_spy
+    cuda_lib.ssd_chunk = ssd_spy
     return seen
 
 
@@ -3674,78 +3793,6 @@ def _dist_hstu(mesh, dev, cfg, seed, batches, prompt, incr, items):
     return out
 
 
-def _dist_lm(mesh, dev, runs):
-    """Transformers on a (1, 4) mesh: per run (tag, cfg, seed, prompt,
-    decode tokens, keep logits) a prefill and one decode step per token
-    column (eager: no graphs around collectives), with the launches,
-    the heads each launch was given, one step's collectives and the
-    times; the logits where asked.  The last decode step is profiled
-    (``_timed_all_reduce``) and kept out of ``step_ms``."""
-    import gc
-    import torch
-    from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import build_model
-    from repro_torch.models.partitioning import shard_batch
-    seen = _spy_heads(torch)
-    acc = _timed_all_reduce(torch)
-    out = {}
-    for tag, cfg, seed, prompt, tokens, keep in runs:
-        seen.clear()
-        t0 = time.perf_counter()
-        model = build_model(cfg, device=dev).init(
-            torch.Generator().manual_seed(seed))
-        draw_s = time.perf_counter() - t0
-        if keep:
-            _fan_in_d(torch, model, cfg)
-        serve = make_serve_step(model, graphs=False)
-        mine = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(
-            {"p": prompt, "t": tokens},
-            {"p": ("batch", None), "t": ("batch", None)}).items()}
-        mesh.reset_tally()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (logits, cache), c_pre = _counted(
-            lambda: model.prefill({"tokens": mine["p"]}))
-        torch.cuda.synchronize()
-        rec = dict(draw_s=draw_s, prefill_ms=(time.perf_counter() - t0) * 1e3,
-                   launches_prefill=c_pre, tally_prefill=mesh.collectives(),
-                   logits=[logits.float().cpu().numpy()] if keep else [],
-                   step_ms=[], launches_decode={}, finite=True)
-        B, S = mine["p"].shape
-        n_steps = mine["t"].shape[1]
-        for i in range(n_steps):
-            mesh.reset_tally()
-            pos = torch.full((B,), S + i, device=dev)
-            acc.update(on=i == n_steps - 1, calls=0, s=0.0)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (lg, cache), c = _counted(lambda: serve(
-                cache, {"token": mine["t"][:, i:i + 1], "pos": pos}))
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            if acc["on"]:
-                rec["profile"] = dict(step_ms=ms, all_reduces=acc["calls"],
-                                      all_reduce_ms=acc["s"] * 1e3)
-                acc["on"] = False
-            else:
-                rec["step_ms"].append(ms)
-            rec["tally_decode"] = mesh.collectives()
-            for n, k in c.items():
-                rec["launches_decode"][n] = rec["launches_decode"].get(n, 0) + k
-            rec["finite"] &= bool(torch.isfinite(lg).all())
-            if keep:
-                rec["logits"].append(lg.float().cpu().numpy())
-        rec.update(heads=sorted(seen),
-                   local_experts=(model.layers.moe.wi.shape[1]
-                                  if cfg.family == "moe" else None),
-                   peak_bytes=torch.cuda.max_memory_allocated(dev))
-        out[tag] = rec
-        del model, cache, logits, serve
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
-
-
 def _assemble(parts, axes, shape, sizes):
     """The full array from every rank's shard (rank order)."""
     import numpy as np
@@ -3787,24 +3834,289 @@ def _world1_hstu(torch, hcfg, batches, prompt, incr, items):
     return train, logits.float().cpu().numpy(), scores.float().cpu().numpy()
 
 
-def _world1_lm(torch, cfg, seed, prompt, tokens):
-    """One process's logits of a prefill and a decode step per token
-    column (wq / wk at fan-in d, as the ranks')."""
-    from repro_torch.launch.steps import make_serve_step
+def _rows(torch, batch, dev):
+    """This rank's rows of a numpy batch (every entry sharded on its
+    first dimension), on ``dev``."""
+    from repro_torch.models.partitioning import current_rules, shard_batch
+    ax = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+    if current_rules() is not None:
+        batch = shard_batch(batch, ax)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _family_run(torch, model, prompt, tokens, batches, dev, mesh=None,
+                acc=None):
+    """A prefill of ``prompt``, one eager decode step per column of
+    ``tokens`` (no graphs around collectives) and an AdamW step per
+    batch of ``batches`` (this rank's rows under a mesh, the whole batch
+    without one): the logits, the train metrics, and under a mesh each
+    part's launches, collectives and times (rank 0's clock).  With
+    ``acc`` (``_timed_all_reduce``'s) the last decode step is profiled:
+    its time inside ``all_reduce`` against its own, kept out of
+    ``step_ms``."""
+    from repro_torch.launch.steps import make_serve_step, make_train_step
+    from repro_torch.training import optimizer as opt
+
+    def timed(fn):
+        if mesh is not None:
+            mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, c = _counted(fn)
+        torch.cuda.synchronize()
+        return out, c, (time.perf_counter() - t0) * 1e3, (
+            mesh.collectives() if mesh is not None else None)
+
+    mine = _rows(torch, prompt, dev)
+    toks = _rows(torch, {"t": tokens}, dev)["t"]
+    (logits, cache), c, ms, tally = timed(lambda: model.prefill(mine))
+    rec = dict(prefill_ms=ms, launches_prefill=c, tally_prefill=tally,
+               logits=[logits.float().cpu().numpy()], step_ms=[],
+               launches_decode={}, finite=bool(torch.isfinite(logits).all()))
+    serve = make_serve_step(model, graphs=False)
+    B, S = mine["tokens"].shape
+    n = toks.shape[1]
+    for i in range(n):
+        pos = torch.full((B,), S + i, device=dev)
+        last = acc is not None and i == n - 1
+        if last:
+            acc.update(on=True, calls=0, s=0.0)
+        (lg, cache), c, ms, tally = timed(lambda: serve(
+            cache, {"token": toks[:, i:i + 1], "pos": pos}))
+        if last:
+            acc["on"] = False
+            rec["profile"] = dict(step_ms=ms, all_reduces=acc["calls"],
+                                  all_reduce_ms=acc["s"] * 1e3)
+        else:
+            rec["step_ms"].append(ms)
+        rec["tally_decode"] = tally
+        for name, k in c.items():
+            rec["launches_decode"][name] = \
+                rec["launches_decode"].get(name, 0) + k
+        rec["finite"] &= bool(torch.isfinite(lg).all())
+        rec["logits"].append(lg.float().cpu().numpy())
+    del cache
+    rec["train"] = []
+    if batches:
+        step = make_train_step(model, opt.AdamWConfig(warmup_steps=1))
+        state = opt.init_state(step.params)
+        for b in batches:
+            bb = _rows(torch, b, dev)
+            m, c, ms, tally = timed(lambda: step(state, bb))
+            rec["train"].append(dict(ms=ms, launches=c, **{
+                k: float(v) for k, v in m.items()}))
+            rec["tally_train"] = tally
+        model.requires_grad_(False)
+        del step, state
+    return rec
+
+
+def _dist_family(mesh, dev, runs):
+    """Every LM family on a mesh: per run (tag, cfg, seed, prompt, decode
+    tokens, train batches) the model drawn from the seed (every rank
+    draws the full weights and keeps its shard; wq / wk at fan-in d),
+    then ``_family_run`` with its last decode step profiled; with the
+    heads every kernel launch was given, a MoE's local experts and the
+    peak memory."""
+    import gc
+    import torch
     from repro_torch.models import build_model
-    whole = _fan_in_d(torch, build_model(cfg, device="cuda").init(
-        torch.Generator().manual_seed(seed)), cfg)
-    serve = make_serve_step(whole, graphs=False)
-    lg, cache = whole.prefill({"tokens": torch.as_tensor(prompt,
-                                                         device="cuda")})
-    out = [lg.float().cpu().numpy()]
-    for i in range(tokens.shape[1]):
-        pos = torch.full((prompt.shape[0],), prompt.shape[1] + i,
-                         device="cuda")
-        lg, cache = serve(cache, {"token": torch.as_tensor(
-            tokens[:, i:i + 1], device="cuda"), "pos": pos})
-        out.append(lg.float().cpu().numpy())
+    seen = _spy_heads(torch)
+    acc = _timed_all_reduce(torch)
+    out = {}
+    for tag, cfg, seed, prompt, tokens, batches in runs:
+        seen.clear()
+        t0 = time.perf_counter()
+        model = _fan_in_d(torch, build_model(cfg, device=dev).init(
+            torch.Generator().manual_seed(seed)), cfg)
+        draw_s = time.perf_counter() - t0
+        rec = _family_run(torch, model, prompt, tokens, batches, dev, mesh,
+                          acc)
+        rec.update(draw_s=draw_s, heads=sorted(seen),
+                   local_experts=(model.layers.moe.wi.shape[1]
+                                  if cfg.family == "moe" else None),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        out[tag] = rec
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
+
+
+def _world1_family(torch, cfg, seed, prompt, tokens, batches):
+    """One process's logits and train metrics of ``_family_run``."""
+    from repro_torch.models import build_model
+    model = _fan_in_d(torch, build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(seed)), cfg)
+    rec = _family_run(torch, model, prompt, tokens, batches, "cuda")
+    del model
+    torch.cuda.empty_cache()
+    return rec["logits"], rec["train"]
+
+
+def _axes_leaves(axes):
+    """The logical axes of a cache's leaves, in ``tensor_leaves`` order."""
+    if isinstance(axes, dict):
+        return [a for k in sorted(axes) for a in _axes_leaves(axes[k])]
+    if all(isinstance(a, (str, type(None))) for a in axes):
+        return [axes]
+    return [a for t in axes for a in _axes_leaves(t)]
+
+
+def _ring_leaves(model, cache):
+    """(leaf, its kv_seq dimension) of every leaf of a one-sequence
+    KV_SEQ_RING cache whose sequence kv_seq shards (the rings' K and V,
+    HSTU's psi; not a hybrid's Mamba2 states or an enc-dec's cross
+    K/V)."""
+    from repro_torch.core.graphs import tensor_leaves
+    axes = _axes_leaves(model.cache_axes(1, KV_SEQ_RING))
+    return [(t, ax.index("kv_seq"))
+            for t, ax in zip(tensor_leaves(cache), axes) if "kv_seq" in ax]
+
+
+def _kv_seq_cache(torch, model, seed, dev):
+    """A one-sequence cache over KV_SEQ_RING slots, the same on every
+    rank: every leaf 0.5 + 0.5 N(0, 1) drawn on the card from ``seed``
+    (a mean keeps the attention's output from being the float
+    cancellation of 65536 zero-mean values), and each ring leaf raised
+    by KV_SEQ_QUARTER for each DIST_W-th of the ring before its slot: the
+    ranks' parts then differ in their keys' scores and their values'
+    mean, so a merge that drops the lse weights, or keeps one rank's
+    part, moves the logits far past the limit."""
+    from repro_torch.core.graphs import tensor_leaves
+    from repro_torch.models.arch import zeros_from_specs
+    specs = model.cache_specs(1, KV_SEQ_RING)
+    cache = zeros_from_specs(specs[0] if model.cfg.hstu else specs, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for t in tensor_leaves(cache):
+        t.copy_(0.5 + 0.5 * torch.randn(t.shape, generator=gen, device=dev))
+    part = KV_SEQ_RING // DIST_W
+    for t, d in _ring_leaves(model, cache):
+        shape = [1] * t.ndim
+        shape[d] = KV_SEQ_RING
+        step = torch.arange(KV_SEQ_RING, device=dev) // part
+        t.add_((KV_SEQ_QUARTER * step).to(t.dtype).view(shape))
+    return cache
+
+
+def _kv_seq_steps(torch, model, cache, tokens, dev, mesh=None, count=None):
+    """One eager decode step of one sequence over ``cache`` per column of
+    ``tokens`` (n of them; the first ``count`` where given), step i at
+    position KV_SEQ_RING + i KV_SEQ_RING / n + 5 (so the slots written
+    fall on every rank of "data" in turn): the logits, the ring slots
+    the steps changed on this rank's part (global slots) and their rows
+    (float32, one array a ring leaf), and under a mesh the launches, a
+    step's collectives and times."""
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.partitioning import axis_index
+    serve = make_serve_step(model, graphs=False, seq_len=KV_SEQ_RING)
+    rec = dict(logits=[], step_ms=[], launches={})
+    before = [t.clone() for t, _ in _ring_leaves(model, cache)]
+    n = tokens.shape[1]
+    for i in range(count or n):
+        pos = torch.tensor([KV_SEQ_RING + i * (KV_SEQ_RING // n) + 5],
+                           device=dev)
+        if mesh is not None:
+            mesh.reset_tally()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lg, cache), c = _counted(lambda: serve(
+            cache, {"token": tokens[:, i:i + 1], "pos": pos}))
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        for name, k in c.items():
+            rec["launches"][name] = rec["launches"].get(name, 0) + k
+        rec["logits"].append(lg.float().cpu().numpy())
+        if mesh is not None:
+            rec["tally"] = mesh.collectives()
+    after = _ring_leaves(model, cache)
+    first = axis_index("data") * after[0][0].shape[after[0][1]] \
+        if after else 0
+    changed = set()
+    for b, (t, d) in zip(before, after):
+        diff = (t != b).movedim(d, 0).reshape(t.shape[d], -1).any(1)
+        changed |= set(diff.nonzero().flatten().tolist())
+    rec["written"] = {first + j: [t.select(d, j).float().cpu().numpy()
+                                  for t, d in after]
+                      for j in sorted(changed)}
+    return rec
+
+
+def _merge_faults():
+    """Planted faults of the kv_seq merge (``layers.merge_ring``), by
+    name: "local", each rank's own part as the answer; "unweighted", the
+    parts' mean without their lse weights."""
+    from repro_torch.models.partitioning import axis_size, psum
+    return {
+        "local": lambda out, lse, axis: out,
+        "unweighted": lambda out, lse, axis: (
+            psum(out.float(), axis) / axis_size(axis)).to(out.dtype)}
+
+
+def _dist_kv_seq(mesh, dev, runs):
+    """One sequence decoded over a KV_SEQ_RING-slot ring under the kv_seq
+    rule ("kv_seq" on "data", as the reference's dry-run sets it for a
+    batch of one): per run (tag, cfg, seed, cache seed, tokens) the
+    model, this rank's shard of the global cache (``_kv_seq_cache``,
+    drawn whole on every rank, then cut) and ``_kv_seq_steps``; with the
+    heads and ring slots each ``decode_attn`` / ``rank_attn`` launch was
+    given.  A softmax ring then decodes its first KV_SEQ_FAULT_STEPS
+    again from a fresh shard under each of ``_merge_faults``."""
+    import gc
+    import torch
+    from repro_torch.models import build_model, layers
+    from repro_torch.models.partitioning import logical_rules, shard_tree
+    from repro_torch.tree import tree_map
+    slots = set()
+    seen = _spy_heads(torch, slots)
+    out = {}
+    with logical_rules(mesh, {"kv_seq": "data"}):
+        for tag, cfg, seed, cseed, tokens in runs:
+            seen.clear()
+            slots.clear()
+            model = _fan_in_d(torch, build_model(cfg, device=dev).init(
+                torch.Generator().manual_seed(seed)), cfg)
+            toks = torch.as_tensor(tokens, device=dev)
+
+            def shard():
+                whole = _kv_seq_cache(torch, model, cseed, dev)
+                return tree_map(lambda t: t.clone(), shard_tree(
+                    whole, model.cache_axes(1, KV_SEQ_RING)))
+            cache = shard()
+            ring = _ring_leaves(model, cache)[0]
+            rec = _kv_seq_steps(torch, model, cache, toks, dev, mesh)
+            rec.update(heads=sorted(seen), slots=sorted(slots),
+                       local_ring=ring[0].shape[ring[1]], faults={})
+            del cache, ring
+            merge = layers.merge_ring
+            for name, fault in ({} if cfg.hstu
+                                else _merge_faults()).items():
+                layers.merge_ring = fault
+                try:
+                    rec["faults"][name] = _kv_seq_steps(
+                        torch, model, shard(), toks, dev,
+                        count=KV_SEQ_FAULT_STEPS)["logits"]
+                finally:
+                    layers.merge_ring = merge
+            out[tag] = rec
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _world1_kv_seq(torch, cfg, seed, cseed, tokens):
+    """One process's ``_kv_seq_steps`` over the whole ring: the logits
+    and the slots written with their rows."""
+    from repro_torch.models import build_model
+    model = _fan_in_d(torch, build_model(cfg, device="cuda").init(
+        torch.Generator().manual_seed(seed)), cfg)
+    cache = _kv_seq_cache(torch, model, cseed, "cuda")
+    rec = _kv_seq_steps(torch, model, cache,
+                        torch.as_tensor(tokens, device="cuda"), "cuda")
+    del model, cache
+    torch.cuda.empty_cache()
+    return rec["logits"], rec["written"]
 
 
 def dist_phase(torch, results):
@@ -3828,18 +4140,45 @@ def dist_phase(torch, results):
     * ``deepseek_moe_16b`` at full width and DIST_MOE_LAYERS layers on
       (1, 4), expert-parallel (16 experts a rank), float32, its logits
       against one process's likewise (data 1: the same capacity);
+    * ``zamba2_1p2b`` at full width, one section (attn_every Mamba2
+      blocks and the shared attention), bf16, on (1, 4): a DIST_ZAMBA
+      prefill, decode steps and AdamW steps, the SSD kernels on 16 of
+      64 heads and ``decode_attn`` on 8 of 32 a rank, the logits within
+      DIST_BF16_REL and the loss and grad_norm within DIST_BF16_LOSS of
+      one process's (bf16 sums in other orders); the same section in
+      float32 on the same weights and inputs (fewer decode steps) within
+      DIST_REL / DIST_LOSS_REL, and one process's bf16 logits against its
+      float32 ones, the scale of bf16's own rounding;
+    * ``rwkv6_1p6b`` at full width, DIST_RWKV's 2 layers, float32, on
+      (1, 4) (8 heads a rank): prefill and decode, the logits within
+      DIST_REL;
+    * ``seamless_m4t_large_v2`` at full width, 2 + 2 layers, float32,
+      on (2, 2): prefill, decode (``decode_attn`` over the self ring and
+      the frames, 8 heads a rank) and an AdamW step, within DIST_REL /
+      DIST_LOSS_REL;
+    * one sequence over a KV_SEQ_RING-slot ring on (4, 1) under the
+      kv_seq rule (16384 slots a rank): ``qwen3_4b`` bf16 at full width,
+      2 layers, the zamba2 section above and the seamless 2 + 2 cut
+      (each rank's ``decode_attn`` merged by its lse), and ``hstu-gr``
+      at full width (``prefix_rank_attn`` on each rank's part of psi,
+      the global 1 / n, summed), KV_SEQ_STEPS steps each, the logits
+      against one process's decode of the whole ring; the slots written
+      changed on their owner's part alone, with one process's rows; the
+      ring's mean rising by KV_SEQ_QUARTER a rank's part, so that two
+      planted merge faults (``_merge_faults``) fail the same limit;
     * each workload's live collectives a step (rank 0's, every rank's
       equal) against the meta dry-run's at the same shape and mesh;
+      every run of the families and the kv_seq decode with its wq / wk
+      at fan-in d, as the float32 LM checks below;
     * each LM's last decode step profiled on every rank: the time in
-      ``all_reduce`` against the step's (``_timed_all_reduce``).
+      ``all_reduce`` against the step's (``_timed_all_reduce``), one
+      call a tallied collective.
 
     The float32 LM checks rescale wq / wk to fan-in d on both sides: at
     the reference init deepseek's attention logits reach a std of ~128
     and float32 reorderings flip its top-6 routing (the ``lm`` phase's
     LM_REL_INIT); qwen3's qk-norm undoes the scale.  A time under gloo
     on one card is not a multi-GPU figure."""
-    import dataclasses
-
     import numpy as np
     from repro_torch.launch.dryrun import trace_collectives
     from repro_torch.models import get_config
@@ -3856,7 +4195,7 @@ def dist_phase(torch, results):
            "cards": torch.cuda.device_count(), "times_multi_gpu": multi}
     rng = np.random.default_rng(0)
     g = lambda cfg, B, S: rng.integers(0, cfg.vocab, (B, S))
-    H, D = DIST_HSTU, DIST_LM
+    H = DIST_HSTU
     hcfg = get_config("hstu-gr")
     batches = []
     for _ in range(H["steps"]):
@@ -3864,30 +4203,23 @@ def dist_phase(torch, results):
         batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
     prompt, incr, items = (g(hcfg, H["B"], n) for n in
                            (H["S"], H["incr"], H["items"]))
-    qcfg = get_config("qwen3_4b")
-    q32 = dataclasses.replace(qcfg, n_layers=DIST_LM_CHECK_LAYERS,
-                              dtype="float32")
-    dcfg = dataclasses.replace(get_config("deepseek_moe_16b"),
-                               n_layers=DIST_MOE_LAYERS, dtype="float32")
-    runs = [("qwen3_4b", qcfg, 11, g(qcfg, D["B"], D["S"]),
-             g(qcfg, D["B"], D["steps"]), False),
-            ("qwen3_4b_f32_2l", q32, 12, g(q32, D["B"], D["S"]),
-             g(q32, D["B"], 2), True),
-            ("deepseek_moe_16b", dcfg, 13, g(dcfg, D["B"], D["S"]),
-             g(dcfg, D["B"], 2), True)]
+    fam14, fam22, kv_runs = _dist_family_runs(rng, g)
     # one process's references first, so that nothing else shares the
     # card while the ranks time their steps
     t0 = time.perf_counter()
     want_train, w_logits, w_scores = _world1_hstu(torch, hcfg, batches,
                                                   prompt, incr, items)
-    want = {tag: _world1_lm(torch, cfg, seed, p, toks)
-            for tag, cfg, seed, p, toks, keep in runs if keep}
+    want_fam = {run[0]: _world1_family(torch, *run[1:])
+                for run in fam14 + fam22 if run[0] not in DIST_UNCHECKED}
+    want_kv = {run[0]: _world1_kv_seq(torch, *run[1:]) for run in kv_runs}
     torch.cuda.empty_cache()
     world1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     outs = _dist_run(torch, [
         ((2, 2), _dist_hstu, (hcfg, 7, batches, prompt, incr, items)),
-        ((1, 4), _dist_lm, (runs,))], backend)
+        ((1, 4), _dist_family, (fam14,)),
+        ((2, 2), _dist_family, (fam22,)),
+        ((4, 1), _dist_kv_seq, (kv_runs,))], backend)
     spawn_s = time.perf_counter() - t0
     rec.update(spawn_s=spawn_s, world1_s=world1_s)
 
@@ -3942,69 +4274,307 @@ def dist_phase(torch, results):
         f"{backend}); collectives a train step "
         f"{o0['tally']['train']['total_bytes']} B, = meta")
 
-    # qwen3_4b (full, bf16; 2 layers f32) and deepseek_moe_16b, (1, 4) -----
-    mesh14 = make_mesh((1, 4), ("data", "model"))
-    for tag, cfg, seed, p, toks, keep in runs:
-        steps = toks.shape[1]
-        rs = [o[1][tag] for o in outs]
-        L = cfg.n_layers
-        ok_heads = [("decode_attn", cfg.n_heads // 4, cfg.n_kv_heads // 4)]
-        for r in rs:
-            assert r["finite"], tag
-            assert r["heads"] == ok_heads, (tag, r["heads"])
-            assert "decode_attn" not in r["launches_prefill"], tag
-            assert r["launches_decode"] == {"decode_attn": L * steps}, \
-                (tag, r["launches_decode"])
-            assert r["tally_prefill"] == rs[0]["tally_prefill"]
-            assert r["tally_decode"] == rs[0]["tally_decode"]
-            results["decode_attn"]["launches"] += L * steps
-        pm = trace_collectives(cfg, InputShape("p", p.shape[1], p.shape[0],
-                                               "prefill"), mesh14)
-        dm = trace_collectives(cfg, InputShape("d", p.shape[1], p.shape[0],
-                                               "decode"), mesh14)
-        assert rs[0]["tally_prefill"] == pm, (tag, rs[0]["tally_prefill"], pm)
-        assert rs[0]["tally_decode"] == dm, (tag, rs[0]["tally_decode"], dm)
-        r0 = rs[0]
-        row = dict(mesh="1x4", dtype=cfg.dtype, layers=L, batch=p.shape[0],
-                   prompt=p.shape[1], steps=steps,
-                   q_heads_per_rank=ok_heads[0][1],
-                   kv_heads_per_rank=ok_heads[0][2],
-                   experts_per_rank=r0["local_experts"],
-                   draw_s=r0["draw_s"], prefill_ms=r0["prefill_ms"],
-                   step_ms=r0["step_ms"], peak_bytes=r0["peak_bytes"],
-                   decode_profile={r: o["profile"] for r, o in enumerate(rs)},
-                   tally_prefill=r0["tally_prefill"],
-                   tally_decode=r0["tally_decode"], tally_equals_meta=True)
-        if keep:
-            rels = [_rel(_assemble([r["logits"][i] for r in rs],
-                                   ("batch", None, "vocab"), w.shape, (1, 4)),
-                         w) for i, w in enumerate(want[tag])]
-            row["logits_rel"] = max(rels)
-            assert row["logits_rel"] <= DIST_REL, (tag, rels)
-        rec[tag] = row
-        shares = [round(r["profile"]["all_reduce_ms"]
-                        / r["profile"]["step_ms"], 3) for r in rs]
-        log(f"dist {tag} (1, 4) {cfg.dtype} {L} layers, B {p.shape[0]} x "
-            f"{p.shape[1]} + {steps} steps: decode_attn on "
-            f"{ok_heads[0][1]} q / {ok_heads[0][2]} kv heads a rank"
-            + (f", {r0['local_experts']} experts a rank"
-               if r0["local_experts"] else "")
-            + (f"; logits {row['logits_rel']:.2e} of max against one "
-               f"process (wq / wk at fan-in d)" if keep else "")
-            + f"; drawn in {r0['draw_s']:.1f} s, prefill "
-            f"{r0['prefill_ms']:.1f} ms, decode "
-            f"{statistics.median(r0['step_ms']):.2f} ms a step (median, "
-            f"rank 0, {backend}); the last step profiled, every rank's "
-            f"all_reduce share of it {shares} "
-            f"({r0['profile']['all_reduces']} calls, rank 0 "
-            f"{r0['profile']['all_reduce_ms']:.1f} of "
-            f"{r0['profile']['step_ms']:.1f} ms); collectives: prefill "
-            f"{r0['tally_prefill']['total_bytes']} B, a decode step "
-            f"{r0['tally_decode']['total_bytes']} B, = meta")
+    _check_dist_families(torch, results, rec, outs, fam14, fam22, want_fam,
+                         backend)
+    _check_dist_kv_seq(torch, results, rec, outs, kv_runs, want_kv, backend)
     rec["wall_s"] = time.perf_counter() - t_phase
     results["_dist"] = rec
     log(f"dist phase: {rec['wall_s']:.1f} s of wall (one process's "
         f"references {world1_s:.1f} s, then the ranks {spawn_s:.1f} s)")
+
+
+def _dist_family_runs(rng, g):
+    """The dist phase's LM runs and kv_seq decodes: (runs on (1, 4), runs
+    on (2, 2), kv_seq runs on (4, 1)), inputs from ``rng`` (``g(cfg, B,
+    S)`` draws tokens)."""
+    import dataclasses
+
+    from repro_torch.models import get_config
+
+    def lm_batches(cfg, B, S, n, frames=False):
+        out = []
+        for _ in range(n):
+            t = g(cfg, B, S + 1)
+            b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+            if frames:
+                b["frames"] = rng.normal(size=(
+                    B, cfg.n_frontend_tokens, cfg.d_model)).astype("float32")
+            out.append(b)
+        return out
+
+    def lm(tag, cfg, seed, B, S, steps, batches=()):
+        return (tag, cfg, seed, {"tokens": g(cfg, B, S)}, g(cfg, B, steps),
+                list(batches))
+
+    D, Z, R, E = DIST_LM, DIST_ZAMBA, DIST_RWKV, DIST_ENCDEC
+    qcfg = get_config("qwen3_4b")
+    q32 = dataclasses.replace(qcfg, n_layers=DIST_LM_CHECK_LAYERS,
+                              dtype="float32")
+    dcfg = dataclasses.replace(get_config("deepseek_moe_16b"),
+                               n_layers=DIST_MOE_LAYERS, dtype="float32")
+    z = get_config("zamba2_1p2b")
+    zcfg = dataclasses.replace(z, n_layers=z.attn_every)
+    rcfg = dataclasses.replace(get_config("rwkv6_1p6b"),
+                               n_layers=R["layers"], dtype="float32")
+    ecfg = dataclasses.replace(get_config("seamless_m4t_large_v2"),
+                               n_layers=E["layers"], n_enc_layers=E["layers"],
+                               dtype="float32")
+    eprompt = lm_batches(ecfg, E["B"], E["S"], 1, frames=True)[0]
+    del eprompt["labels"]
+    zamba = lm("zamba2_1p2b", zcfg, 21, Z["B"], Z["S"], Z["steps"],
+               lm_batches(zcfg, Z["B"], Z["S"], Z["train"]))
+    # the same section, weights, prompt, first steps and batches in float32
+    zamba32 = ("zamba2_1p2b_f32", dataclasses.replace(zcfg, dtype="float32"),
+               21, zamba[3], zamba[4][:, :Z["f32_steps"]], zamba[5])
+    fam14 = [lm("qwen3_4b", qcfg, 11, D["B"], D["S"], D["steps"]),
+             lm("qwen3_4b_f32_2l", q32, 12, D["B"], D["S"], 2),
+             lm("deepseek_moe_16b", dcfg, 13, D["B"], D["S"], 2),
+             zamba, zamba32,
+             lm("rwkv6_1p6b", rcfg, 22, R["B"], R["S"], R["steps"])]
+    fam22 = [("seamless_m4t_large_v2", ecfg, 23, eprompt,
+              g(ecfg, E["B"], E["steps"]),
+              lm_batches(ecfg, E["B"], E["S"], 1, frames=True))]
+    q2 = dataclasses.replace(qcfg, n_layers=2)
+    hcfg = get_config("hstu-gr")
+    kv_runs = [("qwen3_4b", q2, 24, 124, g(q2, 1, KV_SEQ_STEPS)),
+               ("zamba2_1p2b", zcfg, 21, 125, g(zcfg, 1, KV_SEQ_STEPS)),
+               ("hstu_gr", hcfg, 26, 126, g(hcfg, 1, KV_SEQ_STEPS)),
+               ("seamless_m4t_large_v2", ecfg, 23, 127,
+                g(ecfg, 1, KV_SEQ_STEPS))]
+    return fam14, fam22, kv_runs
+
+
+def _family_launches(cfg, steps, train_steps):
+    """The launches of a family run by part: (prefill, decode, each train
+    step)."""
+    if cfg.family == "hybrid":
+        L, n_sec = cfg.n_layers, cfg.n_layers // cfg.attn_every
+        ssd = {"ssd_chunk_intra": L, "ssd_chunk_state": L}
+        return ssd, {"decode_attn": n_sec * steps}, \
+            {k: 2 * v for k, v in ssd.items()}
+    if cfg.family == "encdec":
+        return {}, {"decode_attn": 2 * cfg.n_layers * steps}, {}
+    if cfg.family.startswith("ssm"):
+        return {}, {}, {}
+    return {}, {"decode_attn": cfg.n_layers * steps}, {}
+
+
+def _check_dist_families(torch, results, rec, outs, fam14, fam22, want_fam,
+                         backend):
+    """The LM runs against one process's (all but DIST_UNCHECKED):
+    logits, loss and grad_norm; every launch on this rank's heads (a
+    MoE's experts split alike); launches by part; every rank's
+    collectives equal, and rank 0's equal to the meta dry-run's at the
+    same shapes and mesh; the profiled decode step's time inside
+    ``all_reduce``, one call a tallied collective.  A float32 twin of a
+    bf16 run ("<tag>_f32", the same seed and inputs) also gives one
+    process's bf16 gap to float32, the scale of bf16's own rounding."""
+    from repro_torch.launch.dryrun import trace_collectives
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.partitioning import make_mesh
+    for sizes, idx, fam in (((1, 4), 1, fam14), ((2, 2), 2, fam22)):
+        mesh = make_mesh(sizes, ("data", "model"))
+        n = sizes[1]
+        for tag, cfg, seed, prompt, toks, batches in fam:
+            rs = [o[idx][tag] for o in outs]
+            bf16 = cfg.dtype == "bfloat16"
+            lim = DIST_BF16_REL if bf16 else DIST_REL
+            loss_lim = DIST_BF16_LOSS if bf16 else DIST_LOSS_REL
+            rels, worst = [], {"loss": 0.0, "grad_norm": 0.0}
+            if tag not in DIST_UNCHECKED:
+                w_logits, w_train = want_fam[tag]
+                rels = [_rel(_assemble([r["logits"][i] for r in rs],
+                                       ("batch", None, "vocab"), w.shape,
+                                       sizes), w)
+                        for i, w in enumerate(w_logits)]
+                assert max(rels) <= lim, (tag, rels)
+                for r in rs:
+                    for got, w in zip(r["train"], w_train):
+                        for k in worst:
+                            worst[k] = max(worst[k], abs(got[k] / w[k] - 1))
+                assert max(worst.values()) <= loss_lim, (tag, worst)
+            own = None
+            if bf16 and f"{tag}_f32" in want_fam:
+                own = max(_rel(a, b) for a, b in zip(
+                    want_fam[tag][0], want_fam[f"{tag}_f32"][0]))
+            pre, dec, tr = _family_launches(cfg, toks.shape[1], len(batches))
+            heads = set()
+            if cfg.family == "hybrid":
+                heads = {("ssd_chunk_intra", cfg.n_ssm_heads // n),
+                         ("ssd_chunk_state", cfg.n_ssm_heads // n)}
+            if not cfg.family.startswith("ssm"):
+                heads.add(("decode_attn", cfg.n_heads // n,
+                           cfg.n_kv_heads // n))
+            r0 = rs[0]
+            for r in rs:
+                assert r["finite"], tag
+                assert set(r["heads"]) == heads, (tag, r["heads"])
+                assert r["launches_prefill"] == pre, (tag, r["launches_prefill"])
+                assert r["launches_decode"] == dec, (tag, r["launches_decode"])
+                assert all(t["launches"] == tr for t in r["train"]), tag
+                assert r["local_experts"] == (cfg.n_experts // n if
+                                              cfg.family == "moe" else None)
+                for k in ("tally_prefill", "tally_decode", "tally_train"):
+                    assert r.get(k) == r0.get(k), (tag, k)
+                assert r["profile"]["all_reduces"] == sum(
+                    v["count"] for v in r0["tally_decode"].values()
+                    if isinstance(v, dict)), (tag, r["profile"],
+                                              r0["tally_decode"])
+                for part in [pre, dec] + [tr] * len(r["train"]):
+                    for name, c in part.items():
+                        results[name]["launches"] += c
+            B, S = prompt["tokens"].shape
+            shapes = [("prefill", "p"), ("decode", "d")] + (
+                [("train", "t")] if batches else [])
+            for kind, short in shapes:
+                m = trace_collectives(cfg, InputShape(short, S, B, kind), mesh)
+                assert r0[f"tally_{kind}"] == m, (tag, kind,
+                                                  r0[f"tally_{kind}"], m)
+            shares = [round(r["profile"]["all_reduce_ms"]
+                            / r["profile"]["step_ms"], 3) for r in rs]
+            row = dict(mesh="x".join(map(str, sizes)), dtype=cfg.dtype,
+                       layers=cfg.n_layers, batch=B, prompt=S,
+                       steps=toks.shape[1],
+                       logits_rel=max(rels) if rels else None,
+                       loss_rel=worst["loss"],
+                       grad_norm_rel=worst["grad_norm"],
+                       bf16_vs_f32_one_process=own,
+                       heads=sorted(heads),
+                       experts_per_rank=r0["local_experts"],
+                       draw_s=r0["draw_s"], prefill_ms=r0["prefill_ms"],
+                       step_ms=r0["step_ms"],
+                       decode_profile={i: r["profile"]
+                                       for i, r in enumerate(rs)},
+                       train_ms=[t["ms"] for t in r0["train"]],
+                       losses=[t["loss"] for t in r0["train"]],
+                       peak_bytes=r0["peak_bytes"],
+                       tally={k: r0.get(f"tally_{k}") for k, _ in shapes},
+                       tally_equals_meta=True)
+            rec[tag] = row
+            log(f"dist {tag} ({sizes[0]}, {sizes[1]}) {cfg.dtype} "
+                f"{cfg.n_layers} layers, B {B} x {S} + {toks.shape[1]} steps"
+                f" + {len(batches)} train: "
+                + (f"logits {max(rels):.2e} of max (per part "
+                   f"{[float(f'{x:.2e}') for x in rels]}), loss "
+                   f"{worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e} "
+                   f"against one process" if rels else
+                   "not held against one process")
+                + (f"; one process's bf16 against its float32 {own:.2e} of "
+                   f"max" if own is not None else "")
+                + f"; launches on {sorted(heads)} a rank"
+                + (f", {r0['local_experts']} experts a rank"
+                   if r0["local_experts"] else "")
+                + f"; drawn in {r0['draw_s']:.1f} s, prefill "
+                f"{r0['prefill_ms']:.1f} ms, decode "
+                + (f"{statistics.median(r0['step_ms']):.2f} ms a step "
+                   f"(median), " if r0["step_ms"] else "")
+                + f"train {[round(t, 1) for t in row['train_ms']]} ms (rank "
+                f"0, {backend}: not multi-GPU times); the last decode step "
+                f"profiled, every rank's all_reduce share of it {shares} "
+                f"({r0['profile']['all_reduces']} calls, rank 0 "
+                f"{r0['profile']['all_reduce_ms']:.1f} of "
+                f"{r0['profile']['step_ms']:.1f} ms); collectives: prefill "
+                f"{r0['tally_prefill']['total_bytes']} B, a decode step "
+                f"{r0['tally_decode']['total_bytes']} B"
+                + (f", a train step {r0['tally_train']['total_bytes']} B"
+                   if batches else "") + ", = meta")
+
+
+def _kv_seq_expect(cfg):
+    """A kv_seq decode step's kernel launches, the heads and slots a
+    launch is given on every rank of (DIST_W, 1): HSTU's psi through
+    ``prefix_rank_attn`` (kernel 2, the global 1 / n); a softmax ring
+    through ``decode_attn`` (an enc-dec's cross-attention over its
+    frames besides)."""
+    local = KV_SEQ_RING // DIST_W
+    if cfg.hstu:
+        return ({"prefix_rank_attn": cfg.n_layers},
+                [("rank_attn", cfg.n_heads)], [local])
+    heads = [("decode_attn", cfg.n_heads, cfg.n_kv_heads)]
+    if cfg.family == "hybrid":
+        return {"decode_attn": cfg.n_layers // cfg.attn_every}, heads, [local]
+    if cfg.family == "encdec":
+        return ({"decode_attn": 2 * cfg.n_layers}, heads,
+                sorted({local, cfg.n_frontend_tokens}))
+    return {"decode_attn": cfg.n_layers}, heads, [local]
+
+
+def _check_dist_kv_seq(torch, results, rec, outs, kv_runs, want_kv, backend):
+    """The kv_seq decodes against one process's decode of the whole ring:
+    the logits on every rank (within DIST_BF16_REL in bf16, DIST_REL in
+    float32); the slots the steps wrote, each changed on its owner's
+    part alone (no other slot of any rank changed) with the rows one
+    process wrote there; each planted merge fault past the same limit;
+    the kernel on KV_SEQ_RING / DIST_W slots and every head a rank, its
+    launches, and a step's collectives (every rank's equal, rank 0's the
+    meta dry-run's)."""
+    from repro_torch.launch.dryrun import trace_collectives
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.partitioning import make_mesh
+    mesh = make_mesh((DIST_W, 1), ("data", "model"))
+    local = KV_SEQ_RING // DIST_W
+    for tag, cfg, seed, cseed, toks in kv_runs:
+        rs = [o[3][tag] for o in outs]
+        w, w_rows = want_kv[tag]
+        lim = DIST_BF16_REL if cfg.dtype == "bfloat16" else DIST_REL
+        rels = [max(_rel(r["logits"][i], wi) for r in rs)
+                for i, wi in enumerate(w)]
+        assert max(rels) <= lim, (tag, rels)
+        written = set() if cfg.hstu else {
+            (i * (KV_SEQ_RING // KV_SEQ_STEPS) + 5) % KV_SEQ_RING
+            for i in range(KV_SEQ_STEPS)}
+        assert set(w_rows) == written, (tag, sorted(w_rows))
+        rows_rel = 0.0
+        for rank, r in enumerate(rs):
+            mine = {j for j in written if j // local == rank}
+            assert set(r["written"]) == mine, (tag, rank, sorted(r["written"]))
+            for j in mine:
+                for got, want in zip(r["written"][j], w_rows[j]):
+                    rows_rel = max(rows_rel, _rel(got, want))
+        assert rows_rel <= lim, (tag, rows_rel)
+        faults = {name: max(_rel(r["faults"][name][i], w[i]) for r in rs
+                            for i in range(KV_SEQ_FAULT_STEPS))
+                  for name in rs[0]["faults"]}
+        assert cfg.hstu or len(faults) == 2, (tag, faults)
+        assert all(v > lim for v in faults.values()), (tag, faults)
+        want_l, heads, slots = _kv_seq_expect(cfg)
+        want_l = {k: v * KV_SEQ_STEPS for k, v in want_l.items()}
+        r0 = rs[0]
+        for r in rs:
+            assert r["local_ring"] == local and r["slots"] == slots, \
+                (tag, r["local_ring"], r["slots"])
+            assert r["heads"] == heads, (tag, r["heads"])
+            assert r["launches"] == want_l, (tag, r["launches"])
+            assert r["tally"] == r0["tally"], tag
+            for name, c in want_l.items():
+                results[name]["launches"] += c
+        m = trace_collectives(cfg, InputShape("d", KV_SEQ_RING, 1, "decode"),
+                              mesh, {"kv_seq": "data"})
+        assert r0["tally"] == m, (tag, r0["tally"], m)
+        kernel = next(iter(want_l))
+        rec[f"{tag}_kv_seq"] = dict(
+            mesh=f"{DIST_W}x1", dtype=cfg.dtype, layers=cfg.n_layers,
+            ring=KV_SEQ_RING, slots_per_rank=local, steps=KV_SEQ_STEPS,
+            logits_rel=max(rels), written_rows_rel=rows_rel,
+            slots_written=len(written), planted_faults_rel=faults,
+            kernel=kernel, step_ms=r0["step_ms"], tally=r0["tally"],
+            tally_equals_meta=True)
+        log(f"dist {tag} kv_seq ({DIST_W}, 1) {cfg.dtype} {cfg.n_layers} "
+            f"layers, B 1 over {KV_SEQ_RING} slots ({local} a rank) + "
+            f"{KV_SEQ_STEPS} steps: logits {max(rels):.2e} of max against one "
+            f"process's whole ring (limit {lim:.2e}); "
+            + (f"{len(written)} slots written, each on its owner's part "
+               f"alone, rows {rows_rel:.2e} of max; planted merge faults "
+               + ", ".join(f"{k} {v:.2e}" for k, v in faults.items())
+               + " (each past the limit)" if written else
+               "psi unchanged on every rank")
+            + f"; {kernel} on {local} slots, {heads[0][1:]} heads a rank"
+            + (", merged by its lse" if not cfg.hstu else
+               ", the global 1 / n, summed")
+            + f"; decode {statistics.median(r0['step_ms']):.2f} ms a step "
+            f"(median, rank 0, {backend}); collectives a step "
+            f"{r0['tally']['all-reduce']['count']} all-reduces, "
+            f"{r0['tally']['total_bytes']} B, = meta")
 
 
 # --- phase 12: the dry-run, and the roofline of every timed step ------------------

@@ -4,6 +4,7 @@
 //
 //   out[b, h] = softmax_s(q[b, h] . k[b, s, h / G] / sqrt(D)) . v[b, s, h / G],
 //   G = H / KV; every slot s of the cache is attended (no length mask).
+//   lse[b, h] = log sum_s exp(q[b, h] . k[b, s, h / G] / sqrt(D))  (optional)
 //
 // q (B, H, D) and out (B, H, D) in the model's type; k, v are read in the
 // MODEL layout (B, S, KV, D) through their strides, so no transposed copy
@@ -50,6 +51,14 @@
 //     tail on the card's profile).  The orders are fixed, so two calls
 //     give the same bits.
 //
+// The log-sum-exp.  Where the caller asks for it (`lse` not null), the
+// block that writes head h's element d = 0 also writes lse[b, h] =
+// (max + log2(sum)) ln 2 in float32, from the same fixed-order merge of
+// the splits: the scores are held in log2 units, so the merged max and sum
+// are those of the row's softmax.  Nothing else changes, so `out` has the
+// same bits with and without it.  A caller that holds a ring in parts (the
+// sequence sharded over devices) merges the parts' outputs with it.
+//
 // Ragged edges: a run's last tile masks keys past the run (zero-filled
 // copies, score -inf), so any S is taken and nothing falls back.
 
@@ -68,6 +77,7 @@ struct DecodeParams {
     const void* k;  long long k_stride[3];    // (B, S, KV, D): b, s, kv; unit d
     const void* v;  long long v_stride[3];
     void* out;      long long o_stride[2];    // (B, H, D)
+    float* lse;     long long lse_stride;     // (B, H) float32: b; unit h; null: not asked
     int B, H, KV, S, D;
     int n_split, keys_per_split;              // the split plan; n_split blocks per cluster
     int heads_per_block;                      // GH: 1, 2 or 4 query heads per block
@@ -85,6 +95,7 @@ constexpr int KPG = 4;          // keys per lane group per tile
 constexpr int MAX_SPLITS = 8;   // the portable cluster size
 constexpr int RING_BYTES = NS * 2 * KPG * NT * 16;   // 64 KB, any type and D
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void store(float* d, float x) { *d = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* d, float x) { *d = __float2bfloat16(x); }
@@ -318,6 +329,8 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(const DecodeParams p) {
         }
         const int h = kvh * G + g0 + g;
         store(static_cast<T*>(p.out) + b * p.o_stride[0] + h * p.o_stride[1] + d, a / sum);
+        if (d == 0 && p.lse != nullptr)
+            p.lse[b * p.lse_stride + h] = (mx + log2f(sum)) * LN2;
     }
     cluster.sync();                            // peers may still read our partial
 }

@@ -149,6 +149,7 @@ class DecodeParams(ctypes.Structure):
         ("k", ctypes.c_void_p), ("k_stride", _S3),
         ("v", ctypes.c_void_p), ("v_stride", _S3),
         ("out", ctypes.c_void_p), ("o_stride", _S2),
+        ("lse", ctypes.c_void_p), ("lse_stride", ctypes.c_longlong),
         ("B", ctypes.c_int), ("H", ctypes.c_int), ("KV", ctypes.c_int),
         ("S", ctypes.c_int), ("D", ctypes.c_int), ("n_split", ctypes.c_int),
         ("keys_per_split", ctypes.c_int), ("heads_per_block", ctypes.c_int),
@@ -563,17 +564,20 @@ def _decode_template(dtype, device, q_meta, k_meta, v_meta):
         q_stride=DecodeParams._S2(*q_stride[:2]),
         k_stride=DecodeParams._S3(*k_stride[:3]),
         v_stride=DecodeParams._S3(*v_stride[:3]),
-        o_stride=DecodeParams._S2(H * D, D), B=B, H=H, KV=KV, S=S, D=D,
+        o_stride=DecodeParams._S2(H * D, D), lse_stride=H, B=B, H=H, KV=KV,
+        S=S, D=D,
         n_split=n_split, keys_per_split=kps, heads_per_block=gh,
         dtype=_DECODE_TYPES[dtype], scale=1.0 / float(D) ** 0.5)
     return bytes(tmpl)
 
 
-def decode_attn(q, k, v) -> torch.Tensor:
+def decode_attn(q, k, v, lse: bool = False):
     """Launch the flash-decode kernel: q (B, H, D), cache k, v in the
     model layout (B, S, KV, D), read through strides.  float32 or
-    bfloat16 (all three alike); returns (B, H, D) in q's type.  The
-    caller counts the launch."""
+    bfloat16 (all three alike); returns (B, H, D) in q's type, and with
+    ``lse`` also each row's log-sum-exp of the scaled scores, (B, H)
+    float32, written by the same launch.  The caller counts the
+    launch."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"decode_attn launches on CUDA tensors, got {device}")
@@ -586,5 +590,8 @@ def decode_attn(q, k, v) -> torch.Tensor:
     p = DecodeParams.from_buffer_copy(tmpl)
     p.q, p.k, p.v = q.data_ptr(), k.data_ptr(), v.data_ptr()
     p.out = out.data_ptr()
+    if lse:
+        lse_out = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
+        p.lse = lse_out.data_ptr()
     _launch("decode_attn", p, device)
-    return out
+    return (out, lse_out) if lse else out

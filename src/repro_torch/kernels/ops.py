@@ -62,10 +62,14 @@ def segment_rank_attention(q, k_new, v_new, pool, k_table, v_table,
     return _bsh_to_bhs(out)
 
 
-def cache_decode_attention(q, k, v):
+def cache_decode_attention(q, k, v, lse: bool = False):
     """Flash-decode: q (B, 1, H, D); cache k, v (B, S, KV, D) in the
     model layout, read as they are (no transpose, no fallback for an S
-    that a tile does not divide).  Returns (B, 1, H, D).  The kernel
-    maps head h to kv head ``h * KV // H``, so q holds the real heads
-    only (``attention`` never computes ``head_pad``'s padded ones)."""
+    that a tile does not divide).  Returns (B, 1, H, D), and with
+    ``lse`` each row's log-sum-exp (B, H) float32 too.  The kernel maps
+    head h to kv head ``h * KV // H``, so q holds the real heads only
+    (``attention`` never computes ``head_pad``'s padded ones)."""
+    if lse:
+        out, l = decode_attn(q[:, 0], k, v, lse=True)
+        return out[:, None], l
     return decode_attn(q[:, 0], k, v)[:, None]

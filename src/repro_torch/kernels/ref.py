@@ -213,14 +213,16 @@ def ssd_chunk_intra_f64(Cc, Bc, xc, cum, dtc, *, tf32: bool = False):
     return torch.stack(out)
 
 
-def decode_attn_ref(q, k, v):
+def decode_attn_ref(q, k, v, lse: bool = False):
     """Softmax flash-decode oracle (GQA), reference signature.
 
     q: (B, H, D) one query per sequence; k, v: (B, KV, S, D).  Computed
     in float32 throughout from 16- or 32-bit inputs (float64 from
     float64, for accuracy probes) — the softmax weights stay in that
     type before the PV product, as in the Pallas kernel and the CUDA
-    kernel — and returned in q's type."""
+    kernel — and returned in q's type.  ``lse`` also returns each row's
+    ``torch.logsumexp`` of the scaled scores, (B, H), in the compute
+    type."""
     B, H, D = q.shape
     KV = k.shape[1]
     ct = torch.promote_types(q.dtype, torch.float32)
@@ -228,4 +230,5 @@ def decode_attn_ref(q, k, v):
     ke, ve = k[:, kmap].to(ct), v[:, kmap].to(ct)       # (B, H, S, D)
     logits = torch.einsum("bhd,bhsd->bhs", q.to(ct), ke) / math.sqrt(D)
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhs,bhsd->bhd", w, ve).to(q.dtype)
+    out = torch.einsum("bhs,bhsd->bhd", w, ve).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if lse else out

@@ -28,9 +28,10 @@ The meshes are the reference's (16 x 16, 2 x 16 x 16) and one card
 (1 x 1).  ``temp_size_in_bytes`` has no counterpart here and is null
 with its reason (PyTorch has no compile-time temporary size;
 ``chip_smoke.py`` measures the card's peak).  ``collectives`` is null,
-with its reason, where the port does not run the step under a mesh yet
-(ROADMAP Queue 1, item 10): the SSM, hybrid and enc-dec families, FSDP
-and a decode whose cache shards its sequence.  The port's collectives
+with its reason, where the port does not run the step under a mesh yet:
+FSDP (ROADMAP Queue 1, item 10.3).  Every family runs under the mesh,
+a long_500k decode with its ring's sequence sharded over "data" (the
+reference's kv_seq rule) included.  The port's collectives
 are all all-reduces (an all-gather is one over a zero-padded buffer);
 XLA picks its own (reduce-scatters, fused all-reduces), so the counts
 are held against a closed form and the live run's tally
@@ -63,8 +64,10 @@ from repro_torch.models.partitioning import Rules, device_bytes, is_spec
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 # fsdp "auto": shard the weights over "data" (ZeRO-3) once a device's
-# share of them would pass 25% of its HBM (80 GB on an H100)
-FSDP_AUTO_BYTES = 0.25 * CHIP_HBM_BYTES
+# share of them would pass 25% of its HBM -- the reference's rule
+# ("~25% of chip HBM", its 4e9 of a 16e9 TPU v5e) at the H100's 80 GB
+FSDP_AUTO_SHARE = 0.25
+FSDP_AUTO_BYTES = FSDP_AUTO_SHARE * CHIP_HBM_BYTES
 
 MESHES = {"card": make_smoke_mesh, "single": make_production_mesh,
           "multi": lambda: make_production_mesh(multi_pod=True)}
@@ -72,31 +75,16 @@ MESHES = {"card": make_smoke_mesh, "single": make_production_mesh,
 TEMP_REASON = ("PyTorch has no compile-time temporary size; the card's "
                "peak (torch.cuda.max_memory_allocated) is measured by "
                "chip_smoke.py")
-MESH_FAMILIES = ("dense", "moe", "vlm", "hstu")
 COLLECTIVES_REASONS = {
-    "family": "the port does not run the SSM, hybrid and enc-dec "
-              "families under a mesh yet (ROADMAP Queue 1, item 10: "
-              "hybrid, SSM and enc-dec under a mesh)",
     "fsdp": "the port does not shard weights over data (ROADMAP Queue 1, "
-            "item 10: FSDP and ZeRO-2)",
-    "kv_seq": "the port does not shard a decode cache's sequence "
-              "(ROADMAP Queue 1, item 10: kv_seq decode)",
+            "item 10.3: FSDP and ZeRO-2)",
 }
 
 
-def collectives_reason(cfg, shape, use_fsdp, ovr):
+def collectives_reason(use_fsdp):
     """Why a record's ``collectives`` is null, or None where the port
-    runs its step under the mesh."""
-    family = "hstu" if cfg.hstu else cfg.family
-    if family not in MESH_FAMILIES:
-        return COLLECTIVES_REASONS["family"]
-    if use_fsdp:
-        return COLLECTIVES_REASONS["fsdp"]
-    from repro_torch.models.arch import kv_seq_axis
-    if (shape.kind == "decode" and ovr.get("kv_seq")
-            and kv_seq_axis(shape.global_batch, shape.seq_len)):
-        return COLLECTIVES_REASONS["kv_seq"]
-    return None
+    runs its step under the mesh (every family, every shape)."""
+    return COLLECTIVES_REASONS["fsdp"] if use_fsdp else None
 
 
 def trace_collectives(cfg, shape, mesh, overrides=None) -> dict:
@@ -252,7 +240,7 @@ def size_record(arch: str, shape, mesh_key: str, traced: dict,
     if shape.kind == "decode" and shape.global_batch == 1:
         ovr.setdefault("kv_seq", "data")
     rules = Rules(mesh, ovr, fsdp=use_fsdp)
-    reason = collectives_reason(cfg, shape, use_fsdp, ovr)
+    reason = collectives_reason(use_fsdp)
     coll = None if reason else trace_collectives(cfg, shape, mesh, ovr)
     arg_axes = traced["arg_axes"]
     if zero2 and shape.kind == "train":

@@ -110,10 +110,12 @@ def make_prefill_step(model):
     return prefill_step
 
 
-def make_serve_step(model, graphs=None):
+def make_serve_step(model, graphs=None, seq_len=None):
     """Decode: ONE new token per sequence against a KV cache / recurrent
     state.  ``serve_step(cache, {"token": (B, 1), "pos": (B,)}) ->
-    (logits, cache)``.
+    (logits, cache)``.  ``seq_len``, the cache's global length, goes to
+    every ``decode_step``: it tells a ring that the "kv_seq" rule shards
+    over the ranks of a mesh (``arch.ring_axis``).
 
     ``graphs`` as ``LiveExecutor``'s: by default a CUDA device replays a
     CUDA graph per (batch, cache) key, False runs eagerly.  The graph's
@@ -137,13 +139,14 @@ def make_serve_step(model, graphs=None):
                                            "graphs around NCCL")
 
     def eager_step(cache, batch):
-        return model.decode_step(cache, batch)
+        return model.decode_step(cache, batch, seq_len=seq_len)
 
     if runner is None:
         return eager_step
 
     def body(cache, token, pos):
-        logits, new = model.decode_step(cache, {"token": token, "pos": pos})
+        logits, new = model.decode_step(cache, {"token": token, "pos": pos},
+                                        seq_len=seq_len)
         for dst, src in zip(tensor_leaves(cache), tensor_leaves(new)):
             if dst is not src:
                 dst.copy_(src)
@@ -190,7 +193,7 @@ def make_step(model, shape: InputShape, zero2: bool = False):
     rank's shards under a process mesh."""
     if zero2:
         refuse_under_mesh("ZeRO-2 (opt_data)",
-                          "ROADMAP Queue 1, item 10: FSDP and ZeRO-2")
+                          "ROADMAP Queue 1, item 10.3: FSDP and ZeRO-2")
     p_sds, p_axes = model.abstract_params(), model.param_axes()
     b_sds, b_axes = model.batch_specs(shape), model.batch_axes(shape)
     if shape.kind == "train":
@@ -201,8 +204,8 @@ def make_step(model, shape: InputShape, zero2: bool = False):
         return make_prefill_step(model), (p_sds, b_sds), (p_axes, b_axes)
     c_sds, c_axes = cache_specs_and_axes(model, shape.global_batch,
                                          shape.seq_len)
-    return (make_serve_step(model), (p_sds, c_sds, b_sds),
-            (p_axes, c_axes, b_axes))
+    return (make_serve_step(model, seq_len=shape.seq_len),
+            (p_sds, c_sds, b_sds), (p_axes, c_axes, b_axes))
 
 
 def input_specs(model, shape: InputShape):

@@ -15,7 +15,6 @@ from typing import Dict
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -25,7 +24,7 @@ from .layers import (DTYPES, ParamSpec, abstract_tree, attention,
                      attention_specs, axes_tree, cross_entropy, ffn,
                      ffn_specs, rms_norm)
 from .moe import moe_aux, moe_ffn, moe_specs, shared_expert_ffn
-from .partitioning import (axis_index, axis_size, batch_axis,
+from .partitioning import (active_axes, axis_index, axis_size, batch_axis,
                            checkpoint_in_rules, current_rules, enter,
                            is_process_mesh, local_shape, local_spec_tree,
                            pmax, psum, reduce, refuse_under_mesh,
@@ -180,16 +179,12 @@ def local_param_specs(specs):
     return {k: local_param_specs(s) for k, s in specs.items()}
 
 
-MESH_ITEM = "ROADMAP Queue 1, item 10"
+MESH_ITEM = "ROADMAP Queue 1, item 10.3"
 
 
-def check_mesh(what: str, supported: bool):
-    """Refuse, under a process mesh of more than one device, a family
-    that does not run sharded yet and the weight sharding the port does
-    not do (fsdp)."""
-    if not supported:
-        refuse_under_mesh(what, f"{MESH_ITEM}: hybrid, SSM and enc-dec "
-                                f"under a mesh")
+def check_mesh(what: str):
+    """Refuse, under a process mesh of more than one device, the weight
+    sharding the port does not do (fsdp)."""
     rules = current_rules()
     if rules is not None and rules.fsdp:
         refuse_under_mesh(f"{what} with fsdp=True",
@@ -299,6 +294,13 @@ def draw_params(model: nn.Module, generator: torch.Generator):
     return model
 
 
+def zero_cache(model, batch_local: int, seq_len: int = 0):
+    """``model.init_cache`` for this rank's ``batch_local`` rows: the
+    zero state a loss or a prefill starts from (``init_cache`` takes the
+    global batch, which the batch axes shard)."""
+    return model.init_cache(batch_local * axis_size(batch_axis()), seq_len)
+
+
 def zeros_from_specs(spec, device):
     """A tree of (shape, dtype) leaves (dicts and tuples) as zeros."""
     if isinstance(spec, dict):
@@ -337,14 +339,34 @@ def kv_seq_axis(batch: int, seq_len: int):
     return "kv_seq" if (batch == 1 and seq_len >= 65536) else None
 
 
-def refuse_kv_seq(batch: int, seq_len: int):
-    """A decode whose cache the rules shard on its sequence axis does not
-    run under a process mesh yet."""
+def ring_axis(batch_local: int, ring_local: int, ring: int, seq_len):
+    """The mesh axis that shards a decode ring's sequence under the
+    current rules ("kv_seq": the reference's dry-run maps it to "data"
+    for one sequence, and ``kv_seq_axis`` names it from 65536 tokens),
+    or None where this rank holds the whole ring.  ``seq_len`` is the
+    decode's global length (what ``init_cache`` was given), ``ring``
+    the ring it makes (shorter under a sliding window), ``ring_local``
+    the slots this rank holds.  A rank's ring cannot tell a shard from
+    a whole ring of that length, so under rules that map kv_seq a decode
+    of one sequence without its ``seq_len`` raises."""
     rules = current_rules()
-    if (rules is not None and kv_seq_axis(batch, seq_len)
-            and rules.table.get("kv_seq") is not None):
-        refuse_under_mesh("a decode with a kv_seq-sharded cache",
-                          "ROADMAP Queue 1, item 10: kv_seq decode")
+    m = rules.table.get("kv_seq") if rules is not None else None
+    if not active_axes(m):
+        return None
+    if seq_len is None:
+        if batch_local == 1:
+            raise ValueError("a decode of one sequence under rules that "
+                             "map kv_seq needs its seq_len (the ring may "
+                             "be sharded on its sequence)")
+        return None
+    if ring_local == ring:
+        return None
+    if (batch_local != 1 or not kv_seq_axis(1, seq_len)
+            or ring_local * axis_size(m) != ring):
+        raise ValueError(f"a ring of {ring_local} slots on this rank is "
+                         f"neither the whole {ring}-slot ring of a "
+                         f"{seq_len}-token decode nor its kv_seq shard")
+    return m
 
 
 class StepSpecs:
@@ -410,7 +432,7 @@ class TransformerModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("TransformerModel", True)
+        check_mesh("TransformerModel")
         self.cfg = cfg
         self.device = resolve_device(device)
         add_params(self, local_param_specs(self.param_specs()), self.device)
@@ -450,14 +472,15 @@ class TransformerModel(StepSpecs, nn.Module):
 
     # --- blocks -------------------------------------------------------------
     def _block(self, p, x, positions, cache=None, cache_index=None,
-               window=0, aux=False):
+               window=0, aux=False, seq_axis=None):
         """One layer: (x, its K/V, its MoE load-balance loss).  ``aux``
         (the loss path) asks for the loss: a float32 zero for a dense
         FFN; without it (serve) the third value is None."""
         cfg = self.cfg
         h, kvc = attention(p["attn"], rms_norm(x, p["ln1"]), cfg,
                            positions=positions, cache=cache,
-                           cache_index=cache_index, window=window)
+                           cache_index=cache_index, window=window,
+                           seq_axis=seq_axis)
         x = x + h
         xn = rms_norm(x, p["ln2"])
         aux_loss = x.new_zeros((), dtype=torch.float32) if aux else None
@@ -483,7 +506,7 @@ class TransformerModel(StepSpecs, nn.Module):
         return x, aux
 
     def _run(self, x, positions, cache=None, cache_index=None, window=0,
-             remat=False):
+             remat=False, seq_axis=None):
         """The stacked layers in turn, each a view of the stack; returns
         (x, aux, kv).  With a ``cache`` (decode) its layer slices are
         updated in place and the same tuple returned; without one
@@ -508,7 +531,7 @@ class TransformerModel(StepSpecs, nn.Module):
             cl = None if cache is None else tuple(t[l] for t in cache)
             x, kvc, _ = self._block(self.layers.tree(l), x, positions,
                                     cache=cl, cache_index=cache_index,
-                                    window=window)
+                                    window=window, seq_axis=seq_axis)
             if cache is None:
                 if kv is None:
                     kv = tuple(torch.empty((L,) + tuple(t.shape),
@@ -565,15 +588,19 @@ class TransformerModel(StepSpecs, nn.Module):
                        cfg.vocab_padded), kv
 
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, seq_len=None):
         """One token per sequence: {"token": (B, 1), "pos": (B,)} against
-        ``cache`` -> (logits (B, 1, Vp), the same cache, updated)."""
+        ``cache`` -> (logits (B, 1, Vp), the same cache, updated).
+        ``seq_len``: the decode's global length (``init_cache``'s), which
+        tells a ring sharded on its sequence ("kv_seq") from a whole one
+        (``ring_axis``)."""
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
-        refuse_kv_seq(token.shape[0], cache[0].shape[2])
+        ring = self.cache_specs(1, seq_len)[0][0][2] if seq_len else None
+        sa = ring_axis(token.shape[0], cache[0].shape[2], ring, seq_len)
         x = _embed(self.tok, token, self.cfg.vocab_padded)
         x, _, cache = self._run(x, pos[:, None], cache=tuple(cache),
-                                cache_index=pos)
+                                cache_index=pos, seq_axis=sa)
         return _logits(self.final_norm, self.unembed, x,
                        self.cfg.vocab_padded), cache
 
@@ -602,8 +629,8 @@ class TransformerModel(StepSpecs, nn.Module):
         """Zeros of ``cache_specs`` (the reference's ``init_cache`` takes
         the unquantized layout only; here the int8 one too, with zero
         scales); under a process mesh this rank's shard of the global
-        ``batch`` rows."""
-        refuse_kv_seq(batch, seq_len)
+        ``batch`` rows (and of the ring's slots where kv_seq shards
+        them)."""
         return zeros_from_specs(local_spec_tree(
             self.cache_specs(batch, seq_len),
             self.cache_axes(batch, seq_len)), self.device)
@@ -657,10 +684,10 @@ class SSMModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("SSMModel", False)
+        check_mesh("SSMModel")
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, self.param_specs(), self.device)
+        add_params(self, local_param_specs(self.param_specs()), self.device)
 
     @property
     def is_mamba(self):
@@ -713,8 +740,7 @@ class SSMModel(StepSpecs, nn.Module):
         for l in range(self.cfg.n_layers):
             sl = (state[0][l], state[1][l])
             if remat:
-                x = checkpoint(self._train_block, l, x, sl,
-                               use_reentrant=False)
+                x = checkpoint_in_rules(self._train_block, l, x, sl)
                 continue
             x, s2 = self._block(self.layers.tree(l), x, sl, decode)
             for acc, t in zip(new, s2):
@@ -730,31 +756,36 @@ class SSMModel(StepSpecs, nn.Module):
         Mamba2 layer launches ``ssd_chunk_intra`` and ``ssd_chunk_state``
         in its forward and again in its recompute on a CUDA model (their
         backward launches none); RWKV6's WKV loop is plain PyTorch."""
+        vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens)
-        x, _ = self._run(x, self.init_cache(x.shape[0], 0), remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
-        return ce, {"ce": ce}
+        x = _embed(self.tok, tokens, vp)
+        x, _ = self._run(x, zero_cache(self, x.shape[0]), remat=True)
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
+                     vp=vp)
+        return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
     def prefill(self, batch):
         """{"tokens": (B, S)} -> (last-position logits, state), from a
         zero state."""
+        vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens)
-        x, state = self._run(x, self.init_cache(x.shape[0], 0))
-        return _logits(self.final_norm, self.unembed, x[:, -1:]), state
+        x = _embed(self.tok, tokens, vp)
+        x, state = self._run(x, zero_cache(self, x.shape[0]))
+        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), state
 
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, seq_len=None):
         """One token per sequence: {"token": (B, 1), "pos": (B,)} (``pos``
         unused: the state carries the position) against ``cache`` ->
-        (logits (B, 1, Vp), new state)."""
+        (logits (B, 1, Vp), new state).  ``seq_len`` is unused: the
+        state has no sequence axis."""
+        vp = self.cfg.vocab_padded
         token = torch.as_tensor(batch["token"], device=self.device).long()
-        x = _embed(self.tok, token)
+        x = _embed(self.tok, token, vp)
         x, state = self._run(x, cache, decode=True)
-        return _logits(self.final_norm, self.unembed, x), state
+        return _logits(self.final_norm, self.unembed, x, vp), state
 
     def cache_specs(self, batch: int, seq_len: int):
         """The state's (shape, dtype) tuple (no sharding axes); it does
@@ -771,8 +802,11 @@ class SSMModel(StepSpecs, nn.Module):
         return tuple(("layers",) + a for a in per)
 
     def init_cache(self, batch: int, seq_len: int):
-        return zeros_from_specs(self.cache_specs(batch, seq_len),
-                                self.device)
+        """Zeros of ``cache_specs``; under a process mesh this rank's
+        shard (its rows of the global ``batch``, its heads)."""
+        return zeros_from_specs(local_spec_tree(
+            self.cache_specs(batch, seq_len),
+            self.cache_axes(batch, seq_len)), self.device)
 
 
 # ===========================================================================
@@ -805,12 +839,12 @@ class HybridModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("HybridModel", False)
+        check_mesh("HybridModel")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_sections = cfg.n_layers // cfg.attn_every
         self.n_tail = cfg.n_layers - self.n_sections * cfg.attn_every
-        add_params(self, self.param_specs(), self.device)
+        add_params(self, local_param_specs(self.param_specs()), self.device)
 
     def param_specs(self):
         cfg = self.cfg
@@ -862,10 +896,9 @@ class HybridModel(StepSpecs, nn.Module):
         for l in range(n):
             st = (states[0][l], states[1][l])
             if remat:
-                x = checkpoint(
+                x = checkpoint_in_rules(
                     lambda xc, st, l=l: self._mamba_block(
-                        stacked, (*idx, l), xc, st, False)[0],
-                    x, st, use_reentrant=False)
+                        stacked, (*idx, l), xc, st, False)[0], x, st)
                 continue
             x, (s, c) = self._mamba_block(stacked, (*idx, l), x, st, decode)
             ssm.append(s)
@@ -874,27 +907,39 @@ class HybridModel(StepSpecs, nn.Module):
             return x, None
         return x, (torch.stack(ssm), torch.stack(conv))
 
-    def _shared_attn(self, x, sec, positions, cache=None, cache_index=None):
+    def _shared_attn(self, x, sec, positions, cache=None, cache_index=None,
+                     seq_axis=None):
+        """The shared attention of section ``sec``.  Under a "heads"-
+        sharded mesh (ref arch.py:416-425, layers.py:163-164, 235) the
+        rank runs its heads, its heads' columns of ``lora_b`` and its
+        rows of the shared ``wo``: the LoRA's replicated rank-R input
+        enters them and the one stacked product ends in a ``reduce``."""
         cfg = self.cfg
         p = self.shared_attn
         B, S, d = x.shape
-        hk = cfg.n_heads * cfg.head_dim
         xn = rms_norm(x, p.ln)
+        tp = sharded_axis(p.lora_b.shape[2], cfg.n_heads, "heads")
         # the per-section LoRA on the query path, through the shared wo
-        lora = (xn @ p.lora_a[sec]) @ p.lora_b[sec].reshape(self.LORA_R, -1)
+        la = xn @ p.lora_a[sec]
+        lora = (enter(la, tp) if tp else la) \
+            @ p.lora_b[sec].reshape(self.LORA_R, -1)
         out, kv = attention(p.attn.tree(), xn, cfg, positions=positions,
                             cache=cache, cache_index=cache_index,
-                            project=False)
+                            project=False, seq_axis=seq_axis)
+        hl = out.shape[2]
+        hk = hl * cfg.head_dim
         # both output products in one batched product, the block's last:
         # under remat (the loss path) the checkpoint's recompute stops
         # ahead of it, as the reference's remat drops both (no gradient
         # needs their results)
         y = torch.stack([out.reshape(B, S, hk), lora]) \
-            @ p.attn.wo[:cfg.n_heads].reshape(hk, d)
+            @ p.attn.wo[:hl].reshape(hk, d)
+        if tp:
+            return x + reduce(y[0] + y[1], tp), kv
         return x + y[0] + y[1], kv
 
     def _run(self, x, mstates, astates, positions, decode, cache_index=None,
-             remat=False):
+             remat=False, seq_axis=None):
         """Sections of ``attn_every`` Mamba2 blocks, each followed by the
         shared attention, then the tail; returns (x, Mamba2 states, the
         attention's K/V).  ``remat`` (the loss path) checkpoints every
@@ -909,14 +954,15 @@ class HybridModel(StepSpecs, nn.Module):
             x, s2 = self._mamba_stack(self.sections, (sec,), every, x, st,
                                       decode, remat)
             if remat:
-                x = checkpoint(lambda xc, sec=sec: self._shared_attn(
-                    xc, sec, positions)[0], x, use_reentrant=False)
+                x = checkpoint_in_rules(lambda xc, sec=sec: self._shared_attn(
+                    xc, sec, positions)[0], x)
                 continue
             new_m.append(s2)
             ac = tuple(t[sec] for t in astates) if astates is not None \
                 else None
             x, kv = self._shared_attn(x, sec, positions, cache=ac,
-                                      cache_index=cache_index)
+                                      cache_index=cache_index,
+                                      seq_axis=seq_axis)
             new_a.append(kv)
         if self.n_tail:
             x, s_tail = self._mamba_stack(self.tail, (), self.n_tail, x,
@@ -940,37 +986,45 @@ class HybridModel(StepSpecs, nn.Module):
         Mamba2 block launches ``ssd_chunk_intra`` and ``ssd_chunk_state``
         in its forward and again in its recompute (their backward
         launches none)."""
+        vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        zero = self.init_cache(x.shape[0], 0)["m"]
+        zero = zero_cache(self, x.shape[0])["m"]
         x, _, _ = self._run(x, zero, None, positions, decode=False,
                             remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
-        return ce, {"ce": ce}
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
+                     vp=vp)
+        return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
     def prefill(self, batch):
         """{"tokens": (B, S)} -> (last-position logits, cache)."""
+        vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
-        zero = self.init_cache(x.shape[0], 0)["m"]
+        zero = zero_cache(self, x.shape[0])["m"]
         x, mst, ast = self._run(x, zero, None, positions, decode=False)
-        return _logits(self.final_norm, self.unembed, x[:, -1:]), \
+        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), \
             {"m": mst, "a": ast}
 
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, seq_len=None):
         """One token per sequence: {"token": (B, 1), "pos": (B,)} against
-        ``cache`` -> (logits (B, 1, Vp), cache)."""
+        ``cache`` -> (logits (B, 1, Vp), cache).  ``seq_len`` as the
+        Transformer's: it tells a kv_seq-sharded attention ring."""
+        vp = self.cfg.vocab_padded
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
-        x = _embed(self.tok, token)
+        sa = ring_axis(token.shape[0], cache["a"][0].shape[2], seq_len,
+                       seq_len)
+        x = _embed(self.tok, token, vp)
         x, mst, ast = self._run(x, cache["m"], cache["a"], pos[:, None],
-                                decode=True, cache_index=pos)
-        return _logits(self.final_norm, self.unembed, x), {"m": mst, "a": ast}
+                                decode=True, cache_index=pos, seq_axis=sa)
+        return _logits(self.final_norm, self.unembed, x, vp), \
+            {"m": mst, "a": ast}
 
     def cache_specs(self, batch: int, seq_len: int):
         """The cache's (shape, dtype) tree (no sharding axes)."""
@@ -997,5 +1051,9 @@ class HybridModel(StepSpecs, nn.Module):
                 "a": (kv, kv)}
 
     def init_cache(self, batch: int, seq_len: int):
-        return zeros_from_specs(self.cache_specs(batch, seq_len),
-                                self.device)
+        """Zeros of ``cache_specs``; under a process mesh this rank's
+        shard (its rows, heads and, where kv_seq shards it, ring
+        slots)."""
+        return zeros_from_specs(local_spec_tree(
+            self.cache_specs(batch, seq_len),
+            self.cache_axes(batch, seq_len)), self.device)

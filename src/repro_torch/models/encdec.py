@@ -14,17 +14,18 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
 from .arch import (StepSpecs, _embed, _logits, _no_tf32, add_params,
                    base_batch_axes, base_batch_specs, ce_loss, check_mesh,
-                   draw_params, embed_specs, kv_seq_axis, stack_specs,
+                   draw_params, embed_specs, global_ce, kv_seq_axis,
+                   local_param_specs, ring_axis, stack_specs,
                    zeros_from_specs)
 from .config import InputShape, ModelConfig
-from .layers import (DTYPES, ParamSpec, attention, attention_specs, ffn,
-                     ffn_specs, rms_norm)
+from .layers import (DTYPES, ParamSpec, attention, attention_specs, cross_kv,
+                     ffn, ffn_specs, rms_norm)
+from .partitioning import checkpoint_in_rules, local_spec_tree
 
 
 class EncDecModel(StepSpecs, nn.Module):
@@ -51,15 +52,21 @@ class EncDecModel(StepSpecs, nn.Module):
     PLACE and reads the cross K/V as they are; it returns the same
     tensors.  On a CUDA model each decoder layer of a step launches
     ``decode_attn`` twice: over the self ring and over the F encoder
-    slots."""
+    slots.
+
+    Under a process mesh every attention (the encoder's, the decoder's
+    causal one and the cross-attention) runs on this rank's heads
+    (``layers.attention``), the cross K/V are projected onto its kv
+    heads (``layers.cross_kv``) and cached so, and the vocabulary is
+    sharded as the other families' is."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_mesh("EncDecModel", False)
+        check_mesh("EncDecModel")
         _no_tf32()
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, self.param_specs(), self.device)
+        add_params(self, local_param_specs(self.param_specs()), self.device)
 
     def enc_block_specs(self):
         d = self.cfg.d_model
@@ -112,9 +119,8 @@ class EncDecModel(StepSpecs, nn.Module):
         x = torch.as_tensor(frames, device=self.device)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         for l in range(self.cfg.n_enc_layers):
-            x = checkpoint(self._enc_block, l, x, positions,
-                           use_reentrant=False) if remat \
-                else self._enc_block(l, x, positions)
+            x = checkpoint_in_rules(self._enc_block, l, x, positions) \
+                if remat else self._enc_block(l, x, positions)
         return rms_norm(x, self.enc_norm)
 
     @torch.no_grad()
@@ -124,19 +130,18 @@ class EncDecModel(StepSpecs, nn.Module):
 
     # --- decoder --------------------------------------------------------------
     def _dec_block(self, pl, x, positions, enc=None, self_cache=None,
-                   cross_kv=None, cache_index=None):
+                   xkv=None, cache_index=None, seq_axis=None):
         """One decoder layer: (x, its self K/V, its cross K/V), the cross
-        K/V projected from ``enc`` when ``cross_kv`` is None."""
+        K/V projected from ``enc`` when ``xkv`` is None."""
         cfg = self.cfg
         h, kvc = attention(pl["attn"], rms_norm(x, pl["ln1"]), cfg,
                            positions=positions, cache=self_cache,
-                           cache_index=cache_index)
+                           cache_index=cache_index, seq_axis=seq_axis)
         x = x + h
-        if cross_kv is None:              # the cross K/V from the encoder
-            ek = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wk"])
-            ev = torch.einsum("bfd,dhk->bfhk", enc, pl["xattn"]["wv"])
+        if xkv is None:                   # the cross K/V from the encoder
+            ek, ev = cross_kv(pl["xattn"], enc, cfg)
         else:
-            ek, ev = cross_kv
+            ek, ev = xkv
         h, _ = attention(pl["xattn"], rms_norm(x, pl["lnx"]), cfg,
                          positions=positions, kv_override=(ek, ev),
                          causal=False)
@@ -145,7 +150,7 @@ class EncDecModel(StepSpecs, nn.Module):
         return x, kvc, (ek, ev)
 
     def _dec_run(self, x, positions, enc=None, self_cache=None,
-                 cross_kv=None, cache_index=None, remat=False):
+                 cross_kv=None, cache_index=None, remat=False, seq_axis=None):
         """The decoder layers in turn.  Prefill (``enc`` given): every
         layer's self K/V and its cross K/V (projected from ``enc``) are
         copied into stacked (n_layers, ...) pairs.  Decode: layer l
@@ -157,16 +162,15 @@ class EncDecModel(StepSpecs, nn.Module):
         L = self.cfg.n_layers
         if remat:
             for l in range(L):
-                x = checkpoint(lambda xc, e, l=l: self._dec_block(
-                    self.decoder.tree(l), xc, positions, enc=e)[0],
-                    x, enc, use_reentrant=False)
+                x = checkpoint_in_rules(lambda xc, e, l=l: self._dec_block(
+                    self.decoder.tree(l), xc, positions, enc=e)[0], x, enc)
             return x, None, None
         kv, xkv = self_cache, cross_kv
         for l in range(L):
             sc = None if self_cache is None else tuple(t[l] for t in self_cache)
             ckv = None if cross_kv is None else tuple(t[l] for t in cross_kv)
             x, kvc, ekv = self._dec_block(self.decoder.tree(l), x, positions,
-                                          enc, sc, ckv, cache_index)
+                                          enc, sc, ckv, cache_index, seq_axis)
             if self_cache is None:
                 if kv is None:
                     kv = tuple(torch.empty((L,) + tuple(t.shape), dtype=t.dtype,
@@ -184,41 +188,48 @@ class EncDecModel(StepSpecs, nn.Module):
         (B, S), "labels": (B, S)} -> (CE, {"ce"}): the encoder and the
         decoder each rematerialised layer by layer, the chunked CE."""
         frames = torch.as_tensor(batch["frames"], device=self.device)
+        vp = self.cfg.vocab_padded
         enc = self._encode(frames.to(self.tok.dtype), remat=True)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, _, _ = self._dec_run(x, positions, enc=enc, remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab)
-        return ce, {"ce": ce}
+        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
+                     vp=vp)
+        return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
     def prefill(self, batch):
         """{"frames": (B, F, d) (cast to the model's type), "tokens":
         (B, S)} -> (last-position logits, cache)."""
         frames = torch.as_tensor(batch["frames"], device=self.device)
+        vp = self.cfg.vocab_padded
         enc = self.encode(frames.to(self.tok.dtype))
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens)
+        x = _embed(self.tok, tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, kv, xkv = self._dec_run(x, positions, enc=enc)
-        return _logits(self.final_norm, self.unembed, x[:, -1:]), \
+        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), \
             {"self": kv, "cross": xkv}
 
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, seq_len=None):
         """One token per sequence: {"token": (B, 1), "pos": (B,)} against
         ``cache`` -> (logits (B, 1, Vp), the same cache, its self ring
-        updated)."""
+        updated).  ``seq_len`` as the Transformer's: it tells a
+        kv_seq-sharded self ring."""
+        vp = self.cfg.vocab_padded
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
-        x = _embed(self.tok, token)
+        sa = ring_axis(token.shape[0], cache["self"][0].shape[2], seq_len,
+                       seq_len)
+        x = _embed(self.tok, token, vp)
         x, kv, xkv = self._dec_run(x, pos[:, None],
                                    self_cache=tuple(cache["self"]),
                                    cross_kv=tuple(cache["cross"]),
-                                   cache_index=pos)
-        return _logits(self.final_norm, self.unembed, x), \
+                                   cache_index=pos, seq_axis=sa)
+        return _logits(self.final_norm, self.unembed, x, vp), \
             {"self": kv, "cross": xkv}
 
     def cache_specs(self, batch: int, seq_len: int):
@@ -237,8 +248,11 @@ class EncDecModel(StepSpecs, nn.Module):
         return {"self": (kv, kv), "cross": (xkv, xkv)}
 
     def init_cache(self, batch: int, seq_len: int):
-        return zeros_from_specs(self.cache_specs(batch, seq_len),
-                                self.device)
+        """Zeros of ``cache_specs``; under a process mesh this rank's
+        shard."""
+        return zeros_from_specs(local_spec_tree(
+            self.cache_specs(batch, seq_len),
+            self.cache_axes(batch, seq_len)), self.device)
 
     def batch_specs(self, shape: InputShape):
         """The entry point's batch as {name: (shape, dtype)}: the base

@@ -36,12 +36,12 @@ from repro_torch.kernels import ops, ref
 
 from .arch import (StepSpecs, _embed, _logits, ce_loss, check_mesh,
                    draw_params, embed_specs, global_ce, kv_seq_axis,
-                   local_param_specs, refuse_kv_seq, stack_specs)
+                   local_param_specs, ring_axis, stack_specs)
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
-from .partitioning import (checkpoint_in_rules, enter, gather,
-                           local_spec_tree, reduce, refuse_under_mesh,
-                           sharded_axis)
+from .partitioning import (axis_index, axis_size, checkpoint_in_rules, enter,
+                           gather, local_spec_tree, psum, reduce,
+                           refuse_under_mesh, sharded_axis)
 
 
 def hstu_block_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -74,7 +74,7 @@ class HSTUModel(StepSpecs, nn.Module):
         # float32 products stay float32 on the card (no TF32 rounding)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        check_mesh("HSTUModel", True)
+        check_mesh("HSTUModel")
         self.cfg = cfg
         self.device = resolve_device(device)
         specs = local_param_specs(self.param_specs())
@@ -195,24 +195,36 @@ class HSTUModel(StepSpecs, nn.Module):
         return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
-    def decode_step(self, cache, batch):
+    def decode_step(self, cache, batch, seq_len=None):
         """One token per row against psi: {"token": (B, 1), "pos": (B,)}
         with ``cache`` a (K, V) pair of (L, B, P, H, D) -> (logits
         (B, 1, vocab_padded), cache).  The token attends to all P cached
         tokens and itself (n_total = P + 1, the reference's ``mask=None``
         path), rotated at its row's ``pos``; the cache is returned
-        unchanged, as in the reference."""
+        unchanged, as in the reference.
+
+        ``seq_len`` (P) tells a psi whose tokens kv_seq shards over the
+        ranks of an axis (``arch.ring_axis``): HSTU's attention is a sum
+        of SiLU terms over 1 / n_total with no softmax, so each rank
+        attends over its P / n tokens with the global n_total (the token
+        itself on the axis's first rank only: the others give it a zero
+        V) and one ``psum`` over the axis adds the parts."""
         token = torch.as_tensor(batch["token"], device=self.device).long()
         pos = torch.as_tensor(batch["pos"], device=self.device)
         pk, pv = cache
-        refuse_kv_seq(token.shape[0], pk.shape[2])
-        n_total = pk.shape[2] + 1
+        sa = ring_axis(token.shape[0], pk.shape[2], seq_len, seq_len)
+        n_total = pk.shape[2] * axis_size(sa) + 1
         vp = self.cfg.vocab_padded
         x = _embed(self.tok, token, vp)
-        x, _ = self._run(
-            x, pos[:, None],
-            lambda l, q, k, v: ops.rank_attention(
-                q, k, v, pk[l], pv[l], n_incr=1, n_total=n_total))
+
+        def attend(l, q, k, v):
+            if sa and axis_index(sa):
+                v = torch.zeros_like(v)
+            av = ops.rank_attention(q, k, v, pk[l], pv[l], n_incr=1,
+                                    n_total=n_total)
+            return psum(av, sa) if sa else av
+
+        x, _ = self._run(x, pos[:, None], attend)
         return _logits(self.final_norm, self.unembed, x, vp), cache
 
     # --- RelayGR prefix / rank protocol -------------------------------------
@@ -346,7 +358,6 @@ class HSTUModel(StepSpecs, nn.Module):
     def init_cache(self, batch: int, seq_len: int):
         """A zero psi of ``seq_len`` tokens: (K, V), each (L, B, S, H, D)
         (under a process mesh this rank's shard)."""
-        refuse_kv_seq(batch, seq_len)
         specs, axes = self.cache_specs(batch, seq_len)
         return tuple(torch.zeros(kv[0], dtype=kv[1], device=self.device)
                      for kv in local_spec_tree(specs, axes))

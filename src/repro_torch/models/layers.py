@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .partitioning import (axis_index, axis_size, enter, reduce,
+from .partitioning import (axis_index, axis_size, enter, pmax, psum, reduce,
                            sharded_axis)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -218,7 +218,7 @@ def _sdpa_q_chunked(q, k, v, scale, chunk, *, prefix_len=0, window=0):
 
 def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
               kv_override=None, window: int = 0, causal: bool = True,
-              prefix_len: int = 0, project: bool = True):
+              prefix_len: int = 0, project: bool = True, seq_axis=None):
     """Attention, as ``repro.models.layers.attention``.
 
     * prefill (``cache`` None): causal (or bidirectional) self-attention
@@ -250,7 +250,15 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     ``project=False`` returns the heads' output (B, S, n_heads, D)
     before ``wo`` in place of the projected (B, S, d): a caller that
     projects it together with another product (the hybrid's shared
-    attention)."""
+    attention).
+
+    Under a process mesh the heads are this rank's (``_local_heads``);
+    ``seq_axis`` (decode) is the mesh axis the ring's sequence is sharded
+    on (the "kv_seq" rule, ``arch.ring_axis``): rank r holds the ring's
+    slots [r Sl, (r + 1) Sl), only the rank that holds slot
+    ``cache_index % (n Sl)`` takes the new entry (at its local index),
+    and each rank's ``decode_attn`` over its slots is merged as GSPMD's
+    softmax over the whole ring is (``merge_ring``)."""
     B, S, d = x.shape
     wq, wo = params["wq"], params["wo"]
     tp, h0, n_real, kv_lo, kv_hi = _local_heads(cfg, wq.shape[1],
@@ -285,8 +293,9 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     mine = slice(kv_lo, kv_hi)                   # the kv heads q reads
 
     if kv_override is not None:
-        out = (ops.cache_decode_attention(q, k, v) if S == 1
-               else _sdpa(q, k, v, None, scale))
+        ka, va = k[:, :, mine], v[:, :, mine]
+        out = (ops.cache_decode_attention(q, ka, va) if S == 1
+               else _sdpa(q, ka, va, None, scale))
         new_cache = (k, v)
     elif cache is not None:
         if cfg.kv_quant and len(cache) != 4:
@@ -302,20 +311,37 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
             # caller's cache (one row per sequence) — a deliberate
             # difference that saves a full copy of the cache per step.
             rows = torch.arange(B, device=x.device)
-            slot = (cache_index.to(x.device).long() % ck.shape[1])
-            if cfg.kv_quant:
-                for dst, scl, new in ((ck, cache[2], k), (cv, cache[3], v)):
+            sl = ck.shape[1]
+            slot = cache_index.to(x.device).long() % (sl * axis_size(seq_axis))
+            owner = None
+            if seq_axis:
+                # the rank holding the slot writes it; the others write
+                # back what their row already holds there
+                owner = (slot // sl == axis_index(seq_axis))[:, None, None]
+                slot = slot % sl
+            writes = []
+            for dst, scl, new in ((ck, cache[2] if cfg.kv_quant else None, k),
+                                  (cv, cache[3] if cfg.kv_quant else None, v)):
+                if cfg.kv_quant:
                     qv, qs = quantize_kv(new[:, 0])
-                    dst[rows, slot] = qv
-                    scl[rows, slot] = qs
-            else:
-                ck[rows, slot] = k[:, 0].to(ck.dtype)
-                cv[rows, slot] = v[:, 0].to(cv.dtype)
+                    writes += [(dst, qv), (scl, qs)]
+                else:
+                    writes.append((dst, new[:, 0].to(dst.dtype)))
+            for dst, val in writes:
+                if owner is not None:
+                    val = torch.where(owner, val, dst[rows, slot])
+                dst[rows, slot] = val
         if cfg.kv_quant:
             ck = dequantize_kv(ck, cache[2], k.dtype)
             cv = dequantize_kv(cv, cache[3], v.dtype)
-        out = (ops.cache_decode_attention(q, ck[:, :, mine], cv[:, :, mine])
-               if n_real else q)
+        if not n_real:
+            out = q
+        elif seq_axis:
+            out = merge_ring(*ops.cache_decode_attention(
+                q, ck[:, :, mine], cv[:, :, mine], lse=True), seq_axis)
+        else:
+            out = ops.cache_decode_attention(q, ck[:, :, mine],
+                                             cv[:, :, mine])
         new_cache = cache
     else:
         qc = cfg.attn_q_chunk
@@ -335,6 +361,36 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     y = torch.einsum("bshk,hkd->bsd", out, wo)
     # ref layers.py:235: constrain(y, ("batch", "seq", "embed"))
     return (reduce(y, tp) if tp else y), new_cache
+
+
+def merge_ring(out, lse, axis):
+    """One query's attention over a ring whose slots are split over the
+    ranks of ``axis``: each rank's ``out`` (B, 1, H, D) over its slots
+    and their log-sum-exp ``lse`` (B, H) merged as the softmax over all
+    the slots: m = pmax(lse), out = psum(e^(lse - m) out) / psum(e^(lse
+    - m)), in float32 (one pmax and two psums over ``axis``)."""
+    ct = torch.promote_types(out.dtype, torch.float32)
+    m = pmax(lse, axis)
+    w = torch.exp(lse.to(ct) - m.to(ct))
+    num = psum(out.to(ct) * w[:, None, :, None], axis)
+    return (num / psum(w, axis)[:, None, :, None]).to(out.dtype)
+
+
+def cross_kv(params, enc, cfg):
+    """The cross K/V of an encoder output ``enc`` (B, F, d) by an
+    attention's ``wk`` / ``wv``: (B, F, KV, D) each, on this rank's kv
+    heads under a process mesh (the replicated ``enc``, and a kv weight
+    the axis does not divide, enter the products sharded on the
+    heads)."""
+    wk, wv = params["wk"], params["wv"]
+    tp, _, _, kv_lo, kv_hi = _local_heads(cfg, params["wq"].shape[1],
+                                          wk.shape[1])
+    if tp:
+        enc = enter(enc, tp)
+        if kv_hi - kv_lo < wk.shape[1]:
+            wk, wv = enter(wk, tp), enter(wv, tp)
+    return (torch.einsum("bfd,dhk->bfhk", enc, wk),
+            torch.einsum("bfd,dhk->bfhk", enc, wv))
 
 
 def _local_heads(cfg, hl: int, kvl: int):

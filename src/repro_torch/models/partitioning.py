@@ -38,7 +38,7 @@ the code it always ran.  ``constrain`` stays the identity on values.
 FSDP-style weight sharding (ZeRO-3 on the "data" axis) is switched per
 mesh by ``fsdp=True``: every weight's "embed" axis is sharded over
 "data".  The dry-run sizes it; the model code refuses it under a
-process mesh of more than one device (ROADMAP Queue 1, item 10).
+process mesh of more than one device (ROADMAP Queue 1, item 10.3).
 """
 
 from __future__ import annotations
@@ -456,25 +456,42 @@ def reduce(x, axis):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.index = axis_index(axis)
+    def forward(ctx, x, axis, partial):
+        ctx.index, ctx.partial = axis_index(axis), partial
+        ctx.mesh, ctx.axes = current_rules().mesh, active_axes(axis)
         buf = x.new_zeros((axis_size(axis),) + tuple(x.shape))
         buf[ctx.index] = x
-        return current_rules().mesh.all_reduce(buf, active_axes(axis), "sum",
-                                               "all-gather")
+        return ctx.mesh.all_reduce(buf, ctx.axes, "sum", "all-gather")
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.index], None
+        if ctx.partial:
+            g = ctx.mesh.all_reduce(g, ctx.axes, "sum")
+        return g[ctx.index], None, None
 
 
-def gather(x, axis):
+def gather(x, axis, partial: bool = False):
     """(n, *x.shape): every rank's ``x`` along ``axis`` in coordinate
     order, as one all-reduce of a zero buffer holding this rank's row
     (x + 0 is exact); counted as an all-gather.  The gradient of the
-    result is taken as replicated over ``axis``: each rank keeps its
-    own row of it."""
-    return _Gather.apply(x, axis) if active_axes(axis) else x[None]
+    result is taken as replicated over ``axis`` (every rank computes
+    the same from it): each rank keeps its own row of it.  ``partial``:
+    the ranks use the result differently (each its own columns of a
+    projection, say) and each gradient is a partial sum: the backward
+    sums it over ``axis`` (one all-reduce) before taking the row, the
+    reduce-scatter that GSPMD's all-gather has for its transpose."""
+    return _Gather.apply(x, axis, partial) if active_axes(axis) \
+        else x[None]
+
+
+def gather_last(x, axis, partial: bool = False):
+    """``gather`` along the last dimension: this rank's columns of a
+    tensor sharded on its last dimension over ``axis`` -> the whole
+    (..., n * cols), in coordinate order."""
+    if not active_axes(axis):
+        return x
+    g = gather(x, axis, partial)
+    return g.movedim(0, -2).reshape(x.shape[:-1] + (-1,))
 
 
 @contextlib.contextmanager

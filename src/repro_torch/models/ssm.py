@@ -14,6 +14,19 @@ PyTorch in float32.
 The recurrent state (``ssm`` (B, H, N, P) float32, ``conv`` (B, K-1, C))
 is the decode cache.
 
+Under a process mesh (``models.partitioning``) both run on this rank's
+heads.  Mamba2's ``w_in`` and ``conv`` are laid out [z | x | B | C | dt]
+and cut into contiguous "ff" columns that do not fall on those parts, so
+the rank gathers the projection (one all-gather, its gradient summed
+back over the axis) and takes its heads' z, x and dt and the whole B and
+C (every head reads them); the small ``conv`` weight and, in a decode,
+the conv state are gathered likewise.  The gated norm sums its squares
+over the axis and ``w_out`` is row-parallel (``reduce``).  RWKV6's
+``wr`` / ``wk`` / ``wv`` / ``wg`` are column-parallel on "heads" and
+``w_out`` row-parallel; where the heads ("rwkv_heads") do not divide the
+axis but the columns do, the rank gathers r, k, v and g (one all-gather)
+and runs every head.
+
 RWKV6's WKV recurrence is a per-token scan over a (B, H, 64, 64) float32
 state, as in the reference (a ``lax.scan`` in plain jnp there, with no
 Pallas kernel): here a plain loop over time in float32.  Its state
@@ -32,6 +45,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ssd_chunk
 
 from .layers import DTYPES, ParamSpec, rms_norm
+from .partitioning import (axis_index, enter, gather_last, reduce,
+                           sharded_axis)
 
 MAMBA_CHUNK = 128
 
@@ -52,11 +67,66 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def _mamba_split(params, u, cfg):
-    di, N = cfg.d_inner, cfg.ssm_state
-    proj = u @ params["w_in"]
-    return proj[..., :di], proj[..., di:2 * di + 2 * N], \
-        proj[..., 2 * di + 2 * N:]
+def _mamba_tp(params, cfg):
+    """The mesh axis this rank's Mamba2 heads are sharded on (None off a
+    mesh).  Every "ff" weight (``w_in``, ``conv``, the gated norm,
+    ``w_out``) must be cut on the same axis: an axis that divides the
+    heads divides d_inner and, at every config's widths, 2 N too."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    tp = sharded_axis(params["A_log"].shape[0], H, "ssm_heads")
+    for name, dim, n in (("w_in", 1, 2 * di + 2 * N + H),
+                         ("conv", 1, di + 2 * N), ("norm", 0, di),
+                         ("w_out", 0, di)):
+        if sharded_axis(params[name].shape[dim], n, "ff") != tp:
+            raise ValueError(f"Mamba2 {name} ({params[name].shape[dim]} of "
+                             f"{n}) and its heads ({params['A_log'].shape[0]}"
+                             f" of {H}) are not cut alike")
+    return tp
+
+
+def _mamba_in(params, u, cfg, conv0):
+    """The projection and the causal conv: (z, x, B, C, dt before its
+    softplus, the new conv state), x (B, L, Hl, P) on this rank's Hl
+    heads (z and dt theirs too), B and C (B, L, N) whole.  Off a mesh
+    the model's own slices of one projection; under one (``_mamba_tp``)
+    the projection, ``conv`` and the conv state gathered, the conv run
+    on every column (a few multiply-adds an element) and this rank's
+    columns taken."""
+    B, L, _ = u.shape
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    tp = _mamba_tp(params, cfg)
+    conv = params["conv"]
+    if tp:
+        # ref ssm.py:89: constrain(x, (.., "ssm_heads", None)): GSPMD
+        # moves the "ff" columns onto the heads; here by gathering
+        proj = gather_last(enter(u, tp) @ params["w_in"], tp, partial=True)
+        conv = gather_last(conv, tp, partial=True)
+        if conv0 is not None:
+            conv0 = gather_last(conv0, tp)
+    else:
+        proj = u @ params["w_in"]
+    z, xBC, dtr = (proj[..., :di], proj[..., di:2 * di + 2 * N],
+                   proj[..., 2 * di + 2 * N:])
+    xBC, conv_state = _causal_conv(xBC, conv, conv0)
+    Hl = params["A_log"].shape[0]
+    h0 = axis_index(tp) * Hl if tp else 0
+    if tp:
+        z = z[..., h0 * P:(h0 + Hl) * P]
+        dtr = dtr[..., h0:h0 + Hl]
+        cl = params["conv"].shape[1]
+        conv_state = conv_state[..., axis_index(tp) * cl:
+                                (axis_index(tp) + 1) * cl]
+    x = xBC[..., h0 * P:(h0 + Hl) * P].reshape(B, L, Hl, P)
+    return z, x, xBC[..., di:di + N], xBC[..., di + N:], dtr, conv_state, tp
+
+
+def _mamba_out(params, y, z, tp):
+    """The gated RMS norm over d_inner (its squares summed over ``tp``
+    where y holds this rank's heads) and the row-parallel ``w_out``."""
+    y = rms_norm(y * F.silu(z), params["norm"], axis=tp)
+    out = y @ params["w_out"]
+    # ref ssm.py:136: constrain(out, ("batch", "seq", "embed"))
+    return reduce(out, tp) if tp else out
 
 
 def _causal_conv(xBC, weight, state=None):
@@ -84,7 +154,8 @@ def mamba2_forward(params, u, cfg, state=None):
     from.  ``L`` must be at most ``MAMBA_CHUNK`` or a multiple of it, as
     the reference's chunk reshape requires; anything else raises."""
     B, L, d = u.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = params["A_log"].shape[0]                           # this rank's heads
     if L > MAMBA_CHUNK and L % MAMBA_CHUNK:
         raise ValueError(f"mamba2_forward needs L <= {MAMBA_CHUNK} or a "
                          f"multiple of {MAMBA_CHUNK}, got L={L}")
@@ -96,9 +167,7 @@ def mamba2_forward(params, u, cfg, state=None):
         ssm0 = torch.zeros((B, H, N, P), dtype=torch.float32, device=u.device)
         conv0 = None
 
-    z, xBC, dtr = _mamba_split(params, u, cfg)
-    xBC, conv_state = _causal_conv(xBC, params["conv"], conv0)
-    x = xBC[..., :di].reshape(B, L, H, P)
+    z, x, Bm, Cm, dtr, conv_state, tp = _mamba_in(params, u, cfg, conv0)
     dt = F.softplus(dtr.float() + params["dt_bias"])      # (B, L, H)
     A = -torch.exp(params["A_log"].float())               # (H,) negative
     la = dt * A                                           # log-decay <= 0
@@ -107,8 +176,8 @@ def mamba2_forward(params, u, cfg, state=None):
     # its type: the kernels widen each value to float32 as they read it
     # (the reference casts them to float32 first; the values are equal)
     xc = x.reshape(B, nc, Q, H, P)
-    Bc = xBC[..., di:di + N].reshape(B, nc, Q, N)
-    Cc = xBC[..., di + N:].reshape(B, nc, Q, N)
+    Bc = Bm.reshape(B, nc, Q, N)
+    Cc = Cm.reshape(B, nc, Q, N)
     dtc = dt.reshape(B, nc, Q, H)
     cum = torch.cumsum(la.reshape(B, nc, Q, H), dim=2)    # (B, nc, Q, H)
 
@@ -131,21 +200,19 @@ def mamba2_forward(params, u, cfg, state=None):
     y_inter = CS.view(B, nc, Q, H, P) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, L, H, P)
     y = y + params["D"].float()[None, None, :, None] * x
-    y = y.reshape(B, L, di).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"])
-    return y @ params["w_out"], (S, conv_state)
+    y = y.reshape(B, L, H * P).to(u.dtype)
+    return _mamba_out(params, y, z, tp), (S, conv_state)
 
 
 def mamba2_decode(params, u, cfg, state):
     """Single-token step.  u: (B, 1, d); state from ``mamba2_forward``."""
     B = u.shape[0]
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     ssm, conv = state
-    z, xBC, dtr = _mamba_split(params, u, cfg)
-    xBC, conv = _causal_conv(xBC, params["conv"], conv)
-    x = xBC[:, 0, :di].reshape(B, H, P).float()
-    Bm = xBC[:, 0, di:di + N].float()                      # (B, N)
-    Cm = xBC[:, 0, di + N:].float()
+    z, x, Bm, Cm, dtr, conv, tp = _mamba_in(params, u, cfg, conv)
+    H, P = x.shape[2], x.shape[3]                           # this rank's heads
+    x = x[:, 0].float()                                     # (B, H, P)
+    Bm = Bm[:, 0].float()                                   # (B, N)
+    Cm = Cm[:, 0].float()
     dt = F.softplus(dtr[:, 0].float() + params["dt_bias"])  # (B, H)
     A = -torch.exp(params["A_log"].float())
     a = torch.exp(dt * A)
@@ -153,9 +220,8 @@ def mamba2_decode(params, u, cfg, state):
     ssm = a[..., None, None] * ssm + upd
     y = torch.einsum("bn,bhnp->bhp", Cm, ssm) \
         + params["D"].float()[None, :, None] * x
-    y = y.reshape(B, 1, di).to(u.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"])
-    return y @ params["w_out"], (ssm, conv)
+    y = y.reshape(B, 1, H * P).to(u.dtype)
+    return _mamba_out(params, y, z, tp), (ssm, conv)
 
 
 def mamba2_state_specs(cfg, batch: int):
@@ -243,26 +309,59 @@ def rwkv6_forward(params, x, cfg, state=None):
     """x: (B, L, d); state: (wkv (B, H, N, N) float32, shift (B, 1, d)).
     Returns (y, (wkv, shift)); the new shift is ``x[:, -1:]``."""
     B, L, d = x.shape
-    H, N = d // RWKV_HEAD, RWKV_HEAD
+    N = RWKV_HEAD
+    p = dict(params)
+    cols = p["wr"].shape[1]                   # this rank's "heads" columns
+    tp = sharded_axis(cols, d, "heads")
+    head_ax = sharded_axis(p["u"].shape[0], d // N, "rwkv_heads")
+    if head_ax not in (None, tp):
+        raise ValueError(f"RWKV6 heads on {head_ax}, columns on {tp}")
+    c0 = axis_index(tp) * cols if tp else 0
+    if tp:
+        # every replicated weight (and the input) reaches this rank's
+        # columns only: its gradient is a partial sum over the axis
+        x = enter(x, tp)
+        for name in ("mu", "w0", "w_lora_a", "w_lora_b", "ln_out") + (
+                () if head_ax else ("u",)):
+            p[name] = enter(p[name], tp)
+    whole = tp is not None and head_ax is None     # gather r, k, v, g
+    H = d // N if whole else cols // N             # the heads this rank runs
     if state is None:
         wkv0 = torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
         shift0 = x.new_zeros((B, 1, d))
     else:
         wkv0, shift0 = state
-    xr, xk, xv, xw, xg = _rwkv_mix(params, x, shift0)
-    r = (xr @ params["wr"]).reshape(B, L, H, N)
-    k = (xk @ params["wk"]).reshape(B, L, H, N)
-    v = (xv @ params["wv"]).reshape(B, L, H, N)
-    g = F.silu(xg @ params["wg"])
+    xr, xk, xv, xw, xg = _rwkv_mix(p, x, shift0)
+    if whole:
+        # half a head a rank: the reference's GSPMD gathers the columns
+        rkvg = gather_last(torch.stack([xr @ p["wr"], xk @ p["wk"],
+                                        xv @ p["wv"], xg @ p["wg"]]), tp,
+                           partial=True)
+        r, k, v = (t.reshape(B, L, H, N) for t in rkvg[:3])
+        g = rkvg[3]
+        span = slice(0, d)
+    else:
+        r = (xr @ p["wr"]).reshape(B, L, H, N)
+        k = (xk @ p["wk"]).reshape(B, L, H, N)
+        v = (xv @ p["wv"]).reshape(B, L, H, N)
+        g = xg @ p["wg"]
+        span = slice(c0, c0 + cols)
+    g = F.silu(g)
     # data-dependent decay (Finch): w = exp(-exp(w0 + lora(xw))), float32
-    lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
-    wlog = params["w0"].float() + lora.float()
+    lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"][:, span]
+    wlog = p["w0"][span].float() + lora.float()
     w = torch.exp(-torch.exp(wlog)).reshape(B, L, H, N)
+    # ref ssm.py:246: constrain(r, ("batch", "seq", "rwkv_heads", None))
     y, wkv = _rwkv_wkv_scan(r.float(), k.float(), v.float(), w,
-                            params["u"].float(), wkv0.float())
-    y = y.reshape(B, L, d).to(x.dtype)
-    y = rms_norm(y, params["ln_out"]) * g
-    return y @ params["w_out"], (wkv, x[:, -1:, :])
+                            p["u"].float(), wkv0.float())
+    y = y.reshape(B, L, H * N).to(x.dtype)
+    ln = p["ln_out"][span]
+    y = (rms_norm(y, ln) if whole else rms_norm(y, ln, axis=tp)) * g
+    if whole:
+        y = y[..., c0:c0 + cols]
+    out = y @ p["w_out"]
+    # ref ssm.py:254: constrain(out, ("batch", "seq", "embed"))
+    return (reduce(out, tp) if tp else out), (wkv, x[:, -1:, :])
 
 
 def rwkv6_state_specs(cfg, batch: int):

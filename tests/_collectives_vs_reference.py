@@ -26,7 +26,8 @@ import dataclasses  # noqa: E402
 
 import jax  # noqa: E402
 
-ARCHS = ("hstu_gr", "qwen3_4b", "deepseek_moe_16b")
+ARCHS = ("hstu_gr", "qwen3_4b", "deepseek_moe_16b", "zamba2_1p2b",
+         "rwkv6_1p6b", "seamless_m4t_large_v2")
 B, S = 4, 64
 
 

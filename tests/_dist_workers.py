@@ -18,13 +18,15 @@ import torch
 import torch.multiprocessing as mp
 
 from repro_torch.launch.mesh import ProcessMesh, destroy
-from repro_torch.launch.steps import make_train_step, sum_over_batch
+from repro_torch.launch.steps import (make_serve_step, make_train_step,
+                                      sum_over_batch)
 from repro_torch.models import build_model, moe
 from repro_torch.models.convert import load_jax_params
 from repro_torch.models.partitioning import (Rules, logical_rules, shard,
-                                             shard_batch, shard_slices)
+                                             shard_batch, shard_slices,
+                                             shard_tree)
 from repro_torch.training import optimizer as opt
-from repro_torch.tree import flatten
+from repro_torch.tree import flatten, tree_map
 
 _COUNT = itertools.count()
 
@@ -52,14 +54,17 @@ def _entry(rank, fn, sizes, run, args):
         destroy()
 
 
-def assemble(parts, axes, shape, sizes, names=("data", "model")):
+def assemble(parts, axes, shape, sizes, names=("data", "model"),
+             overrides=None):
     """The full (shape) array from every rank's shard (rank order) of a
-    tensor with logical axes ``axes``; asserts that ranks holding the
-    same slice hold the same bits."""
+    tensor with logical axes ``axes`` (under the default rules with
+    ``overrides``); asserts that ranks holding the same slice hold the
+    same bits."""
     out = np.full(shape, np.nan, np.float64)
     for r, part in enumerate(parts):
         mesh = ProcessMesh.meta(sizes, names, rank=r)
-        sl = shard_slices(shape, Rules(mesh).spec(axes, shape=shape), mesh)
+        sl = shard_slices(shape, Rules(mesh, overrides).spec(
+            axes, shape=shape), mesh)
         part = np.asarray(part, np.float64)
         seen = out[sl]
         assert np.isnan(seen).all() or np.array_equal(seen, part), axes
@@ -110,14 +115,21 @@ def _grads(model, batch):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
+def batch_axes(batch):
+    """Every entry of a batch sharded on its first (batch) dimension."""
+    return {k: ("batch",) + (None,) * (np.ndim(v) - 1)
+            for k, v in batch.items()}
+
+
 def lm_worker(mesh, cfg, params, prompt, steps, train):
-    """A Transformer: the prefill's logits and cache, decode steps'
-    logits, the cache after them; the loss, its metrics and every
-    gradient; the collectives of each part."""
+    """Any family: the prefill's logits and cache, decode steps'
+    logits, the cache after them (a tuple cache's leaves; None for a
+    dict), the loss, its metrics and every gradient; the collectives of
+    each part."""
     model = _model(cfg, params)
     out = {}
-    baxes = {"tokens": ("batch", None)}
-    logits, cache = model.prefill(_tensors(shard_batch(prompt, baxes)))
+    logits, cache = model.prefill(_tensors(shard_batch(prompt,
+                                                       batch_axes(prompt))))
     out["prefill"] = _np(logits)
     out["tally_prefill"] = mesh.collectives()
     mesh.reset_tally()
@@ -127,13 +139,36 @@ def lm_worker(mesh, cfg, params, prompt, steps, train):
             {"token": tok, "pos": pos},
             {"token": ("batch", None), "pos": ("batch",)})))
         out["decode"].append(_np(lg))
-    out["cache"] = [_np(c) for c in cache]
+    out["cache"] = ([_np(c) for c in cache] if isinstance(cache, tuple)
+                    else None)
     out["tally_decode"] = mesh.collectives()
     mesh.reset_tally()
     out["metrics"], out["grads"] = _grads(model, _tensors(shard_batch(
-        train, {"tokens": ("batch", None), "labels": ("batch", None)})))
+        train, batch_axes(train))))
     out["tally_loss"] = mesh.collectives()
     return out
+
+
+def kv_seq_worker(mesh, cfg, params, cache, seq_len, steps):
+    """One sequence decoded under the kv_seq rule ("kv_seq" on "data", as
+    the reference's dry-run sets it for a batch of one): this rank's
+    shard of the global ``cache`` (a numpy tree), ``make_serve_step``
+    over ``steps`` ((token, pos) pairs); each step's logits, the cache
+    after them and the collectives of the last step."""
+    with logical_rules(mesh, {"kv_seq": "data"}):
+        model = _model(cfg, params)
+        local = tree_map(lambda a: torch.tensor(np.ascontiguousarray(a)),
+                         shard_tree(cache, model.cache_axes(1, seq_len)))
+        serve = make_serve_step(model, graphs=False, seq_len=seq_len)
+        out = {"logits": []}
+        for tok, pos in steps:
+            mesh.reset_tally()
+            lg, local = serve(local, {"token": torch.as_tensor(tok),
+                                      "pos": torch.as_tensor(pos)})
+            out["logits"].append(_np(lg))
+        out["tally"] = mesh.collectives()
+        out["cache"] = tree_map(_np, local)
+        return out
 
 
 def hstu_worker(mesh, cfg, params, prompt, incr, items, train):

@@ -547,6 +547,42 @@ def test_decode_attn_split_plan_edges_are_exact_and_deterministic(dev, case):
     assert torch.equal(dk.decode_attn(q, k, v), got)
 
 
+@pytest.mark.parametrize("S", [1, 65, 1000, 8192])
+@pytest.mark.parametrize("KV", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_lse(dev, S, KV, dtype):
+    """The kernel's log-sum-exp (one launch, counted once): ``out`` the
+    same bits with and without it; the lse within 1e-4 of its twin's
+    (``torch.logsumexp``) and of float64's; the ring cut in 3 at 64-slot
+    boundaries, merged by the parts' lse, equal to the whole ring's out
+    (float32 within 1e-5, bf16 within 2^-6 of the largest |out|)."""
+    B, H, D = 2, 32, 64
+    q = _randn(dev, B, H, D, seed=1).to(dtype)
+    k = _randn(dev, B, S, KV, D, seed=2).to(dtype)
+    v = _randn(dev, B, S, KV, D, seed=3).to(dtype)
+    before = dk.launches
+    out, lse = dk.decode_attn(q, k, v, lse=True)
+    assert dk.launches == before + 1
+    assert lse.shape == (B, H) and lse.dtype == torch.float32
+    assert torch.equal(out, dk.decode_attn(q, k, v))
+    _, twin = dk.decode_attn_plain(q, k, v, lse=True)
+    _, l64 = dk.decode_attn_plain(q.double(), k.double(), v.double(),
+                                  lse=True)
+    assert (lse - twin).abs().max().item() <= 1e-4
+    assert (lse.double() - l64).abs().max().item() <= 1e-4
+    cut = sorted({0, S} | {c for c in (64 * (S // 192), 128 * (S // 192))
+                           if 0 < c < S})
+    parts = [dk.decode_attn(q, k[:, a:b], v[:, a:b], lse=True)
+             for a, b in zip(cut[:-1], cut[1:])]
+    pl = torch.stack([p[1] for p in parts])
+    w = torch.exp(pl - pl.amax(0))
+    merged = (torch.stack([p[0].float() for p in parts]) * w[..., None]
+              ).sum(0) / w.sum(0)[..., None]
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    assert (merged - out.float()).abs().max().item() <= \
+        tol * out.float().abs().max().item()
+
+
 @pytest.mark.parametrize("D", [32, 128])
 def test_decode_attn_head_dims_and_strided_cache(dev, D):
     """Every compiled head dim; a cache whose batch and slot axes are

@@ -394,7 +394,8 @@ def test_axis_groups_of_the_two_pod_mesh():
 
 @pytest.mark.parametrize("sizes", [(2, 2), (1, 4), (4, 1)])
 @pytest.mark.parametrize("arch_id", ["hstu_gr", "qwen3_4b",
-                                     "deepseek_moe_16b"])
+                                     "deepseek_moe_16b", "zamba2_1p2b",
+                                     "rwkv6_1p6b", "seamless_m4t_large_v2"])
 def test_shards_have_the_rule_shapes_and_reassemble(arch_id, sizes):
     """Each rank's model (built under a meta ProcessMesh at its
     coordinates, drawn from seed 0) holds every parameter at the local
@@ -426,32 +427,37 @@ def test_shards_have_the_rule_shapes_and_reassemble(arch_id, sizes):
 
 
 def test_mesh_refuses_what_it_does_not_port():
-    """Under a mesh of more than one device: the SSM, hybrid and enc-dec
-    families, fsdp, ZeRO-2, a kv_seq-sharded decode, a CUDA graph, and
-    the paged / segment ranks raise ``ValueError``; on a 1 x 1 mesh
-    they build."""
+    """Under a mesh of more than one device: fsdp (in every family),
+    ZeRO-2, a CUDA graph, the paged / segment ranks, and a decode of one
+    sequence under the kv_seq rule that does not say its length (its
+    ring may be a shard) raise ``ValueError``; every family builds
+    without fsdp, and a kv_seq cache is this rank's shard of the
+    ring."""
     mesh = ProcessMesh.meta((2, 2))
-    for a in ("rwkv6_1p6b", "zamba2_1p2b", "seamless_m4t_large_v2"):
+    for a in ("rwkv6_1p6b", "zamba2_1p2b", "seamless_m4t_large_v2",
+              "qwen3_4b", "hstu_gr"):
         cfg = get_config(a, smoke=True)
-        with logical_rules(mesh), pytest.raises(ValueError,
-                                                match="item 10"):
+        with logical_rules(mesh, fsdp=True), pytest.raises(
+                ValueError, match="fsdp.*item 10.3"):
             build_model(cfg, device="meta")
-        with logical_rules(ProcessMesh.meta((1, 1))):
+        with logical_rules(mesh):
             build_model(cfg, device="meta")
     q = get_config("qwen3_4b", smoke=True)
-    with logical_rules(mesh, fsdp=True), pytest.raises(ValueError,
-                                                       match="fsdp"):
-        build_model(q, device="meta")
     with logical_rules(mesh):
         model = build_model(q, device="meta")
         with pytest.raises(ValueError, match="ZeRO-2"):
             make_step(model, InputShape("t", 16, 4, "train"), zero2=True)
         with pytest.raises(ValueError, match="graph"):
             make_serve_step(model, graphs=True)
-    with logical_rules(mesh, {"kv_seq": "data"}):
+    with logical_rules(ProcessMesh.meta((4, 1)), {"kv_seq": "data"}):
         model = build_model(q, device="meta")
-        with pytest.raises(ValueError, match="kv_seq"):
-            model.init_cache(1, 65536)
+        cache = model.init_cache(1, 65536)
+        assert cache[0].shape[2] == 16384
+        batch = {"token": torch.zeros((1, 1), dtype=torch.int32),
+                 "pos": torch.zeros((1,), dtype=torch.int32)}
+        with pytest.raises(ValueError, match="kv_seq needs its seq_len"):
+            model.decode_step(cache, batch)
+        model.decode_step(cache, batch, seq_len=65536)
     with logical_rules(mesh):
         h = build_model(get_config("hstu_gr", smoke=True), device="meta")
         for fn in (h.rank_with_pages, h.rank_with_segments):

@@ -13,6 +13,7 @@ and the roofline over its records.
 
 from __future__ import annotations
 
+import functools
 import json
 import types
 
@@ -353,18 +354,125 @@ def test_collectives_equal_a_closed_form(arch, shape):
 
 
 def test_records_outside_the_mesh_port_keep_null_collectives():
-    """The families, fsdp and kv_seq decodes the port does not run under
-    a mesh: ``collectives`` null and a reason naming ROADMAP Queue 1,
-    item 10; a 1 x 1 record counts nothing."""
+    """fsdp, the one step the port does not run under a mesh:
+    ``collectives`` null and a reason naming ROADMAP Queue 1, item 10.3;
+    the SSM family and a kv_seq decode carry theirs; a 1 x 1 record
+    counts nothing."""
     rec = dryrun.run_combo("rwkv6_1p6b", "decode_32k", ["single"])[0]
-    assert rec["collectives"] is None and "item 10" in rec[
-        "collectives_reason"]
+    assert rec["collectives_reason"] is None
+    assert rec["collectives"]["all-reduce"]["count"] > 0
     rec = dryrun.run_combo("qwen3_4b", "decode_32k", ["single", "card"],
                            fsdp="on")
     assert rec[0]["collectives"] is None and "FSDP" in rec[0][
-        "collectives_reason"]
+        "collectives_reason"] and "item 10.3" in rec[0]["collectives_reason"]
     rec = dryrun.run_combo("starcoder2_7b", "long_500k", ["single"])[0]
-    assert rec["collectives"] is None and "kv_seq" in rec[
-        "collectives_reason"]
+    assert rec["collectives_reason"] is None
+    assert rec["collectives"]["all-reduce"]["count"] > 0
     rec = dryrun.run_combo("qwen3_4b", "decode_32k", ["card"])[0]
     assert rec["collectives"]["total_bytes"] == 0
+
+
+def _serve_closed_form(cfg, shape, mesh_name):
+    """rank 0's collectives of a prefill or decode step of zamba2_1p2b,
+    rwkv6_1p6b, seamless_m4t_large_v2 or (long_500k) starcoder2 on a
+    production mesh (model 16), fsdp off, kv_seq on "data" for a batch
+    of one, from what the model code calls (B_l rows a rank, S tokens,
+    1 for a decode; act = B_l S d bytes of the model's type):
+
+    * every family: one all-reduce of the vocab-parallel embedding;
+    * zamba2, a Mamba2 block: three all-gathers (the projection, B_l S
+      (2 di + 2 N + H) elements; the conv weight, K (di + 2 N); the conv
+      state, B_l (K - 1) (di + 2 N)), three all-reduces (the gated norm's
+      float32 sum of squares, B_l S; w_out's and the FFN's act); a
+      section's shared attention one all-reduce of act;
+    * rwkv6, a layer: the ln_out norm's squares, w_out's act, the FFN's
+      act;
+    * seamless: an encoder layer two all-reduces of B_l F d (attention,
+      FFN), a decoder layer three of act (self, cross, FFN);
+    * a kv_seq decode, each ring layer: one pmax of the float32 lse
+      (1, Hl) and two psums (the weighted outputs (1, 1, Hl, D), the
+      weights (1, Hl)), Hl the rank's real heads (starcoder2_7b's 36
+      padded to 48: 3 on rank 0), beside its model-axis all-reduces."""
+    sizes = [int(x) for x in mesh_name.split("x")]
+    n_batch = sizes[0] * (sizes[1] if len(sizes) == 3 else 1)
+    B = shape.global_batch
+    b = B // n_batch if B % n_batch == 0 else B
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    d, isz = cfg.d_model, 2
+    act = b * S * d * isz
+    ar, ar_b, ag, ag_b = 1, act, 0, 0
+    fam = cfg.family
+    if fam == "hybrid":
+        di, N, H, K = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_conv
+        C = di + 2 * N
+        L, n_sec = cfg.n_layers, cfg.n_layers // cfg.attn_every
+        ag, ag_b = 3 * L, L * isz * (b * S * (2 * di + 2 * N + H) + K * C
+                                    + b * (K - 1) * C)
+        ar += 3 * L + n_sec
+        ar_b += L * (b * S * 4 + 2 * act) + n_sec * act
+        ring_layers = n_sec
+    elif fam == "ssm_rwkv6":
+        ar += 3 * cfg.n_layers
+        ar_b += cfg.n_layers * (b * S * 4 + 2 * act)
+        ring_layers = 0
+    elif fam == "encdec":
+        ar += 3 * cfg.n_layers
+        ar_b += 3 * cfg.n_layers * act
+        if shape.kind != "decode":
+            ar += 2 * cfg.n_enc_layers
+            ar_b += 2 * cfg.n_enc_layers * b * cfg.n_frontend_tokens * d * isz
+        ring_layers = cfg.n_layers
+    else:                                        # dense
+        ar += 2 * cfg.n_layers
+        ar_b += 2 * cfg.n_layers * act
+        ring_layers = cfg.n_layers
+    if shape.name == "long_500k" and ring_layers:
+        hp = max(cfg.n_heads, cfg.head_pad)      # rank 0's real heads
+        hl = min(hp // sizes[-1], cfg.n_heads)
+        ar += 3 * ring_layers
+        ar_b += ring_layers * 4 * (hl + hl * cfg.head_dim + hl)
+    return _kinds(all_reduce=(ar, ar_b), all_gather=(ag, ag_b))
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("zamba2_1p2b", "prefill_32k"), ("zamba2_1p2b", "decode_32k"),
+    ("zamba2_1p2b", "long_500k"), ("rwkv6_1p6b", "prefill_32k"),
+    ("rwkv6_1p6b", "decode_32k"), ("rwkv6_1p6b", "long_500k"),
+    ("seamless_m4t_large_v2", "prefill_32k"),
+    ("seamless_m4t_large_v2", "decode_32k"),
+    ("starcoder2_7b", "long_500k"), ("starcoder2_15b", "long_500k")])
+def test_collectives_of_the_families_and_long_500k_equal_a_closed_form(
+        arch, shape):
+    """rank 0's tally on the meta device on 16 x 16 and 2 x 16 x 16
+    (kv_seq on "data" for long_500k, as the dry-run sets it) against
+    ``_serve_closed_form``: counts and bytes."""
+    cfg = get_config(arch)
+    s = INPUT_SHAPES[shape]
+    ovr = {"kv_seq": "data"} if s.global_batch == 1 else None
+    for mesh in (pmesh.make_production_mesh(),
+                 pmesh.make_production_mesh(multi_pod=True)):
+        got = dryrun.trace_collectives(cfg, shape, mesh, ovr)
+        assert got == _serve_closed_form(cfg, s, mesh.name), (
+            arch, shape, mesh.name)
+
+
+def test_fsdp_auto_is_a_quarter_of_the_chips_memory():
+    """The "auto" rule shards the weights over "data" once a device's
+    share passes a quarter of its memory: the port's threshold is that
+    share of the H100's 80 GB, as the reference's 4e9 is of the TPU
+    v5e's 16e9 (ROADMAP Queue 3, item 32, kept on the port's side);
+    dbrx_132b's 16.5 GB a device (132e9 bf16 weights over model 16)
+    stays under it on both production meshes, and ``--fsdp on`` shards
+    it."""
+    assert dryrun.FSDP_AUTO_BYTES / pmesh.CHIP_HBM_BYTES == 0.25
+    assert dryrun.FSDP_AUTO_SHARE == 4e9 / 16e9
+    for m in ("single", "multi"):
+        for mode, want in (("auto", False), ("on", True)):
+            rec = dryrun.size_record("dbrx_132b", "decode_32k", m,
+                                     _dbrx_traced(), fsdp=mode)
+            assert rec["fsdp"] is want, (m, mode)
+
+
+@functools.lru_cache(maxsize=None)
+def _dbrx_traced():
+    return dryrun.trace("dbrx_132b", "decode_32k")

@@ -178,7 +178,7 @@ def test_a_cuda_tensor_still_reaches_the_kernel(monkeypatch):
         calls.append(("rank_attn", tuple(sorted(kw))))
         return torch.zeros(q.shape)
 
-    def decode(q, k, v):
+    def decode(q, k, v, **kw):
         calls.append(("decode_attn",))
         return torch.zeros(q.shape)
 
@@ -191,6 +191,14 @@ def test_a_cuda_tensor_still_reaches_the_kernel(monkeypatch):
     monkeypatch.setattr(cuda_lib, "rank_attn", rank)
     monkeypatch.setattr(cuda_lib, "decode_attn", decode)
     monkeypatch.setattr(cuda_lib, "ssd_chunk", ssd)
+    # the counts this test adds are undone at teardown: a later test in
+    # the same process (``serve --segments`` on the CPU) reads them whole
+    for mod, attr in ((hstu_attn, "launches"), (prefix_rank_attn, "launches"),
+                      (paged_prefix_attn, "launches"),
+                      (paged_prefix_attn, "launches_segment"),
+                      (decode_attn, "launches"), (ssd_chunk, "launches_intra"),
+                      (ssd_chunk, "launches_state")):
+        monkeypatch.setattr(mod, attr, getattr(mod, attr))
     counters = lambda: (hstu_attn.launches, prefix_rank_attn.launches,
                         paged_prefix_attn.launches,
                         paged_prefix_attn.launches_segment,
