@@ -247,9 +247,10 @@ Phases, each fatal on failure (nothing is caught):
      grad_norm within 1e-5 of one process's) and a 4 x 2048 prefill with
      ``rank_with_cache`` (16 + 64), the logits and scores within 1e-4 of
      the largest |value|, ``hstu_attn`` and ``prefix_rank_attn`` launched
-     on 2 heads a rank; ``qwen3_4b`` at full width and depth, bf16, on
-     (1, 4): a 2 x 2048 prefill and 16 decode steps, ``decode_attn`` on
-     8 q / 2 kv heads a rank, and at 2 layers in float32 the logits
+     on 2 heads a rank; ``qwen3_4b`` at full width, 4 of its 36 layers,
+     bf16, on (1, 4): a 2 x 2048 prefill and 16 decode steps,
+     ``decode_attn`` on 8 q / 2 kv heads a rank, and at 2 layers in
+     float32 the logits
      within 1e-4 of one process's; ``deepseek_moe_16b`` at full width,
      2 layers, float32, on (1, 4), expert-parallel (16 experts a rank),
      likewise; ``zamba2_1p2b`` at full width, one section (6 Mamba2
@@ -262,9 +263,17 @@ Phases, each fatal on failure (nothing is caught):
      65536-slot ring on (4, 1) under the kv_seq rule (``qwen3_4b`` bf16
      2 layers and the zamba2 section, 16 steps each, ``decode_attn`` on
      16384 slots a rank, merged by its log-sum-exp), within 2^-5 of one
-     process's decode of the whole ring; each workload's collectives a
-     step, every rank's, equal to the meta dry-run's at the same shape
-     and mesh; one ``{"dist": ...}`` line is printed before the kernels
+     process's decode of the whole ring; FSDP (every weight's "embed"
+     dimension on "data", gathered a layer at a time): ``hstu-gr`` as
+     above on (2, 2) (train, prefill, ``rank_with_cache``) and the
+     zamba2 section on (4, 1), 4 x 2048 + 8 steps + 2 AdamW steps
+     (kernels 5-7 on every head); ZeRO-2 (the moments on "data"):
+     ``hstu-gr``'s train steps on (2, 2), the parameters the same bits
+     on every data rank; each against one process within the limits
+     above, each rank's bytes of parameters and moments equal to the
+     dry-run's sizing; each workload's collectives a step, every
+     rank's, equal to the meta dry-run's at the same shape, mesh and
+     rules; one ``{"dist": ...}`` line is printed before the kernels
      line;
  12. ``dryrun``: ``repro_torch.launch.dryrun`` on the meta device for
      every arch x input shape at full config and shape, on the 1 x 1,
@@ -3605,7 +3614,10 @@ DIST_REL = 1e-4                 # logits and scores, of the largest |value|
 # zamba2_1p2b at full width, one section (attn_every Mamba2 blocks and the
 # shared attention), bf16, on (1, 4): prefill, decode steps, train steps
 DIST_ZAMBA = dict(B=2, S=2048, steps=16, train=2, f32_steps=4)
-DIST_UNCHECKED = ("qwen3_4b",)  # full bf16 depth: no one-process reference
+DIST_UNCHECKED = ("qwen3_4b",)  # bf16, no one-process reference
+DIST_LM_LAYERS = 4              # that run's depth of qwen3_4b's 36 (full width)
+# the zamba2 section under FSDP on (4, 1): B 4 (a row a data rank)
+DIST_FSDP_ZAMBA = dict(B=4, S=2048, steps=8, train=2)
 DIST_RWKV = dict(B=2, S=256, steps=8, layers=2)       # f32, (1, 4)
 DIST_ENCDEC = dict(B=4, S=256, steps=8, layers=2)     # f32, 2 + 2, (2, 2)
 DIST_BF16_REL = 2 ** -5         # bf16 logits against one process, of the max
@@ -3739,22 +3751,44 @@ def _counted(fn):
     return out, {n: c for n, c in read_counters().items() if c}
 
 
-def _dist_hstu(mesh, dev, cfg, seed, batches, prompt, incr, items):
-    """hstu-gr on a (data, model) mesh: the train steps, then prefill
-    and ``rank_with_cache``; per part the launches, the heads each
-    launch was given, the collectives and the time (rank 0's clock)."""
+def _resident(tensors):
+    """Bytes of ``tensors`` on their device: numel * element size."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _dist_hstu(mesh, dev, cfg, seed, batches, prompt, incr, items,
+               fsdp=False, zero2=False):
+    """hstu-gr on a (data, model) mesh under the rules with ``fsdp``: the
+    train steps (``zero2``: ZeRO-2's, and no serve part after them),
+    then prefill and ``rank_with_cache``; per part the launches, the
+    heads each launch was given, the collectives and the time (rank 0's
+    clock); the bytes of the rank's parameters and moments, and under
+    ZeRO-2 a digest of its parameters' bits after the steps."""
+    from repro_torch.models.partitioning import logical_rules
+    with logical_rules(mesh, fsdp=fsdp):
+        return _hstu_run(mesh, dev, cfg, seed, batches, prompt, incr, items,
+                         zero2)
+
+
+def _hstu_run(mesh, dev, cfg, seed, batches, prompt, incr, items, zero2):
+    import hashlib
+
     import torch
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
     from repro_torch.models.partitioning import shard_batch
     from repro_torch.training import optimizer as opt
+    from repro_torch.tree import leaves
     seen = _spy_heads(torch)
     model = build_model(cfg, device=dev).init(
         torch.Generator().manual_seed(seed))
-    step = make_train_step(model, opt.AdamWConfig(warmup_steps=1))
-    state = opt.init_state(step.params)
+    step = make_train_step(model, opt.AdamWConfig(warmup_steps=1),
+                           zero2=zero2)
+    state = opt.init_state(step.params, step.specs, step.moment_specs)
     ax = {"tokens": ("batch", None), "labels": ("batch", None)}
-    out = {"train": [], "tally": {}}
+    out = {"train": [], "tally": {}, "param_bytes": _resident(
+        model.parameters()), "moment_bytes": _resident(
+        leaves(state["mu"]) + leaves(state["nu"]))}
     for i, b in enumerate(batches):
         b = {k: torch.as_tensor(v, device=dev)
              for k, v in shard_batch(b, ax).items()}
@@ -3768,6 +3802,12 @@ def _dist_hstu(mesh, dev, cfg, seed, batches, prompt, incr, items):
             **{k: float(v) for k, v in m.items()}))
         out["tally"]["train"] = mesh.collectives()
     model.requires_grad_(False)
+    if zero2:
+        out["digest"] = hashlib.sha256(b"".join(
+            p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+            for p in leaves(step.params))).hexdigest()
+        out["heads"] = sorted(seen)
+        return out
     rows = {k: torch.as_tensor(v, device=dev) for k, v in shard_batch(
         {"p": prompt, "i": incr, "t": items},
         {"p": ("batch", None), "i": ("batch", None),
@@ -3815,14 +3855,17 @@ def _rel(got, want):
 
 def _world1_hstu(torch, hcfg, batches, prompt, incr, items):
     """One process's hstu-gr: the train steps' metrics, then the prefill
-    logits and the scores."""
+    logits and the scores; the bytes of its parameters and moments."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model
     from repro_torch.training import optimizer as opt
+    from repro_torch.tree import leaves
     whole = build_model(hcfg, device="cuda").init(
         torch.Generator().manual_seed(7))
     step = make_train_step(whole, opt.AdamWConfig(warmup_steps=1))
     state = opt.init_state(step.params)
+    nbytes = (_resident(whole.parameters()),
+              _resident(leaves(state["mu"]) + leaves(state["nu"])))
     train = [{k: float(v) for k, v in step(state, {
         k: torch.as_tensor(v, device="cuda") for k, v in b.items()}).items()}
         for b in batches]
@@ -3831,7 +3874,8 @@ def _world1_hstu(torch, hcfg, batches, prompt, incr, items):
         prompt, device="cuda")})
     scores = whole.rank_with_cache(psi, torch.as_tensor(incr, device="cuda"),
                                    torch.as_tensor(items, device="cuda"))
-    return train, logits.float().cpu().numpy(), scores.float().cpu().numpy()
+    return (train, logits.float().cpu().numpy(),
+            scores.float().cpu().numpy(), nbytes)
 
 
 def _rows(torch, batch, dev):
@@ -3856,6 +3900,7 @@ def _family_run(torch, model, prompt, tokens, batches, dev, mesh=None,
     ``step_ms``."""
     from repro_torch.launch.steps import make_serve_step, make_train_step
     from repro_torch.training import optimizer as opt
+    from repro_torch.tree import leaves
 
     def timed(fn):
         if mesh is not None:
@@ -3872,7 +3917,8 @@ def _family_run(torch, model, prompt, tokens, batches, dev, mesh=None,
     (logits, cache), c, ms, tally = timed(lambda: model.prefill(mine))
     rec = dict(prefill_ms=ms, launches_prefill=c, tally_prefill=tally,
                logits=[logits.float().cpu().numpy()], step_ms=[],
-               launches_decode={}, finite=bool(torch.isfinite(logits).all()))
+               launches_decode={}, finite=bool(torch.isfinite(logits).all()),
+               param_bytes=_resident(model.parameters()))
     serve = make_serve_step(model, graphs=False)
     B, S = mine["tokens"].shape
     n = toks.shape[1]
@@ -3900,6 +3946,8 @@ def _family_run(torch, model, prompt, tokens, batches, dev, mesh=None,
     if batches:
         step = make_train_step(model, opt.AdamWConfig(warmup_steps=1))
         state = opt.init_state(step.params)
+        rec["moment_bytes"] = _resident(leaves(state["mu"])
+                                        + leaves(state["nu"]))
         for b in batches:
             bb = _rows(torch, b, dev)
             m, c, ms, tally = timed(lambda: step(state, bb))
@@ -3943,15 +3991,24 @@ def _dist_family(mesh, dev, runs):
     return out
 
 
-def _world1_family(torch, cfg, seed, prompt, tokens, batches):
-    """One process's logits and train metrics of ``_family_run``."""
+def _dist_fsdp_family(mesh, dev, runs):
+    """``_dist_family`` under the rules with fsdp: every weight's
+    "embed" dimension on "data", gathered a layer at a time."""
+    from repro_torch.models.partitioning import logical_rules
+    with logical_rules(mesh, fsdp=True):
+        return _dist_family(mesh, dev, runs)
+
+
+def _world1_family(torch, cfg, seed, prompt, tokens, batches, full=False):
+    """One process's logits and train metrics of ``_family_run`` (the
+    whole record with ``full``)."""
     from repro_torch.models import build_model
     model = _fan_in_d(torch, build_model(cfg, device="cuda").init(
         torch.Generator().manual_seed(seed)), cfg)
     rec = _family_run(torch, model, prompt, tokens, batches, "cuda")
     del model
     torch.cuda.empty_cache()
-    return rec["logits"], rec["train"]
+    return rec if full else (rec["logits"], rec["train"])
 
 
 def _axes_leaves(axes):
@@ -4133,10 +4190,10 @@ def dist_phase(torch, results):
       then prefill and ``rank_with_cache`` (logits and scores within
       DIST_REL of the largest |value|), ``hstu_attn`` and
       ``prefix_rank_attn`` on 2 heads a rank;
-    * ``qwen3_4b`` at full width and depth, bf16, on (1, 4): a DIST_LM
-      prefill and decode steps, ``decode_attn`` on 8 q / 2 kv heads a
-      rank; at DIST_LM_CHECK_LAYERS layers in float32 the logits within
-      DIST_REL of one process's;
+    * ``qwen3_4b`` at full width, DIST_LM_LAYERS of its 36 layers, bf16,
+      on (1, 4): a DIST_LM prefill and decode steps, ``decode_attn`` on 8
+      q / 2 kv heads a rank; at DIST_LM_CHECK_LAYERS layers in float32
+      the logits within DIST_REL of one process's;
     * ``deepseek_moe_16b`` at full width and DIST_MOE_LAYERS layers on
       (1, 4), expert-parallel (16 experts a rank), float32, its logits
       against one process's likewise (data 1: the same capacity);
@@ -4166,8 +4223,18 @@ def dist_phase(torch, results):
       changed on their owner's part alone, with one process's rows; the
       ring's mean rising by KV_SEQ_QUARTER a rank's part, so that two
       planted merge faults (``_merge_faults``) fail the same limit;
+    * FSDP and ZeRO-2: ``hstu-gr`` as above under fsdp on (2, 2) (the
+      train steps, the prefill and ``rank_with_cache``: every weight's
+      "embed" dimension on "data", gathered a layer at a time) and under
+      ZeRO-2 (the train steps; the moments on "data", the parameters the
+      same bits on every data rank); the zamba2 section above under fsdp
+      on (4, 1) at DIST_FSDP_ZAMBA (a row a rank; kernels 5-7 on every
+      head); each held against one process within the limits above, and
+      each rank's bytes of parameters and moments equal to the dry-run's
+      sizing under the same rules, beside one process's;
     * each workload's live collectives a step (rank 0's, every rank's
-      equal) against the meta dry-run's at the same shape and mesh;
+      equal) against the meta dry-run's at the same shape, mesh and
+      rules;
       every run of the families and the kv_seq decode with its wq / wk
       at fan-in d, as the float32 LM checks below;
     * each LM's last decode step profiled on every rank: the time in
@@ -4203,23 +4270,29 @@ def dist_phase(torch, results):
         batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
     prompt, incr, items = (g(hcfg, H["B"], n) for n in
                            (H["S"], H["incr"], H["items"]))
-    fam14, fam22, kv_runs = _dist_family_runs(rng, g)
+    fam14, fam22, kv_runs, fsdp41 = _dist_family_runs(rng, g)
     # one process's references first, so that nothing else shares the
     # card while the ranks time their steps
     t0 = time.perf_counter()
-    want_train, w_logits, w_scores = _world1_hstu(torch, hcfg, batches,
-                                                  prompt, incr, items)
+    want_train, w_logits, w_scores, w_bytes = _world1_hstu(
+        torch, hcfg, batches, prompt, incr, items)
     want_fam = {run[0]: _world1_family(torch, *run[1:])
                 for run in fam14 + fam22 if run[0] not in DIST_UNCHECKED}
     want_kv = {run[0]: _world1_kv_seq(torch, *run[1:]) for run in kv_runs}
+    want_fsdp = {run[0]: _world1_family(torch, *run[1:], full=True)
+                 for run in fsdp41}
     torch.cuda.empty_cache()
     world1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    hstu = (hcfg, 7, batches, prompt, incr, items)
     outs = _dist_run(torch, [
-        ((2, 2), _dist_hstu, (hcfg, 7, batches, prompt, incr, items)),
+        ((2, 2), _dist_hstu, hstu),
         ((1, 4), _dist_family, (fam14,)),
         ((2, 2), _dist_family, (fam22,)),
-        ((4, 1), _dist_kv_seq, (kv_runs,))], backend)
+        ((4, 1), _dist_kv_seq, (kv_runs,)),
+        ((2, 2), _dist_hstu, hstu + (True, False)),
+        ((2, 2), _dist_hstu, hstu + (False, True)),
+        ((4, 1), _dist_fsdp_family, (fsdp41,))], backend)
     spawn_s = time.perf_counter() - t0
     rec.update(spawn_s=spawn_s, world1_s=world1_s)
 
@@ -4277,6 +4350,9 @@ def dist_phase(torch, results):
     _check_dist_families(torch, results, rec, outs, fam14, fam22, want_fam,
                          backend)
     _check_dist_kv_seq(torch, results, rec, outs, kv_runs, want_kv, backend)
+    _check_dist_fsdp_hstu(results, rec, outs, hcfg, want_train, w_logits,
+                          w_scores, w_bytes, backend)
+    _check_dist_fsdp_zamba(results, rec, outs, fsdp41, want_fsdp, backend)
     rec["wall_s"] = time.perf_counter() - t_phase
     results["_dist"] = rec
     log(f"dist phase: {rec['wall_s']:.1f} s of wall (one process's "
@@ -4285,8 +4361,8 @@ def dist_phase(torch, results):
 
 def _dist_family_runs(rng, g):
     """The dist phase's LM runs and kv_seq decodes: (runs on (1, 4), runs
-    on (2, 2), kv_seq runs on (4, 1)), inputs from ``rng`` (``g(cfg, B,
-    S)`` draws tokens)."""
+    on (2, 2), kv_seq runs on (4, 1), FSDP runs on (4, 1)), inputs from
+    ``rng`` (``g(cfg, B, S)`` draws tokens)."""
     import dataclasses
 
     from repro_torch.models import get_config
@@ -4326,7 +4402,8 @@ def _dist_family_runs(rng, g):
     # the same section, weights, prompt, first steps and batches in float32
     zamba32 = ("zamba2_1p2b_f32", dataclasses.replace(zcfg, dtype="float32"),
                21, zamba[3], zamba[4][:, :Z["f32_steps"]], zamba[5])
-    fam14 = [lm("qwen3_4b", qcfg, 11, D["B"], D["S"], D["steps"]),
+    qcut = dataclasses.replace(qcfg, n_layers=DIST_LM_LAYERS)
+    fam14 = [lm("qwen3_4b", qcut, 11, D["B"], D["S"], D["steps"]),
              lm("qwen3_4b_f32_2l", q32, 12, D["B"], D["S"], 2),
              lm("deepseek_moe_16b", dcfg, 13, D["B"], D["S"], 2),
              zamba, zamba32,
@@ -4341,7 +4418,10 @@ def _dist_family_runs(rng, g):
                ("hstu_gr", hcfg, 26, 126, g(hcfg, 1, KV_SEQ_STEPS)),
                ("seamless_m4t_large_v2", ecfg, 23, 127,
                 g(ecfg, 1, KV_SEQ_STEPS))]
-    return fam14, fam22, kv_runs
+    F = DIST_FSDP_ZAMBA
+    fsdp41 = [lm("zamba2_1p2b_fsdp", zcfg, 21, F["B"], F["S"], F["steps"],
+                 lm_batches(zcfg, F["B"], F["S"], F["train"]))]
+    return fam14, fam22, kv_runs, fsdp41
 
 
 def _family_launches(cfg, steps, train_steps):
@@ -4478,6 +4558,191 @@ def _check_dist_families(torch, results, rec, outs, fam14, fam22, want_fam,
                 f"{r0['tally_decode']['total_bytes']} B"
                 + (f", a train step {r0['tally_train']['total_bytes']} B"
                    if batches else "") + ", = meta")
+
+
+def _sizing(cfg, sizes, fsdp=False, zero2=False):
+    """The dry-run's bytes of one rank's parameters and of its moments
+    (``dryrun._sum_bytes`` under ``Rules(mesh, fsdp=fsdp)``, the moments
+    by ``opt.state_axes(..., zero2)``) on a (data, model) mesh of
+    ``sizes``."""
+    from repro_torch.launch.dryrun import _sum_bytes
+    from repro_torch.models import build_model
+    from repro_torch.models.partitioning import Rules, make_mesh
+    from repro_torch.training import optimizer as opt
+    mesh = make_mesh(sizes, ("data", "model"))
+    rules = Rules(mesh, fsdp=fsdp)
+    model = build_model(cfg, device="meta")
+    p_axes, p_sds = model.param_axes(), model.abstract_params()
+    m_axes = opt.state_axes(p_axes, zero2)
+    m_sds = opt.abstract_state(p_sds)
+    return (_sum_bytes(p_axes, p_sds, rules, mesh),
+            sum(_sum_bytes(m_axes[k], m_sds[k], rules, mesh)
+                for k in ("mu", "nu")))
+
+
+def _check_dist_fsdp_hstu(results, rec, outs, hcfg, want_train, w_logits,
+                          w_scores, w_bytes, backend):
+    """hstu-gr on (2, 2) under FSDP (the train steps, the prefill and
+    ``rank_with_cache``) and under ZeRO-2 (the train steps) against one
+    process's run on the same weights and batches: loss and grad_norm
+    within DIST_LOSS_REL, logits and scores within DIST_REL; kernels 1
+    and 2 on 2 heads a rank and their launches; every rank's collectives
+    equal and rank 0's the meta dry-run's under the same rules; each
+    rank's bytes of parameters and moments equal to the dry-run's
+    sizing; under ZeRO-2 the parameters' bits equal on every rank of a
+    model coordinate."""
+    from repro_torch.launch.dryrun import trace_collectives
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.partitioning import make_mesh
+    H, L = DIST_HSTU, hcfg.n_layers
+    mesh22 = make_mesh((2, 2), ("data", "model"))
+    for idx, tag, fsdp, zero2 in ((4, "hstu_gr_fsdp", True, False),
+                                  (5, "hstu_gr_zero2", False, True)):
+        rs = [o[idx] for o in outs]
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for r in rs:
+            for got, w in zip(r["train"], want_train):
+                for k in worst:
+                    worst[k] = max(worst[k], abs(got[k] / w[k] - 1))
+        assert max(worst.values()) <= DIST_LOSS_REL, (tag, worst)
+        row = dict(mesh="2x2", dtype=hcfg.dtype, batch=H["B"], seq=H["S"],
+                   loss_rel=worst["loss"], grad_norm_rel=worst["grad_norm"],
+                   losses=[t["loss"] for t in rs[0]["train"]],
+                   train_ms=[t["ms"] for t in rs[0]["train"]])
+        kinds = {"train": "t"} if zero2 else {"train": "t", "prefill": "p"}
+        for k, short in kinds.items():
+            m = trace_collectives(hcfg, InputShape(short, H["S"], H["B"], k),
+                                  mesh22, fsdp=fsdp, zero2=zero2)
+            assert rs[0]["tally"][k] == m, (tag, k, rs[0]["tally"][k], m)
+        want_p, want_m = _sizing(hcfg, (2, 2), fsdp, zero2)
+        for r in rs:
+            assert r["tally"] == rs[0]["tally"], tag
+            assert all(t["launches"] == {"hstu_attn": 2 * L}
+                       for t in r["train"]), (tag, r["train"])
+            assert (r["param_bytes"], r["moment_bytes"]) == (want_p, want_m), (
+                tag, r["param_bytes"], r["moment_bytes"], want_p, want_m)
+            assert r["heads"] == [("rank_attn", 2)], (tag, r["heads"])
+            results["hstu_attn"]["launches"] += 2 * L * len(r["train"])
+        if zero2:
+            for r, o in enumerate(rs):
+                assert o["digest"] == rs[r % 2]["digest"], (tag, r)
+            row["same_bits_on_data_ranks"] = True
+        else:
+            s_rel = _rel(_assemble([o["scores"] for o in rs],
+                                   ("batch", None, None), w_scores.shape,
+                                   (2, 2)), w_scores)
+            l_rel = _rel(_assemble([o["logits"] for o in rs],
+                                   ("batch", None, "vocab"), w_logits.shape,
+                                   (2, 2)), w_logits)
+            assert max(s_rel, l_rel) <= DIST_REL, (tag, s_rel, l_rel)
+            for r in rs:
+                assert r["launches_prefill"] == {"hstu_attn": L}, tag
+                assert r["launches_rank"] == {"prefix_rank_attn": L}, tag
+                results["hstu_attn"]["launches"] += L
+                results["prefix_rank_attn"]["launches"] += L
+            row.update(scores_rel=s_rel, logits_rel=l_rel,
+                       prefill_ms=rs[0]["prefill_ms"],
+                       rank_ms=rs[0]["rank_ms"])
+        row.update(param_bytes=rs[0]["param_bytes"],
+                   moment_bytes=rs[0]["moment_bytes"],
+                   bytes_equal_dryrun=True, unsharded_param_bytes=w_bytes[0],
+                   unsharded_moment_bytes=w_bytes[1], tally=rs[0]["tally"],
+                   tally_equals_meta=True)
+        rec[tag] = row
+        log(f"dist {tag} (2, 2) f32 B {H['B']} x {H['S']}: losses "
+            f"{row['losses']} (|rel| to one process {worst['loss']:.2e}, "
+            f"grad_norm {worst['grad_norm']:.2e})"
+            + ("" if zero2 else f"; prefill logits {l_rel:.2e}, scores "
+               f"{s_rel:.2e} of max")
+            + f"; bytes a rank: parameters {row['param_bytes']}, moments "
+            f"{row['moment_bytes']} (= the dry-run's; unsharded "
+            f"{w_bytes[0]}, {w_bytes[1]})"
+            + ("; parameters the same bits on every data rank" if zero2
+               else "")
+            + f"; train {[round(t, 1) for t in row['train_ms']]} ms (rank 0, "
+            f"{backend}); collectives a train step: "
+            + ", ".join(f"{k} {v['count']} / {v['bytes']} B" for k, v in
+                        rs[0]["tally"]["train"].items()
+                        if isinstance(v, dict) and v["count"])
+            + ", = meta")
+
+
+def _check_dist_fsdp_zamba(results, rec, outs, fsdp41, want, backend):
+    """The zamba2 section under FSDP on (4, 1) against one process's run
+    of the same weights and inputs: the logits within DIST_BF16_REL, the
+    loss and grad_norm within DIST_BF16_LOSS; kernels 5-7 on every head
+    and their launches by part; every rank's collectives equal and rank
+    0's the meta dry-run's under fsdp; each rank's bytes of parameters
+    and moments equal to the dry-run's sizing, beside one process's."""
+    from repro_torch.launch.dryrun import trace_collectives
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.partitioning import make_mesh
+    mesh = make_mesh((4, 1), ("data", "model"))
+    for tag, cfg, seed, prompt, toks, batches in fsdp41:
+        rs = [o[6][tag] for o in outs]
+        w = want[tag]
+        B, S = prompt["tokens"].shape
+        rels = [_rel(_assemble([r["logits"][i] for r in rs],
+                               ("batch", None, "vocab"), wi.shape, (4, 1)),
+                     wi) for i, wi in enumerate(w["logits"])]
+        worst = {k: max(abs(got[k] / t[k] - 1) for r in rs
+                        for got, t in zip(r["train"], w["train"]))
+                 for k in ("loss", "grad_norm")}
+        assert max(rels) <= DIST_BF16_REL, (tag, rels)
+        assert max(worst.values()) <= DIST_BF16_LOSS, (tag, worst)
+        pre, dec, tr = _family_launches(cfg, toks.shape[1], len(batches))
+        heads = {("ssd_chunk_intra", cfg.n_ssm_heads),
+                 ("ssd_chunk_state", cfg.n_ssm_heads),
+                 ("decode_attn", cfg.n_heads, cfg.n_kv_heads)}
+        want_p, want_m = _sizing(cfg, (4, 1), fsdp=True)
+        r0 = rs[0]
+        for r in rs:
+            assert r["finite"] and set(r["heads"]) == heads, (tag, r["heads"])
+            assert r["launches_prefill"] == pre, (tag, r["launches_prefill"])
+            assert r["launches_decode"] == dec, (tag, r["launches_decode"])
+            assert all(t["launches"] == tr for t in r["train"]), tag
+            assert (r["param_bytes"], r["moment_bytes"]) == (want_p, want_m), (
+                tag, r["param_bytes"], r["moment_bytes"], want_p, want_m)
+            for k in ("tally_prefill", "tally_decode", "tally_train"):
+                assert r[k] == r0[k], (tag, k)
+            for part in [pre, dec] + [tr] * len(r["train"]):
+                for name, c in part.items():
+                    results[name]["launches"] += c
+        for kind, short in (("prefill", "p"), ("decode", "d"),
+                            ("train", "t")):
+            m = trace_collectives(cfg, InputShape(short, S, B, kind), mesh,
+                                  fsdp=True)
+            assert r0[f"tally_{kind}"] == m, (tag, kind, r0[f"tally_{kind}"],
+                                              m)
+        rec[tag] = dict(
+            mesh="4x1", dtype=cfg.dtype, layers=cfg.n_layers, batch=B,
+            prompt=S, steps=toks.shape[1], logits_rel=max(rels),
+            loss_rel=worst["loss"], grad_norm_rel=worst["grad_norm"],
+            heads=sorted(heads), param_bytes=r0["param_bytes"],
+            moment_bytes=r0["moment_bytes"], bytes_equal_dryrun=True,
+            unsharded_param_bytes=w["param_bytes"],
+            unsharded_moment_bytes=w["moment_bytes"],
+            prefill_ms=r0["prefill_ms"], step_ms=r0["step_ms"],
+            train_ms=[t["ms"] for t in r0["train"]],
+            losses=[t["loss"] for t in r0["train"]],
+            peak_bytes=r0["peak_bytes"],
+            tally={k: r0[f"tally_{k}"] for k in ("prefill", "decode",
+                                                 "train")},
+            tally_equals_meta=True)
+        log(f"dist {tag} (4, 1) {cfg.dtype} {cfg.n_layers} layers, B {B} x "
+            f"{S} + {toks.shape[1]} steps + {len(batches)} train: logits "
+            f"{max(rels):.2e} of max, loss {worst['loss']:.2e}, grad_norm "
+            f"{worst['grad_norm']:.2e} against one process; kernels on "
+            f"{sorted(heads)}; bytes a rank: parameters {r0['param_bytes']}, "
+            f"moments {r0['moment_bytes']} (= the dry-run's; unsharded "
+            f"{w['param_bytes']}, {w['moment_bytes']}); prefill "
+            f"{r0['prefill_ms']:.1f} ms, decode "
+            f"{statistics.median(r0['step_ms']):.2f} ms a step (median), "
+            f"train {[round(t, 1) for t in rec[tag]['train_ms']]} ms (rank 0,"
+            f" {backend}); collectives: prefill "
+            f"{r0['tally_prefill']['total_bytes']} B, a decode step "
+            f"{r0['tally_decode']['total_bytes']} B, a train step "
+            f"{r0['tally_train']['total_bytes']} B, = meta")
 
 
 def _kv_seq_expect(cfg):

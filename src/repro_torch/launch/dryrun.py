@@ -18,23 +18,26 @@ For each combination this module:
      (``collectives``, the reference's record layout: {kind: {"count",
      "bytes"}, "total_bytes"}): the step runs once more on meta, built
      from its rank's shards under a ``meta`` ``ProcessMesh`` at rank 0's
-     coordinates, and the mesh tallies every collective the model code
-     calls (``models.partitioning``), the recompute of every
-     checkpointed layer included;
+     coordinates and the record's rules (fsdp, ZeRO-2), and the mesh
+     tallies every collective the model code calls
+     (``models.partitioning``), the recompute of every checkpointed
+     layer included;
   5. writes one JSON record per mesh into ``build/dryrun/``, read by
      ``repro_torch.benchmarks.roofline``.
 
 The meshes are the reference's (16 x 16, 2 x 16 x 16) and one card
 (1 x 1).  ``temp_size_in_bytes`` has no counterpart here and is null
 with its reason (PyTorch has no compile-time temporary size;
-``chip_smoke.py`` measures the card's peak).  ``collectives`` is null,
-with its reason, where the port does not run the step under a mesh yet:
-FSDP (ROADMAP Queue 1, item 10.3).  Every family runs under the mesh,
-a long_500k decode with its ring's sequence sharded over "data" (the
-reference's kv_seq rule) included.  The port's collectives
-are all all-reduces (an all-gather is one over a zero-padded buffer);
-XLA picks its own (reduce-scatters, fused all-reduces), so the counts
-are held against a closed form and the live run's tally
+``chip_smoke.py`` measures the card's peak).  Every record carries its
+``collectives``: every family runs under the mesh, with fsdp (each
+weight gathered over "data" where a layer reads it, its gradient
+reduce-scattered) or ZeRO-2 (the moments' part updated, the parameters
+all-gathered), and a long_500k decode with its ring's sequence sharded
+over "data" (the reference's kv_seq rule).  The port's collectives are
+all all-reduces (an all-gather is one over a zero-padded buffer, a
+reduce-scatter one whose result the rank keeps a part of); XLA picks
+its own (fused all-reduces, reduce-scatters), so the counts are held
+against a closed form and the live run's tally
 (``tests/test_torch_dryrun.py``, ``chip_smoke.py --phases dist``), not
 against the reference's bytes.
 
@@ -75,22 +78,14 @@ MESHES = {"card": make_smoke_mesh, "single": make_production_mesh,
 TEMP_REASON = ("PyTorch has no compile-time temporary size; the card's "
                "peak (torch.cuda.max_memory_allocated) is measured by "
                "chip_smoke.py")
-COLLECTIVES_REASONS = {
-    "fsdp": "the port does not shard weights over data (ROADMAP Queue 1, "
-            "item 10.3: FSDP and ZeRO-2)",
-}
 
 
-def collectives_reason(use_fsdp):
-    """Why a record's ``collectives`` is null, or None where the port
-    runs its step under the mesh (every family, every shape)."""
-    return COLLECTIVES_REASONS["fsdp"] if use_fsdp else None
-
-
-def trace_collectives(cfg, shape, mesh, overrides=None) -> dict:
+def trace_collectives(cfg, shape, mesh, overrides=None, fsdp: bool = False,
+                      zero2: bool = False) -> dict:
     """The collectives of rank 0's step of ``shape`` (an ``InputShape``
-    or its name) on ``mesh`` (a ``MeshShape``), fsdp off, for the model
-    of ``cfg`` (a ``ModelConfig`` or an arch id): the model built on
+    or its name) on ``mesh`` (a ``MeshShape``) for the model of ``cfg``
+    (a ``ModelConfig`` or an arch id), under the rules with ``fsdp``
+    and the step with ``zero2`` (``make_step``'s): the model built on
     meta from rank 0's shards under a ``meta`` ``ProcessMesh``, the step
     run once on rank 0's shards of its arguments, the mesh's tally by
     kind."""
@@ -102,9 +97,9 @@ def trace_collectives(cfg, shape, mesh, overrides=None) -> dict:
     shape = INPUT_SHAPES.get(shape, shape)
     cfg = get_config(cfg) if isinstance(cfg, str) else cfg
     pm = ProcessMesh.meta(mesh.sizes, mesh.axis_names, rank=0)
-    with logical_rules(pm, overrides):
+    with logical_rules(pm, overrides, fsdp=fsdp):
         model = build_model(cfg, device="meta")
-        fn, arg_specs, arg_axes = make_step(model, shape)
+        fn, arg_specs, arg_axes = make_step(model, shape, zero2=zero2)
         fn(*step_inputs(shape, local_inputs(arg_specs, arg_axes), "meta"))
     return pm.collectives()
 
@@ -240,8 +235,8 @@ def size_record(arch: str, shape, mesh_key: str, traced: dict,
     if shape.kind == "decode" and shape.global_batch == 1:
         ovr.setdefault("kv_seq", "data")
     rules = Rules(mesh, ovr, fsdp=use_fsdp)
-    reason = collectives_reason(use_fsdp)
-    coll = None if reason else trace_collectives(cfg, shape, mesh, ovr)
+    coll = trace_collectives(cfg, shape, mesh, ovr, fsdp=use_fsdp,
+                             zero2=zero2)
     arg_axes = traced["arg_axes"]
     if zero2 and shape.kind == "train":
         from repro_torch.training import optimizer as opt
@@ -263,7 +258,7 @@ def size_record(arch: str, shape, mesh_key: str, traced: dict,
                    "output_size_in_bytes": out_b,
                    "temp_size_in_bytes": None,
                    "temp_reason": TEMP_REASON},
-        "collectives": coll, "collectives_reason": reason,
+        "collectives": coll, "collectives_reason": None,
         "n_chips": mesh.size,
     }
 

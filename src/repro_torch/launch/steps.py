@@ -27,12 +27,13 @@ from repro_torch.models.convert import param_tree
 from repro_torch.models.partitioning import (active_axes, batch_axis,
                                              current_rules, local_spec_tree,
                                              psum, refuse_under_mesh,
-                                             tree_specs)
+                                             spec_axes, spec_tree)
 from repro_torch.training import optimizer as opt
 from repro_torch.tree import leaves, tree_map
 
 
-def make_train_step(model, adamw: opt.AdamWConfig = None):
+def make_train_step(model, adamw: opt.AdamWConfig = None,
+                    zero2: bool = False):
     """``train_step(state, batch) -> metrics``: ``model.loss`` on
     {"tokens", "labels"} (plus a VLM's "frontend" or an enc-dec's
     "frames", (B, F, d)), its gradient by autograd, and one
@@ -46,20 +47,26 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
     Under a process mesh (data- and tensor-parallel) the model holds
     this rank's shards and ``batch`` this rank's rows: ``loss`` is the
     rank's share of the global mean, the gradients are summed over the
-    batch axes (every weight is replicated over them: one all-reduce
-    per gradient type), the clip reads the global norm
-    (``opt.global_norm`` with the weights' partition specs) and the
+    batch axes that do not shard their weight (``sum_over_batch``), the
+    clip reads the global norm (``opt.global_norm`` with the weights'
+    partition specs under the rules in force, FSDP's included) and the
     metrics are the global batch's (``ce`` summed over the batch axes,
-    ``aux`` a global mean already)."""
+    ``aux`` a global mean already).  ``zero2`` shards the moments over
+    "data" (``opt.state_axes``): ``train_step.specs`` and
+    ``train_step.moment_specs`` are the partition specs that
+    ``opt.init_state`` takes to give the rank its part of them."""
     adamw = adamw or opt.AdamWConfig()
     model.requires_grad_(True)
     params = param_tree(model)
     grads_of = leaves(params)
     rules = current_rules()
-    specs = None
+    specs = m_specs = flat = None
     if rules is not None and rules.mesh is not None and rules.mesh.size > 1:
-        specs = tree_specs(rules.mesh, model.param_axes(),
-                           model.abstract_params())
+        axes, sds = model.param_axes(), model.abstract_params()
+        specs = spec_tree(rules, axes, sds)
+        flat = opt.leaves_of_specs(specs)
+        if zero2:
+            m_specs = spec_tree(rules, opt.state_axes(axes, True)["mu"], sds)
 
     def train_step(state, batch):
         for p in grads_of:
@@ -67,10 +74,10 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
         loss, metrics = model.loss(batch)
         loss.backward()
         grads = tree_map(lambda p: p.grad, params)
-        sum_over_batch(leaves(grads))
+        sum_over_batch(leaves(grads), flat)
         with torch.profiler.record_function("adamw"):
             _, _, om = opt.apply_updates(adamw, params, grads, state,
-                                         specs=specs)
+                                         specs=specs, moment_specs=m_specs)
         metrics = {k: v.detach() for k, v in metrics.items()}
         # every family's loss is its CE plus a Transformer's MoE aux;
         # the metrics are already the global batch's
@@ -78,21 +85,31 @@ def make_train_step(model, adamw: opt.AdamWConfig = None):
                     loss=metrics["ce"] + metrics.get("aux", 0))
 
     train_step.params = params
+    train_step.specs, train_step.moment_specs = specs, m_specs
     return train_step
 
 
-def sum_over_batch(grads):
+def sum_over_batch(grads, specs=None):
     """Sum each gradient over the batch axes, in place: one all-reduce
-    of every gradient of a type, flattened into one buffer.  Nothing
-    without a process mesh that shards the batch."""
-    if not active_axes(batch_axis()):
+    of the gradients of a (type, axes), flattened into one buffer.
+    ``specs``: each gradient's partition spec (its weight's); a weight
+    sharded over a batch axis (FSDP's "embed" on "data") had its
+    gradient summed over that axis by its gather's backward
+    (``arch.whole``), so it is summed over the other batch axes alone.
+    Nothing without a process mesh that shards the batch."""
+    bx = spec_axes(batch_axis())
+    if not active_axes(bx):
         return
-    by_type = {}
-    for g in grads:
-        if g is not None:
-            by_type.setdefault(g.dtype, []).append(g)
-    for gs in by_type.values():
-        flat = psum(torch.cat([g.reshape(-1) for g in gs]), batch_axis())
+    groups = {}
+    for i, g in enumerate(grads):
+        if g is None:
+            continue
+        used = {a for m in specs[i] for a in spec_axes(m)} if specs else ()
+        axes = tuple(a for a in bx if a not in used)
+        if active_axes(axes):
+            groups.setdefault((g.dtype, axes), []).append(g)
+    for (_, axes), gs in groups.items():
+        flat = psum(torch.cat([g.reshape(-1) for g in gs]), axes)
         i = 0
         for g in gs:
             g.copy_(flat[i:i + g.numel()].view_as(g))
@@ -188,16 +205,14 @@ def make_step(model, shape: InputShape, zero2: bool = False):
     ``make_prefill_step`` / ``make_serve_step``) takes every argument
     but the first: ``fn(*step_inputs(shape, arg_specs, device))``.
     ``zero2`` shards the optimizer moments over "data"
-    (``opt.state_axes``).  A train step turns the model's gradients
-    on.  The stand-ins are global; ``local_inputs`` cuts them to one
-    rank's shards under a process mesh."""
-    if zero2:
-        refuse_under_mesh("ZeRO-2 (opt_data)",
-                          "ROADMAP Queue 1, item 10.3: FSDP and ZeRO-2")
+    (``opt.state_axes``; the train step updates them so).  A train step
+    turns the model's gradients on.  The stand-ins are global;
+    ``local_inputs`` cuts them to one rank's shards under a process
+    mesh."""
     p_sds, p_axes = model.abstract_params(), model.param_axes()
     b_sds, b_axes = model.batch_specs(shape), model.batch_axes(shape)
     if shape.kind == "train":
-        return (make_train_step(model),
+        return (make_train_step(model, zero2=zero2),
                 (p_sds, opt.abstract_state(p_sds), b_sds),
                 (p_axes, opt.state_axes(p_axes, zero2=zero2), b_axes))
     if shape.kind == "prefill":

@@ -26,8 +26,8 @@ from .layers import (DTYPES, ParamSpec, abstract_tree, attention,
 from .moe import moe_aux, moe_ffn, moe_specs, shared_expert_ffn
 from .partitioning import (active_axes, axis_index, axis_size, batch_axis,
                            checkpoint_in_rules, current_rules, enter,
-                           is_process_mesh, local_shape, local_spec_tree,
-                           pmax, psum, reduce, refuse_under_mesh,
+                           fsdp_cut, gather_dim, is_process_mesh,
+                           local_shape, local_spec_tree, pmax, psum, reduce,
                            shard_slices, sharded_axis)
 
 
@@ -152,17 +152,58 @@ def flat_specs(specs, prefix: str = "") -> Dict[str, ParamSpec]:
 
 
 def add_params(module: nn.Module, specs, device):
-    """Lay ``specs`` out on ``module``: a leaf becomes a parameter, a
-    dict a ``ParamTree`` submodule, each named by its key — so
+    """Lay ``specs`` (global shapes) out on ``module``: a leaf becomes a
+    parameter holding this rank's shard (``local_param_specs``), a dict
+    a ``ParamTree`` submodule, each named by its key — so
     ``state_dict`` names are the reference tree's paths
-    (``sections.mixer.w_in``)."""
+    (``sections.mixer.w_in``).  The leaves' FSDP cuts go to
+    ``module._fsdp`` (``fsdp_cuts``), which ``whole`` reads."""
+    module._fsdp = fsdp_cuts(specs)
     for k, s in specs.items():
         if isinstance(s, ParamSpec):
+            s = local_param_specs(s)
             module.register_parameter(k, nn.Parameter(
                 torch.empty(s.shape, dtype=DTYPES[s.dtype], device=device),
                 requires_grad=False))
         else:
             module.add_module(k, ParamTree(s, device))
+
+
+def fsdp_cuts(specs) -> Dict[str, tuple]:
+    """{name: (dimension, mesh axis)} of the leaves of ``specs`` (one
+    level, global shapes) whose "embed" dimension the current rules of
+    a process mesh shard (``partitioning.fsdp_cut``: FSDP)."""
+    rules = current_rules()
+    if rules is None or not is_process_mesh(rules.mesh):
+        return {}
+    cuts = {k: fsdp_cut(s.axes, s.shape, rules) for k, s in specs.items()
+            if isinstance(s, ParamSpec)}
+    return {k: c for k, c in cuts.items() if c is not None}
+
+
+def whole(module: nn.Module, name: str, idx=()):
+    """``module``'s parameter ``name``, indexed by ``idx`` (its leading
+    stacked dimensions), whole: where FSDP cut its "embed" dimension
+    (``module._fsdp``) the shards are gathered over that axis, and the
+    gradient is reduce-scattered (``gather_dim(partial=True)``: each
+    data rank's gradient of the whole weight covers its own rows of the
+    batch).  The one gather point of the model code: a layer reads its
+    weights through it inside its checkpoint, so that the recompute
+    gathers them again and no whole layer stays resident (ZeRO-3)."""
+    p = module._parameters[name]
+    t = p[idx] if idx else p
+    cut = module._fsdp.get(name)
+    if cut is None:
+        return t
+    return gather_dim(t, cut[1], cut[0] - len(idx), partial=True)
+
+
+def own_params(module: nn.Module, idx=(), names=None
+               ) -> Dict[str, torch.Tensor]:
+    """``whole`` of each parameter of ``module`` itself (not of its
+    submodules; ``names``: of those alone): a model's top-level weights,
+    gathered once a step."""
+    return {k: whole(module, k, idx) for k in names or module._parameters}
 
 
 def local_param_specs(specs):
@@ -179,18 +220,6 @@ def local_param_specs(specs):
     return {k: local_param_specs(s) for k, s in specs.items()}
 
 
-MESH_ITEM = "ROADMAP Queue 1, item 10.3"
-
-
-def check_mesh(what: str):
-    """Refuse, under a process mesh of more than one device, the weight
-    sharding the port does not do (fsdp)."""
-    rules = current_rules()
-    if rules is not None and rules.fsdp:
-        refuse_under_mesh(f"{what} with fsdp=True",
-                          f"{MESH_ITEM}: FSDP and ZeRO-2")
-
-
 class ParamTree(nn.Module):
     """A subtree of parameters (see ``add_params``)."""
 
@@ -200,8 +229,9 @@ class ParamTree(nn.Module):
 
     def tree(self, *idx):
         """The subtree as nested dicts of tensors, each indexed by
-        ``idx`` (a view: one layer of a stack)."""
-        out = {k: p[idx] if idx else p for k, p in self._parameters.items()}
+        ``idx`` (a view: one layer of a stack) and whole (``whole``:
+        gathered where FSDP cut it)."""
+        out = own_params(self, idx)
         out.update({k: m.tree(*idx) for k, m in self._modules.items()})
         return out
 
@@ -432,10 +462,9 @@ class TransformerModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("TransformerModel")
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, local_param_specs(self.param_specs()), self.device)
+        add_params(self, self.param_specs(), self.device)
 
     @property
     def is_moe(self):
@@ -541,12 +570,12 @@ class TransformerModel(StepSpecs, nn.Module):
                     dst[l] = src
         return x, None, kv
 
-    def _prepend_frontend(self, x, batch):
-        """A VLM's ``frontend`` (B, F, d), cast to the projector's type
-        and projected into d_model, in front of the token embeddings."""
+    def _prepend_frontend(self, x, batch, projector):
+        """A VLM's ``frontend`` (B, F, d), cast to the ``projector``'s
+        type and projected into d_model, in front of the token
+        embeddings."""
         fe = torch.as_tensor(batch["frontend"], device=self.device)
-        fe = torch.einsum("bfd,de->bfe", fe.to(self.projector.dtype),
-                          self.projector)
+        fe = torch.einsum("bfd,de->bfe", fe.to(projector.dtype), projector)
         return torch.cat([fe.to(x.dtype), x], dim=1)
 
     # --- public protocol ----------------------------------------------------
@@ -560,15 +589,16 @@ class TransformerModel(StepSpecs, nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens, cfg.vocab_padded)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, cfg.vocab_padded)
         if cfg.family == "vlm":
-            x = self._prepend_frontend(x, batch)
+            x = self._prepend_frontend(x, batch, top["projector"])
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, aux, _ = self._run(x, positions, window=cfg.sliding_window,
                               remat=True)
         if cfg.family == "vlm":
             x = x[:, cfg.n_frontend_tokens:]
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
+        ce = ce_loss(top["final_norm"], top["unembed"], x, labels, cfg.vocab,
                      vp=cfg.vocab_padded)
         return ce + aux, {"ce": global_ce(ce), "aux": aux}
 
@@ -579,12 +609,13 @@ class TransformerModel(StepSpecs, nn.Module):
         frontend's F positions come first, positions run over F + S."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens, cfg.vocab_padded)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, cfg.vocab_padded)
         if cfg.family == "vlm" and "frontend" in batch:
-            x = self._prepend_frontend(x, batch)
+            x = self._prepend_frontend(x, batch, top["projector"])
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, _, kv = self._run(x, positions, window=cfg.sliding_window)
-        return _logits(self.final_norm, self.unembed, x[:, -1:],
+        return _logits(top["final_norm"], top["unembed"], x[:, -1:],
                        cfg.vocab_padded), kv
 
     @torch.no_grad()
@@ -598,10 +629,11 @@ class TransformerModel(StepSpecs, nn.Module):
         pos = torch.as_tensor(batch["pos"], device=self.device)
         ring = self.cache_specs(1, seq_len)[0][0][2] if seq_len else None
         sa = ring_axis(token.shape[0], cache[0].shape[2], ring, seq_len)
-        x = _embed(self.tok, token, self.cfg.vocab_padded)
+        top = own_params(self)
+        x = _embed(top["tok"], token, self.cfg.vocab_padded)
         x, _, cache = self._run(x, pos[:, None], cache=tuple(cache),
                                 cache_index=pos, seq_axis=sa)
-        return _logits(self.final_norm, self.unembed, x,
+        return _logits(top["final_norm"], top["unembed"], x,
                        self.cfg.vocab_padded), cache
 
     def cache_specs(self, batch: int, seq_len: int):
@@ -684,10 +716,9 @@ class SSMModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("SSMModel")
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, local_param_specs(self.param_specs()), self.device)
+        add_params(self, self.param_specs(), self.device)
 
     @property
     def is_mamba(self):
@@ -759,10 +790,11 @@ class SSMModel(StepSpecs, nn.Module):
         vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, vp)
         x, _ = self._run(x, zero_cache(self, x.shape[0]), remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
-                     vp=vp)
+        ce = ce_loss(top["final_norm"], top["unembed"], x, labels,
+                     self.cfg.vocab, vp=vp)
         return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
@@ -771,9 +803,11 @@ class SSMModel(StepSpecs, nn.Module):
         zero state."""
         vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, vp)
         x, state = self._run(x, zero_cache(self, x.shape[0]))
-        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), state
+        return _logits(top["final_norm"], top["unembed"], x[:, -1:],
+                       vp), state
 
     @torch.no_grad()
     def decode_step(self, cache, batch, seq_len=None):
@@ -783,9 +817,10 @@ class SSMModel(StepSpecs, nn.Module):
         state has no sequence axis."""
         vp = self.cfg.vocab_padded
         token = torch.as_tensor(batch["token"], device=self.device).long()
-        x = _embed(self.tok, token, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], token, vp)
         x, state = self._run(x, cache, decode=True)
-        return _logits(self.final_norm, self.unembed, x, vp), state
+        return _logits(top["final_norm"], top["unembed"], x, vp), state
 
     def cache_specs(self, batch: int, seq_len: int):
         """The state's (shape, dtype) tuple (no sharding axes); it does
@@ -839,12 +874,11 @@ class HybridModel(StepSpecs, nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _no_tf32()
-        check_mesh("HybridModel")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_sections = cfg.n_layers // cfg.attn_every
         self.n_tail = cfg.n_layers - self.n_sections * cfg.attn_every
-        add_params(self, local_param_specs(self.param_specs()), self.device)
+        add_params(self, self.param_specs(), self.device)
 
     def param_specs(self):
         cfg = self.cfg
@@ -915,15 +949,15 @@ class HybridModel(StepSpecs, nn.Module):
         rows of the shared ``wo``: the LoRA's replicated rank-R input
         enters them and the one stacked product ends in a ``reduce``."""
         cfg = self.cfg
-        p = self.shared_attn
+        p = self.shared_attn.tree()         # whole again at every read
         B, S, d = x.shape
-        xn = rms_norm(x, p.ln)
-        tp = sharded_axis(p.lora_b.shape[2], cfg.n_heads, "heads")
+        xn = rms_norm(x, p["ln"])
+        tp = sharded_axis(p["lora_b"].shape[2], cfg.n_heads, "heads")
         # the per-section LoRA on the query path, through the shared wo
-        la = xn @ p.lora_a[sec]
+        la = xn @ p["lora_a"][sec]
         lora = (enter(la, tp) if tp else la) \
-            @ p.lora_b[sec].reshape(self.LORA_R, -1)
-        out, kv = attention(p.attn.tree(), xn, cfg, positions=positions,
+            @ p["lora_b"][sec].reshape(self.LORA_R, -1)
+        out, kv = attention(p["attn"], xn, cfg, positions=positions,
                             cache=cache, cache_index=cache_index,
                             project=False, seq_axis=seq_axis)
         hl = out.shape[2]
@@ -933,7 +967,7 @@ class HybridModel(StepSpecs, nn.Module):
         # ahead of it, as the reference's remat drops both (no gradient
         # needs their results)
         y = torch.stack([out.reshape(B, S, hk), lora]) \
-            @ p.attn.wo[:hl].reshape(hk, d)
+            @ p["attn"]["wo"][:hl].reshape(hk, d)
         if tp:
             return x + reduce(y[0] + y[1], tp), kv
         return x + y[0] + y[1], kv
@@ -989,13 +1023,14 @@ class HybridModel(StepSpecs, nn.Module):
         vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         zero = zero_cache(self, x.shape[0])["m"]
         x, _, _ = self._run(x, zero, None, positions, decode=False,
                             remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
-                     vp=vp)
+        ce = ce_loss(top["final_norm"], top["unembed"], x, labels,
+                     self.cfg.vocab, vp=vp)
         return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
@@ -1003,11 +1038,12 @@ class HybridModel(StepSpecs, nn.Module):
         """{"tokens": (B, S)} -> (last-position logits, cache)."""
         vp = self.cfg.vocab_padded
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         zero = zero_cache(self, x.shape[0])["m"]
         x, mst, ast = self._run(x, zero, None, positions, decode=False)
-        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), \
+        return _logits(top["final_norm"], top["unembed"], x[:, -1:], vp), \
             {"m": mst, "a": ast}
 
     @torch.no_grad()
@@ -1020,10 +1056,11 @@ class HybridModel(StepSpecs, nn.Module):
         pos = torch.as_tensor(batch["pos"], device=self.device)
         sa = ring_axis(token.shape[0], cache["a"][0].shape[2], seq_len,
                        seq_len)
-        x = _embed(self.tok, token, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], token, vp)
         x, mst, ast = self._run(x, cache["m"], cache["a"], pos[:, None],
                                 decode=True, cache_index=pos, seq_axis=sa)
-        return _logits(self.final_norm, self.unembed, x, vp), \
+        return _logits(top["final_norm"], top["unembed"], x, vp), \
             {"m": mst, "a": ast}
 
     def cache_specs(self, batch: int, seq_len: int):

@@ -98,12 +98,23 @@ def export_params(model: torch.nn.Module) -> Dict[str, Any]:
     return unflatten({k: host(v) for k, v in model.named_parameters()}, ".")
 
 
-def load_jax_opt_state(model: torch.nn.Module, state: Mapping[str, Any]):
+def load_jax_opt_state(model: torch.nn.Module, state: Mapping[str, Any],
+                       zero2: bool = False):
     """A reference optimizer state ``{"mu": tree, "nu": tree, "step"}``
     (numpy leaves) as the port's, keyed like ``param_tree(model)``:
     float32 moments on the model's device, ``step`` an int32 host
-    scalar.  Names and shapes must match the model's parameters."""
+    scalar.  Names and shapes must match the model's parameters.  A
+    model built under a process mesh takes this rank's shard of each
+    full moment, cut by the moments' logical axes
+    (``optimizer.state_axes(model.param_axes(), zero2)``) under the
+    current rules: its parameter's shard (FSDP's included), or under
+    ``zero2`` this rank's part of it on "data"."""
+    from repro_torch.training.optimizer import state_axes
     own = dict(model.named_parameters())
+    shapes = {k: tuple(sd[0]) for k, sd in
+              flatten(model.abstract_params(), ".").items()}
+    axes = (flatten(state_axes(model.param_axes(), zero2)["mu"], ".")
+            if current_rules() is not None else None)
 
     def moments(tree):
         flat = state_from_tree(tree)
@@ -111,13 +122,15 @@ def load_jax_opt_state(model: torch.nn.Module, state: Mapping[str, Any]):
             raise KeyError(f"moment names differ from the parameters: "
                            f"missing {sorted(set(own) - set(flat))}, "
                            f"unexpected {sorted(set(flat) - set(own))}")
-        out = {}
         for name, arr in flat.items():
-            if tuple(arr.shape) != tuple(own[name].shape):
+            if tuple(arr.shape) != shapes[name]:
                 raise ValueError(f"{name}: shape {arr.shape} != "
-                                 f"{tuple(own[name].shape)}")
-            out[name] = torch.tensor(arr, dtype=torch.float32,
-                                     device=own[name].device)
+                                 f"{shapes[name]}")
+        if axes is not None:
+            flat = shard_state(flat, axes)
+        out = {name: torch.tensor(np.ascontiguousarray(arr),
+                                  dtype=torch.float32, device=own[name].device)
+               for name, arr in flat.items()}
         return unflatten(out, ".")
 
     return {"mu": moments(state["mu"]), "nu": moments(state["nu"]),

@@ -18,14 +18,16 @@ from torch import nn
 from repro_torch import resolve_device
 
 from .arch import (StepSpecs, _embed, _logits, _no_tf32, add_params,
-                   base_batch_axes, base_batch_specs, ce_loss, check_mesh,
-                   draw_params, embed_specs, global_ce, kv_seq_axis,
-                   local_param_specs, ring_axis, stack_specs,
-                   zeros_from_specs)
+                   base_batch_axes, base_batch_specs, ce_loss, draw_params,
+                   embed_specs, global_ce, kv_seq_axis, own_params,
+                   ring_axis, stack_specs, whole, zeros_from_specs)
 from .config import InputShape, ModelConfig
 from .layers import (DTYPES, ParamSpec, attention, attention_specs, cross_kv,
                      ffn, ffn_specs, rms_norm)
 from .partitioning import checkpoint_in_rules, local_spec_tree
+
+
+EMBED = ("tok", "final_norm", "unembed")     # the decoder's top-level weights
 
 
 class EncDecModel(StepSpecs, nn.Module):
@@ -62,11 +64,10 @@ class EncDecModel(StepSpecs, nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_mesh("EncDecModel")
         _no_tf32()
         self.cfg = cfg
         self.device = resolve_device(device)
-        add_params(self, local_param_specs(self.param_specs()), self.device)
+        add_params(self, self.param_specs(), self.device)
 
     def enc_block_specs(self):
         d = self.cfg.d_model
@@ -121,7 +122,7 @@ class EncDecModel(StepSpecs, nn.Module):
         for l in range(self.cfg.n_enc_layers):
             x = checkpoint_in_rules(self._enc_block, l, x, positions) \
                 if remat else self._enc_block(l, x, positions)
-        return rms_norm(x, self.enc_norm)
+        return rms_norm(x, whole(self, "enc_norm"))
 
     @torch.no_grad()
     def encode(self, frames):
@@ -192,11 +193,12 @@ class EncDecModel(StepSpecs, nn.Module):
         enc = self._encode(frames.to(self.tok.dtype), remat=True)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self, names=EMBED)
+        x = _embed(top["tok"], tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, _, _ = self._dec_run(x, positions, enc=enc, remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, self.cfg.vocab,
-                     vp=vp)
+        ce = ce_loss(top["final_norm"], top["unembed"], x, labels,
+                     self.cfg.vocab, vp=vp)
         return ce, {"ce": global_ce(ce)}
 
     @torch.no_grad()
@@ -207,10 +209,11 @@ class EncDecModel(StepSpecs, nn.Module):
         vp = self.cfg.vocab_padded
         enc = self.encode(frames.to(self.tok.dtype))
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        x = _embed(self.tok, tokens, vp)
+        top = own_params(self, names=EMBED)
+        x = _embed(top["tok"], tokens, vp)
         positions = torch.arange(x.shape[1], device=self.device)[None, :]
         x, kv, xkv = self._dec_run(x, positions, enc=enc)
-        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), \
+        return _logits(top["final_norm"], top["unembed"], x[:, -1:], vp), \
             {"self": kv, "cross": xkv}
 
     @torch.no_grad()
@@ -224,12 +227,13 @@ class EncDecModel(StepSpecs, nn.Module):
         pos = torch.as_tensor(batch["pos"], device=self.device)
         sa = ring_axis(token.shape[0], cache["self"][0].shape[2], seq_len,
                        seq_len)
-        x = _embed(self.tok, token, vp)
+        top = own_params(self, names=EMBED)
+        x = _embed(top["tok"], token, vp)
         x, kv, xkv = self._dec_run(x, pos[:, None],
                                    self_cache=tuple(cache["self"]),
                                    cross_kv=tuple(cache["cross"]),
                                    cache_index=pos, seq_axis=sa)
-        return _logits(self.final_norm, self.unembed, x, vp), \
+        return _logits(top["final_norm"], top["unembed"], x, vp), \
             {"self": kv, "cross": xkv}
 
     def cache_specs(self, batch: int, seq_len: int):

@@ -34,9 +34,9 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 
-from .arch import (StepSpecs, _embed, _logits, ce_loss, check_mesh,
-                   draw_params, embed_specs, global_ce, kv_seq_axis,
-                   local_param_specs, ring_axis, stack_specs)
+from .arch import (StepSpecs, _embed, _logits, ce_loss, draw_params,
+                   embed_specs, fsdp_cuts, global_ce, kv_seq_axis,
+                   local_param_specs, own_params, ring_axis, stack_specs)
 from .config import ModelConfig
 from .layers import DTYPES, ParamSpec, rms_norm, rope_tables, rotate_pairs
 from .partitioning import (axis_index, axis_size, checkpoint_in_rules, enter,
@@ -74,10 +74,10 @@ class HSTUModel(StepSpecs, nn.Module):
         # float32 products stay float32 on the card (no TF32 rounding)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        check_mesh("HSTUModel")
         self.cfg = cfg
         self.device = resolve_device(device)
-        specs = local_param_specs(self.param_specs())
+        full = self.param_specs()
+        specs = local_param_specs(full)
 
         def param(spec: ParamSpec) -> nn.Parameter:
             return nn.Parameter(torch.empty(spec.shape,
@@ -92,6 +92,12 @@ class HSTUModel(StepSpecs, nn.Module):
         if "task_tower" in specs:
             self.task_tower = nn.ParameterDict(
                 {k: param(s) for k, s in specs["task_tower"].items()})
+        # the FSDP cuts that ``arch.whole`` gathers, as ``add_params``'s
+        for mod, sp in ((self, full), (self.layers, full["layers"]),
+                        (getattr(self, "task_tower", None),
+                         full.get("task_tower"))):
+            if mod is not None:
+                mod._fsdp = fsdp_cuts(sp)
 
     def param_specs(self):
         cfg = self.cfg
@@ -119,23 +125,24 @@ class HSTUModel(StepSpecs, nn.Module):
         96-123) the rank computes its h heads: the normed input enters
         the column-parallel ``uvqk``, ``ln_attn``'s RMS over all heads
         sums its squares over the axis, and ``wo`` leaves a partial sum,
-        reduced over it."""
+        reduced over it.  The layer's weights are read whole
+        (``arch.own_params``: gathered where FSDP cut them)."""
         cfg = self.cfg
-        p = self.layers
-        d, _, h, hd = p["uvqk"].shape[1:]
+        p = own_params(self.layers, (l,))
+        d, _, h, hd = p["uvqk"].shape
         B, S, _ = x.shape
         tp = sharded_axis(h, cfg.n_heads, "heads")
-        xn = rms_norm(x, p["ln"][l])
+        xn = rms_norm(x, p["ln"])
         if tp:
             xn = enter(xn, tp)
-        uvqk = F.silu(xn @ p["uvqk"][l].reshape(d, 4 * h * hd))
+        uvqk = F.silu(xn @ p["uvqk"].reshape(d, 4 * h * hd))
         uvqk = uvqk.view(B, S, 4, h, hd)
         u, v, qk = uvqk[:, :, 0], uvqk[:, :, 1], uvqk[:, :, 2:]
         if rope is not None:                 # q and k rotate in one pass
             qk = rotate_pairs(qk, *rope)
         q, k = qk.unbind(2)
         av = attend(l, q, k, v)                          # (B, S, H, D)
-        w = p["ln_attn"][l]
+        w = p["ln_attn"]
         w_ax = sharded_axis(w.shape[0], cfg.n_heads * cfg.head_dim, "heads")
         if w_ax and not tp:
             # heads the axis does not divide are replicated, but h * hd
@@ -143,7 +150,7 @@ class HSTUModel(StepSpecs, nn.Module):
             w = gather(w, w_ax).reshape(-1)
         av = rms_norm(av.reshape(B, S, h * hd), w, axis=tp)
         y = (av.view(B, S, h, hd) * u).reshape(B, S, h * hd) \
-            @ p["wo"][l].reshape(h * hd, d)
+            @ p["wo"].reshape(h * hd, d)
         # ref hstu.py:123: constrain(y, ("batch", "seq", "embed"))
         return x + (reduce(y, tp) if tp else y), (k, v)
 
@@ -183,14 +190,15 @@ class HSTUModel(StepSpecs, nn.Module):
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        x = _embed(self.tok, tokens, cfg.vocab_padded)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens, cfg.vocab_padded)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         x, _ = self._run(
             x, positions,
             lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
             remat=True)
-        ce = ce_loss(self.final_norm, self.unembed, x, labels, cfg.vocab,
+        ce = ce_loss(top["final_norm"], top["unembed"], x, labels, cfg.vocab,
                      vp=cfg.vocab_padded)
         return ce, {"ce": global_ce(ce)}
 
@@ -215,7 +223,8 @@ class HSTUModel(StepSpecs, nn.Module):
         sa = ring_axis(token.shape[0], pk.shape[2], seq_len, seq_len)
         n_total = pk.shape[2] * axis_size(sa) + 1
         vp = self.cfg.vocab_padded
-        x = _embed(self.tok, token, vp)
+        top = own_params(self)
+        x = _embed(top["tok"], token, vp)
 
         def attend(l, q, k, v):
             if sa and axis_index(sa):
@@ -225,7 +234,7 @@ class HSTUModel(StepSpecs, nn.Module):
             return psum(av, sa) if sa else av
 
         x, _ = self._run(x, pos[:, None], attend)
-        return _logits(self.final_norm, self.unembed, x, vp), cache
+        return _logits(top["final_norm"], top["unembed"], x, vp), cache
 
     # --- RelayGR prefix / rank protocol -------------------------------------
     @torch.no_grad()
@@ -234,25 +243,27 @@ class HSTUModel(StepSpecs, nn.Module):
         psi = per-layer (K, V), each (L, B, S, H, D))."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         vp = self.cfg.vocab_padded
-        x = _embed(self.tok, tokens.long(), vp)
+        top = own_params(self)
+        x = _embed(top["tok"], tokens.long(), vp)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)[None, :]
         x, kv = self._run(
             x, positions,
             lambda l, q, k, v: ops.hstu_attention(q, k, v, n_total=S),
             keep_kv=True)
-        return _logits(self.final_norm, self.unembed, x[:, -1:], vp), kv
+        return _logits(top["final_norm"], top["unembed"], x[:, -1:], vp), kv
 
     def _rank(self, incr_tokens, item_tokens, n_prefix: int, attend_for):
         n_incr = incr_tokens.shape[1]
-        x = _embed(self.tok, torch.cat([incr_tokens, item_tokens],
-                                       dim=1).long(), self.cfg.vocab_padded)
+        x = _embed(own_params(self, names=("tok",))["tok"],
+                   torch.cat([incr_tokens, item_tokens], dim=1).long(),
+                   self.cfg.vocab_padded)
         Sq = x.shape[1]
         positions = (n_prefix + torch.arange(Sq, device=x.device))[None, :]
         x, _ = self._run(x, positions,
                          attend_for(n_incr=n_incr, n_total=n_prefix + Sq))
         items_h = x[:, n_incr:]
-        tw = self.task_tower
+        tw = own_params(self.task_tower)
         tp = sharded_axis(tw["w1"].shape[1], 4 * self.cfg.d_model, "ff")
         if tp:
             items_h = enter(items_h, tp)

@@ -26,7 +26,10 @@ calls the collective that change needs, over one mesh axis:
   partial sum after a contraction over a sharded axis, whose result is
   replicated (every rank then computes the same loss);
 * ``gather(x, axis)``: the shards of ``x`` stacked along a new leading
-  dimension, as a zero-padded buffer summed over the axis.
+  dimension, as a zero-padded buffer summed over the axis;
+  ``gather_dim(x, axis, dim)`` the whole tensor from its shards along
+  ``dim``.  With ``partial=True`` the backward is the reduce-scatter:
+  the gradient summed over the axis, this rank's part kept.
 
 Each is one ``all_reduce`` of the axis's process group (nothing else:
 gloo, which a shared card needs, takes CUDA tensors for ``all_reduce``
@@ -37,8 +40,13 @@ the code it always ran.  ``constrain`` stays the identity on values.
 
 FSDP-style weight sharding (ZeRO-3 on the "data" axis) is switched per
 mesh by ``fsdp=True``: every weight's "embed" axis is sharded over
-"data".  The dry-run sizes it; the model code refuses it under a
-process mesh of more than one device (ROADMAP Queue 1, item 10.3).
+"data" (``fsdp_cuts`` names the dimension).  The model code reads a
+layer's weights through one gather point (``arch.whole``), which
+gathers each such weight over "data" where it is read, inside the
+layer's checkpoint, so that the recompute gathers it again and the
+backward reduce-scatters its gradient: no whole layer stays resident.
+ZeRO-2 shards the optimizer's moments alone ("opt_data" -> "data",
+``training.optimizer``).
 """
 
 from __future__ import annotations
@@ -212,14 +220,25 @@ def map_specs(fn, axes, specs):
     return tuple(map_specs(fn, a, s) for a, s in zip(axes, specs))
 
 
-def tree_specs(mesh: MeshShape, tree_logical, tree_shapes,
-               fsdp: bool = False):
-    """The partition spec of every leaf, from parallel trees of logical
-    axes and (shape, dtype) specs (the counterpart of the reference's
-    ``tree_shardings``)."""
-    rules = Rules(mesh, fsdp=fsdp)
+def spec_tree(rules: Rules, tree_logical, tree_shapes):
+    """The partition spec of every leaf under ``rules``, from parallel
+    trees of logical axes and (shape, dtype) specs (the counterpart of
+    the reference's ``tree_shardings``)."""
     return map_specs(lambda ax, sd: rules.spec(ax, shape=sd[0]),
                      tree_logical, tree_shapes)
+
+
+def fsdp_cut(axes: Sequence[Optional[str]], shape, rules: Rules = None):
+    """(dimension, mesh axis) of a weight's "embed" dimension where the
+    rules shard it (FSDP: over "data"), or None.  ``axes`` and ``shape``
+    are the weight's logical axes and global shape."""
+    rules = rules or current_rules()
+    if rules is None or rules.mesh is None:
+        return None
+    for i, (name, m) in enumerate(zip(axes, rules.spec(axes, shape=shape))):
+        if name == "embed" and m is not None:
+            return i, m
+    return None
 
 
 def device_bytes(shape, dtype: torch.dtype, spec, mesh: MeshShape) -> int:
@@ -241,7 +260,7 @@ def device_bytes(shape, dtype: torch.dtype, spec, mesh: MeshShape) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _flat(m) -> Tuple[str, ...]:
+def spec_axes(m) -> Tuple[str, ...]:
     """A spec entry (None, a mesh axis or a tuple of them) as a tuple."""
     if m is None:
         return ()
@@ -251,7 +270,7 @@ def _flat(m) -> Tuple[str, ...]:
 def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
     """The shape of one device's shard of a ``shape`` tensor under
     ``spec``: each sharded dimension divided by its axes' sizes."""
-    return tuple(n // math.prod(mesh.shape[a] for a in _flat(m))
+    return tuple(n // math.prod(mesh.shape[a] for a in spec_axes(m))
                  for n, m in zip(shape, spec))
 
 
@@ -263,7 +282,7 @@ def shard_slices(shape, spec, mesh, coords=None) -> Tuple[slice, ...]:
     out = []
     for n, m in zip(shape, spec):
         c, k = 0, 1
-        for a in _flat(m):
+        for a in spec_axes(m):
             c, k = c * mesh.shape[a] + coords[a], k * mesh.shape[a]
         out.append(slice(c * (n // k), (c + 1) * (n // k)))
     return tuple(out)
@@ -354,7 +373,7 @@ def active_axes(axis) -> Tuple[str, ...]:
     if not is_process_mesh(mesh):
         raise TypeError(f"model code ran under a {type(mesh).__name__} of "
                         f"{mesh.size} devices: it runs under a ProcessMesh")
-    return tuple(a for a in _flat(axis) if mesh.shape.get(a, 1) > 1)
+    return tuple(a for a in spec_axes(axis) if mesh.shape.get(a, 1) > 1)
 
 
 def axis_index(axis) -> int:
@@ -401,6 +420,14 @@ def _all_reduce(x, axis, op: str, kind: str = "all-reduce"):
 def psum(x, axis):
     """The sum of ``x`` over the ranks of ``axis`` (no gradient)."""
     return _all_reduce(x, axis, "sum")
+
+
+def gather_sum(x, axis):
+    """The whole of a tensor from the ranks' parts: ``x`` holds this
+    rank's part and zeros elsewhere, and the sum over ``axis`` (one
+    all-reduce, x + 0 exact) is the whole, counted as an all-gather (no
+    gradient)."""
+    return _all_reduce(x, axis, "sum", "all-gather")
 
 
 def pmax(x, axis):
@@ -466,7 +493,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.partial:
-            g = ctx.mesh.all_reduce(g, ctx.axes, "sum")
+            g = ctx.mesh.all_reduce(g, ctx.axes, "sum", "reduce-scatter")
         return g[ctx.index], None, None
 
 
@@ -479,19 +506,28 @@ def gather(x, axis, partial: bool = False):
     the ranks use the result differently (each its own columns of a
     projection, say) and each gradient is a partial sum: the backward
     sums it over ``axis`` (one all-reduce) before taking the row, the
-    reduce-scatter that GSPMD's all-gather has for its transpose."""
+    reduce-scatter that GSPMD's all-gather has for its transpose
+    (counted as one)."""
     return _Gather.apply(x, axis, partial) if active_axes(axis) \
         else x[None]
 
 
-def gather_last(x, axis, partial: bool = False):
-    """``gather`` along the last dimension: this rank's columns of a
-    tensor sharded on its last dimension over ``axis`` -> the whole
-    (..., n * cols), in coordinate order."""
+def gather_dim(x, axis, dim: int, partial: bool = False):
+    """``gather`` along dimension ``dim``: this rank's part of a tensor
+    sharded on ``dim`` over ``axis`` -> the whole (n times as long on
+    ``dim``), in coordinate order; one all-reduce of a zero-padded
+    buffer, counted as an all-gather (``partial``: as ``gather``'s)."""
     if not active_axes(axis):
         return x
+    dim %= x.ndim
     g = gather(x, axis, partial)
-    return g.movedim(0, -2).reshape(x.shape[:-1] + (-1,))
+    return g.movedim(0, dim).reshape(
+        x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+
+
+def gather_last(x, axis, partial: bool = False):
+    """``gather_dim`` along the last dimension."""
+    return gather_dim(x, axis, -1, partial)
 
 
 @contextlib.contextmanager

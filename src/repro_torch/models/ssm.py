@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ssd_chunk
 
 from .layers import DTYPES, ParamSpec, rms_norm
-from .partitioning import (axis_index, enter, gather_last, reduce,
+from .partitioning import (axis_index, axis_size, enter, gather_last, reduce,
                            sharded_axis)
 
 MAMBA_CHUNK = 128
@@ -307,7 +307,10 @@ def _rwkv_wkv_meta(r, k, v, w, uu, state):
 
 def rwkv6_forward(params, x, cfg, state=None):
     """x: (B, L, d); state: (wkv (B, H, N, N) float32, shift (B, 1, d)).
-    Returns (y, (wkv, shift)); the new shift is ``x[:, -1:]``."""
+    Returns (y, (wkv, shift)); the new shift is ``x[:, -1:]``.  Under
+    FSDP with a batch the data axis does not split (one sequence) the
+    shift state is cut on its "embed" dimension instead: it is gathered
+    here and the new one cut alike."""
     B, L, d = x.shape
     N = RWKV_HEAD
     p = dict(params)
@@ -331,6 +334,9 @@ def rwkv6_forward(params, x, cfg, state=None):
         shift0 = x.new_zeros((B, 1, d))
     else:
         wkv0, shift0 = state
+    sx = sharded_axis(shift0.shape[-1], d, "embed")
+    if sx:
+        shift0 = gather_last(shift0, sx)
     xr, xk, xv, xw, xg = _rwkv_mix(p, x, shift0)
     if whole:
         # half a head a rank: the reference's GSPMD gathers the columns
@@ -360,8 +366,12 @@ def rwkv6_forward(params, x, cfg, state=None):
     if whole:
         y = y[..., c0:c0 + cols]
     out = y @ p["w_out"]
+    shift = x[:, -1:, :]
+    if sx:
+        n = d // axis_size(sx)
+        shift = shift[..., axis_index(sx) * n:(axis_index(sx) + 1) * n]
     # ref ssm.py:254: constrain(out, ("batch", "seq", "embed"))
-    return (reduce(out, tp) if tp else out), (wkv, x[:, -1:, :])
+    return (reduce(out, tp) if tp else out), (wkv, shift)
 
 
 def rwkv6_state_specs(cfg, batch: int):

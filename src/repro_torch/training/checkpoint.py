@@ -6,6 +6,12 @@
 ``path.json`` the step and each leaf's dtype; bfloat16 leaves are stored
 bit for bit as uint16 beside their dtype name.  A checkpoint written by
 the reference restores here and the reverse.
+
+Under a process mesh a rank saves the shards it holds (its own file) and
+restores them so; ``restore(..., axes=)`` cuts a checkpoint of whole
+tensors (one process's, or the reference's) to this rank's shard of
+each leaf: its parameters' (FSDP's included) and its moments' (ZeRO-2's
+part on "data"), by their logical axes under the current rules.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.partitioning import shard
 from repro_torch.tree import flatten, unflatten
 
 _SEP = "/"
@@ -48,16 +55,22 @@ def save(path, params, opt_state=None, step: int = 0):
     path.with_suffix(".json").write_text(json.dumps(meta))
 
 
-def restore(path, template) -> Tuple[Any, int]:
+def restore(path, template, axes=None) -> Tuple[Any, int]:
     """Restore into the structure of ``template`` ({'params': ..,
     'opt': ..}, tensor leaves).  Each leaf comes back as a new tensor of
-    the saved dtype on its template leaf's device.  Returns (tree,
-    step)."""
+    the saved dtype on its template leaf's device.  ``axes`` (the
+    leaves' logical axes, a tree beside ``template``: {"params":
+    ``model.param_axes()``, "opt": ``optimizer.state_axes(...)``}): each
+    saved leaf is whole and comes back as this rank's shard under the
+    current rules (``partitioning.shard``).  Returns (tree, step)."""
     path = Path(path)
     meta = json.loads(path.with_suffix(".json").read_text())
+    cut = flatten(axes, _SEP) if axes is not None else {}
     with np.load(path.with_suffix(".npz")) as data:
         def one(key, tmpl):
             a = data[key]
+            if cut.get(key):
+                a = np.ascontiguousarray(shard(a, cut[key]))
             device = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
             if meta["dtypes"][key] == "bfloat16":
                 return torch.from_numpy(a.view(np.int16)).view(

@@ -18,6 +18,17 @@ step:
 
 ``apply_updates`` updates the parameters and the state in place and
 returns them, with ``{"grad_norm", "lr"}``.
+
+Under a process mesh every tensor is this rank's shard: the parameters'
+and the moments' under the same rules, so AdamW, elementwise, runs on
+the shards as they are (FSDP included).  ZeRO-2 (``state_axes(...,
+zero2=True)``: the moments' "embed" dimension on "opt_data" -> "data")
+cuts the moments finer than the parameters: given the moments' partition
+specs beside the parameters', ``init_state`` gives this rank its part of
+each moment and ``apply_updates`` updates the matching part of each
+parameter (from the replicated gradient's part) and all-gathers the
+parameters over "data" (one all-reduce of zero-padded buffers a type),
+so that every data rank ends the step with the same bits.
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.models.partitioning import psum
+from repro_torch.models.partitioning import (active_axes, axis_index,
+                                             axis_size, gather_sum, psum,
+                                             spec_axes)
 from repro_torch.tree import leaves, tree_map
 
 
@@ -57,11 +70,42 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, decay)
 
 
-def init_state(params) -> Dict[str, Any]:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+def init_state(params, specs=None, moment_specs=None) -> Dict[str, Any]:
+    """Zero float32 moments beside ``params`` (this rank's shards) and
+    step 0.  ``specs`` and ``moment_specs`` (ZeRO-2: the parameters' and
+    the moments' partition spec trees under a process mesh): each moment
+    is this rank's part of its parameter (``moment_cuts``)."""
+    ps = leaves(params)
+    cut_of = {id(p): c for p, c in zip(
+        ps, moment_cuts(specs, moment_specs, len(ps)))}
+
+    def zeros(p):
+        shape = list(p.shape)
+        for dim, axes in cut_of[id(p)]:
+            shape[dim] //= axis_size(axes)
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    mu = tree_map(zeros, params)
+    return {"mu": mu, "nu": tree_map(torch.zeros_like, mu),
             "step": torch.zeros((), dtype=torch.int32)}
+
+
+def moment_cuts(specs, moment_specs, n: int):
+    """Per leaf (``tree.leaves`` order; ``n`` of them), the (dimension,
+    mesh axes) on which its moments are a part of its parameter: the
+    axes of a moment's spec entry that the parameter's entry lacks and
+    that have more than one device (ZeRO-2's "data"); () everywhere
+    without ``moment_specs``."""
+    if moment_specs is None:
+        return [()] * n
+    out = []
+    for ps, ms in zip(leaves_of_specs(specs), leaves_of_specs(moment_specs)):
+        cut = []
+        for dim, (a, b) in enumerate(zip(ps, ms)):
+            extra = tuple(x for x in spec_axes(b) if x not in spec_axes(a))
+            if active_axes(extra):
+                cut.append((dim, extra))
+        out.append(tuple(cut))
+    return out
 
 
 def abstract_state(abstract_params) -> Dict[str, Any]:
@@ -124,12 +168,25 @@ def leaves_of_specs(specs):
     return [specs]
 
 
+def _part(t, cut):
+    """This rank's part of ``t`` on each (dimension, axes) of ``cut``."""
+    for dim, axes in cut:
+        n = t.shape[dim] // axis_size(axes)
+        t = t.narrow(dim, axis_index(axes) * n, n)
+    return t
+
+
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None):
+def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None,
+                  moment_specs=None):
     """One AdamW step, in place: ``p - lr (m^ / (sqrt(n^) + eps) + wd p)``
     with the gradient clipped to ``grad_clip`` by its global norm
     (``specs``: the leaves' partition specs under a process mesh, see
-    ``global_norm``).  Returns (params, state, {"grad_norm": device
+    ``global_norm``).  ``moment_specs`` (ZeRO-2, see ``init_state``):
+    a leaf whose moments are a part of it updates that part of itself
+    from that part of its (replicated) gradient, and the parameters are
+    gathered whole again over those axes, one all-reduce of zero-padded
+    buffers a (type, axes).  Returns (params, state, {"grad_norm": device
     scalar, "lr": float})."""
     step = state["step"] + 1
     gnorm = global_norm(grads, specs)
@@ -138,17 +195,31 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, specs=None):
     stepf = step.float()
     b1c = float(1 - cfg.b1 ** stepf)
     b2c = float(1 - cfg.b2 ** stepf)
-    for p, g, mu, nu in zip(leaves(params), leaves(grads),
-                            leaves(state["mu"]), leaves(state["nu"])):
-        if g is None:
-            g = torch.zeros_like(mu)
+    ps = leaves(params)
+    parts = {}
+    for p, g, mu, nu, cut in zip(ps, leaves(grads), leaves(state["mu"]),
+                                 leaves(state["nu"]),
+                                 moment_cuts(specs, moment_specs, len(ps))):
+        g = torch.zeros_like(mu) if g is None else _part(g, cut)
         g = g.float() * clip
         mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         nu.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
         delta = (mu / b1c) / ((nu / b2c).sqrt_() + cfg.eps)
-        pf = p.float()
+        pf = _part(p, cut).float()
         if p.ndim >= 2:
             delta.add_(pf, alpha=cfg.weight_decay)
-        p.copy_(pf - lr * delta)
+        if not cut:
+            p.copy_(pf - lr * delta)
+            continue
+        buf = torch.zeros_like(p)
+        _part(buf, cut).copy_(pf - lr * delta)
+        axes = tuple(a for _, ax in cut for a in ax)
+        parts.setdefault((p.dtype, axes), []).append((p, buf))
+    for (_, axes), pb in parts.items():
+        flat = gather_sum(torch.cat([b.reshape(-1) for _, b in pb]), axes)
+        i = 0
+        for p, _ in pb:
+            p.copy_(flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

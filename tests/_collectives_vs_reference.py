@@ -1,5 +1,6 @@
 """The collectives of one device's step, the reference's beside the port's,
-at smoke size on a (2, 2) mesh (data, model), fsdp off:
+at smoke size on a (2, 2) mesh (data, model): fsdp off, then the
+``hstu_gr`` and ``qwen3_4b`` train steps under fsdp and under ZeRO-2:
 
 * the reference: its step (``repro.launch.steps.make_step``) compiled
   under ``logical_rules(mesh)`` with its ``in_shardings`` on 4 forced
@@ -8,7 +9,8 @@ at smoke size on a (2, 2) mesh (data, model), fsdp off:
   all-gather / all-reduce / reduce-scatter / all-to-all /
   collective-permute, fused ones as XLA fused them);
 * the port: ``repro_torch.launch.dryrun.trace_collectives`` (rank 0 on
-  the meta device under a meta ``ProcessMesh``).
+  the meta device under a meta ``ProcessMesh``), under the same rules
+  and step.
 
 XLA chooses its own collectives (reduce-scatters, fused all-reduces),
 so the two are set side by side, not held equal.
@@ -31,15 +33,15 @@ ARCHS = ("hstu_gr", "qwen3_4b", "deepseek_moe_16b", "zamba2_1p2b",
 B, S = 4, 64
 
 
-def reference(arch, shape, mesh):
+def reference(arch, shape, mesh, fsdp=False, zero2=False):
     from repro.launch.dryrun import _parse_collectives
     from repro.launch.steps import make_step
     from repro.models import build_model, get_config
     from repro.models.partitioning import logical_rules
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     model = build_model(cfg)
-    with logical_rules(mesh) as rules:
-        fn, sds, axes = make_step(model, shape)
+    with logical_rules(mesh, fsdp=fsdp) as rules:
+        fn, sds, axes = make_step(model, shape, zero2=zero2)
         shard = jax.tree.map(
             lambda ax, s: jax.NamedSharding(mesh, rules.spec(ax, s.shape)),
             axes, sds, is_leaf=lambda x: isinstance(x, tuple) and all(
@@ -49,7 +51,7 @@ def reference(arch, shape, mesh):
     return _parse_collectives(hlo.as_text())
 
 
-def port(arch, shape):
+def port(arch, shape, fsdp=False, zero2=False):
     from repro_torch.launch.dryrun import trace_collectives
     from repro_torch.models import get_config
     from repro_torch.models.config import InputShape
@@ -57,7 +59,8 @@ def port(arch, shape):
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     return trace_collectives(cfg, InputShape(shape.name, shape.seq_len,
                                              shape.global_batch, shape.kind),
-                             make_mesh((2, 2), ("data", "model")))
+                             make_mesh((2, 2), ("data", "model")),
+                             fsdp=fsdp, zero2=zero2)
 
 
 def _cell(rec):
@@ -76,12 +79,16 @@ def main():
           f"count / output bytes by kind, one device")
     print("| arch | step | reference (XLA) | total | port | total |")
     print("|---|---|---|---|---|---|")
-    for arch in ARCHS:
-        for kind in ("train", "prefill", "decode"):
-            shape = InputShape(kind, S, B, kind)
-            ref, own = reference(arch, shape, mesh), port(arch, shape)
-            print(f"| {arch} | {kind} | {_cell(ref)} | {ref['total_bytes']} "
-                  f"| {_cell(own)} | {own['total_bytes']} |", flush=True)
+    cases = [(a, k, {}) for a in ARCHS for k in ("train", "prefill",
+                                                  "decode")]
+    cases += [(a, "train", {m: True}) for a in ("hstu_gr", "qwen3_4b")
+              for m in ("fsdp", "zero2")]
+    for arch, kind, kw in cases:
+        shape = InputShape(kind, S, B, kind)
+        ref, own = reference(arch, shape, mesh, **kw), port(arch, shape, **kw)
+        step = " ".join([kind] + list(kw))
+        print(f"| {arch} | {step} | {_cell(ref)} | {ref['total_bytes']} "
+              f"| {_cell(own)} | {own['total_bytes']} |", flush=True)
     return 0
 
 

@@ -2,7 +2,8 @@
 rank imports this module).
 
 ``spawn(fn, sizes, tmp, *args)`` runs ``fn(mesh, *args)`` on every rank
-of a gloo process mesh of ``sizes`` (data, model) on the CPU, each rank
+of a gloo process mesh of ``sizes`` (data, model; three sizes: pod,
+data, model) on the CPU, each rank
 a ``torch.multiprocessing`` spawn joined through a ``file://`` store in
 ``tmp``, under ``logical_rules(mesh)``; each rank's return value comes
 back through a file, in rank order.  A rank that raises fails the
@@ -22,13 +23,15 @@ from repro_torch.launch.steps import (make_serve_step, make_train_step,
                                       sum_over_batch)
 from repro_torch.models import build_model, moe
 from repro_torch.models.convert import load_jax_params
-from repro_torch.models.partitioning import (Rules, logical_rules, shard,
-                                             shard_batch, shard_slices,
-                                             shard_tree)
+from repro_torch.models.partitioning import (Rules, current_rules,
+                                             logical_rules, shard, shard_batch,
+                                             shard_slices, shard_tree,
+                                             spec_tree)
 from repro_torch.training import optimizer as opt
-from repro_torch.tree import flatten, tree_map
+from repro_torch.tree import flatten, leaves, tree_map
 
 _COUNT = itertools.count()
+AXES = ("pod", "data", "model")
 
 
 def spawn(fn, sizes, tmp, *args):
@@ -43,7 +46,7 @@ def spawn(fn, sizes, tmp, *args):
 
 def _entry(rank, fn, sizes, run, args):
     torch.set_num_threads(1)
-    mesh = ProcessMesh.init(sizes, backend="gloo",
+    mesh = ProcessMesh.init(sizes, AXES[-len(sizes):], backend="gloo",
                             init_method=f"file://{run}/store", rank=rank,
                             world_size=math.prod(sizes))
     try:
@@ -54,18 +57,20 @@ def _entry(rank, fn, sizes, run, args):
         destroy()
 
 
-def assemble(parts, axes, shape, sizes, names=("data", "model"),
-             overrides=None):
+def assemble(parts, axes, shape, sizes, names=None, overrides=None,
+             fsdp=False):
     """The full (shape) array from every rank's shard (rank order) of a
     tensor with logical axes ``axes`` (under the default rules with
-    ``overrides``); asserts that ranks holding the same slice hold the
-    same bits."""
+    ``overrides`` and ``fsdp``); asserts that each shard has its local
+    shape and that ranks holding the same slice hold the same bits."""
+    names = names or AXES[-len(sizes):]
     out = np.full(shape, np.nan, np.float64)
     for r, part in enumerate(parts):
         mesh = ProcessMesh.meta(sizes, names, rank=r)
-        sl = shard_slices(shape, Rules(mesh, overrides).spec(
+        sl = shard_slices(shape, Rules(mesh, overrides, fsdp).spec(
             axes, shape=shape), mesh)
         part = np.asarray(part, np.float64)
+        assert part.shape == out[sl].shape, (axes, part.shape, sl)
         seen = out[sl]
         assert np.isnan(seen).all() or np.array_equal(seen, part), axes
         out[sl] = part
@@ -109,7 +114,10 @@ def _grads(model, batch):
     if err:
         raise err[0]
     named = dict(model.named_parameters())
-    sum_over_batch([p.grad for p in named.values()])
+    specs = flatten(spec_tree(current_rules(), model.param_axes(),
+                              model.abstract_params()), ".")
+    sum_over_batch([p.grad for p in named.values()],
+                   [specs[k] for k in named])
     grads = {k: _np(p.grad) for k, p in named.items() if p.grad is not None}
     model.requires_grad_(False)
     return {k: float(v) for k, v in metrics.items()}, grads
@@ -147,6 +155,131 @@ def lm_worker(mesh, cfg, params, prompt, steps, train):
         train, batch_axes(train))))
     out["tally_loss"] = mesh.collectives()
     return out
+
+
+def fsdp_worker(mesh, cfg, params, prompt, steps, batches, adamw, fsdp,
+                zero2, rank_rows=None):
+    """Under ``logical_rules(mesh, fsdp=fsdp)`` the model from the full
+    ``params`` (this rank's shards); unless ``prompt`` is None the
+    prefill's logits and cache leaves, HSTU's ``rank_with_cache`` scores
+    over its psi (``rank_rows``: the global (incr, items)), the decode
+    steps' logits and the cache leaves after them; then
+    ``make_train_step(..., zero2=zero2)`` over ``batches``: each step's
+    metrics, this rank's parameters and moments after it, and its
+    collectives (each serve part's too)."""
+    out = {}
+    with logical_rules(mesh, fsdp=fsdp):
+        model = _model(cfg, params)
+        if prompt is not None:
+            mesh.reset_tally()
+            logits, cache = model.prefill(_tensors(shard_batch(
+                prompt, batch_axes(prompt))))
+            # copies: a decode step writes the caller's cache in place
+            out.update(prefill=_np(logits), tally_prefill=mesh.collectives(),
+                       cache_prefill=[_np(t).copy() for t in leaves(cache)])
+            if rank_rows is not None:
+                rows = shard_batch(dict(zip(("i", "t"), rank_rows)),
+                                   {"i": ("batch", None), "t": ("batch", None)})
+                out["scores"] = _np(model.rank_with_cache(
+                    cache, torch.as_tensor(rows["i"]),
+                    torch.as_tensor(rows["t"])))
+            out["decode"] = []
+            for tok, pos in steps:
+                mesh.reset_tally()
+                lg, cache = model.decode_step(cache, _tensors(shard_batch(
+                    {"token": tok, "pos": pos},
+                    {"token": ("batch", None), "pos": ("batch",)})))
+                out["decode"].append(_np(lg))
+            out.update(tally_decode=mesh.collectives(),
+                       cache=[_np(t) for t in leaves(cache)])
+        step = make_train_step(model, opt.AdamWConfig(**adamw), zero2=zero2)
+        state = opt.init_state(step.params, step.specs, step.moment_specs)
+        out["train"] = []
+        for b in batches:
+            mesh.reset_tally()
+            m = step(state, _tensors(shard_batch(b, batch_axes(b))))
+            out["train"].append(dict(
+                metrics={k: float(v) for k, v in m.items()},
+                tally=mesh.collectives(),
+                **{key: {k: _np(v).copy()        # the step updates in place
+                         for k, v in flatten(tree, ".").items()}
+                   for key, tree in (("params", step.params),
+                                     ("mu", state["mu"]),
+                                     ("nu", state["nu"]))}))
+        model.requires_grad_(False)
+    return out
+
+
+def fsdp_one_sequence_worker(mesh, cfg, params, cache, steps):
+    """One sequence decoded under ``logical_rules(mesh, fsdp=True)``: the
+    batch of one is whole on every rank, so a cache leaf with an "embed"
+    dimension (RWKV6's token shift) is cut on it instead; this rank's
+    shard of the global ``cache`` (numpy), each step's logits, the
+    cache after the steps and the last step's collectives."""
+    with logical_rules(mesh, fsdp=True):
+        model = _model(cfg, params)
+        local = tree_map(lambda a: torch.tensor(np.ascontiguousarray(a)),
+                         shard_tree(cache, model.cache_axes(1, 16)))
+        serve = make_serve_step(model, graphs=False)
+        out = {"logits": [], "shapes": [tuple(t.shape) for t in
+                                        leaves(local)]}
+        for tok, pos in steps:
+            mesh.reset_tally()
+            lg, local = serve(local, {"token": torch.as_tensor(tok),
+                                      "pos": torch.as_tensor(pos)})
+            out["logits"].append(_np(lg))
+        out["tally"] = mesh.collectives()
+        out["cache"] = [_np(t) for t in leaves(local)]
+        return out
+
+
+def gather_dim_worker(mesh):
+    """``gather_dim`` of this rank's (2, 3, 4) part along dimension 1
+    over "data", its gradient ``partial`` and not: the forward, the
+    gradients of sum(w * y) for a rank-dependent w, and the tally."""
+    from repro_torch.models.partitioning import gather_dim
+    r = mesh.coords["data"]
+    x = torch.arange(24, dtype=torch.float64).reshape(2, 3, 4) + 100 * r
+    w = torch.arange(2 * 3 * mesh.shape["data"] * 4, dtype=torch.float64
+                     ).reshape(2, -1, 4) * (r + 1)
+    out = {}
+    for partial in (True, False):
+        xx = x.clone().requires_grad_(True)
+        y = gather_dim(xx, "data", 1, partial)
+        (w * y).sum().backward()
+        out[partial] = {"y": y.detach().numpy(), "g": xx.grad.numpy()}
+    out["tally"] = mesh.collectives()
+    return out
+
+
+def checkpoint_worker(mesh, cfg, params, path, full_opt, fsdp, zero2,
+                      own_dir):
+    """Under ``logical_rules(mesh, fsdp=fsdp)``: the checkpoint of whole
+    tensors at ``path`` restored into this rank's shards (``axes``), the
+    reference optimizer state ``full_opt`` (numpy) loaded by
+    ``load_jax_opt_state`` alike, then this rank's shards saved in
+    ``own_dir`` and restored: the three flat, and the template's
+    shapes."""
+    own_path = os.path.join(own_dir, f"rank{mesh.rank}")
+    from repro_torch.models.convert import load_jax_opt_state, param_tree
+    from repro_torch.training import checkpoint
+    with logical_rules(mesh, fsdp=fsdp):
+        model = _model(cfg, params)
+        step = make_train_step(model, zero2=zero2)
+        template = {"params": param_tree(model),
+                    "opt": opt.init_state(step.params, step.specs,
+                                          step.moment_specs)}
+        axes = {"params": model.param_axes(),
+                "opt": opt.state_axes(model.param_axes(), zero2)}
+        restored, n = checkpoint.restore(path, template, axes)
+        loaded = load_jax_opt_state(model, full_opt, zero2)
+        checkpoint.save(own_path, restored["params"], restored["opt"], n)
+        again, m = checkpoint.restore(own_path, template)
+    flat = lambda t: {k: _np(v) for k, v in flatten(t, "/").items()}
+    return {"restored": flat(restored), "loaded": flat({"opt": loaded}),
+            "again": flat(again), "steps": (n, m),
+            "template": {k: tuple(v.shape)
+                         for k, v in flatten(template, "/").items()}}
 
 
 def kv_seq_worker(mesh, cfg, params, cache, seq_len, steps):

@@ -34,7 +34,8 @@ import _dist_workers as W
 import _lm_train as lm
 from repro_torch.launch.dryrun import trace_collectives
 from repro_torch.launch.mesh import ProcessMesh, axis_groups
-from repro_torch.launch.steps import make_serve_step, make_step
+from repro_torch.launch.steps import (local_inputs, make_serve_step,
+                                      make_step, step_inputs)
 from repro_torch.models import arch, build_model, get_config, moe
 from repro_torch.models.config import InputShape
 from repro_torch.models.convert import state_from_tree
@@ -427,26 +428,25 @@ def test_shards_have_the_rule_shapes_and_reassemble(arch_id, sizes):
 
 
 def test_mesh_refuses_what_it_does_not_port():
-    """Under a mesh of more than one device: fsdp (in every family),
-    ZeRO-2, a CUDA graph, the paged / segment ranks, and a decode of one
-    sequence under the kv_seq rule that does not say its length (its
-    ring may be a shard) raise ``ValueError``; every family builds
-    without fsdp, and a kv_seq cache is this rank's shard of the
-    ring."""
+    """Under a mesh of more than one device: a CUDA graph, the paged /
+    segment ranks, and a decode of one sequence under the kv_seq rule
+    that does not say its length (its ring may be a shard) raise
+    ``ValueError``; every family builds with fsdp and without it, ZeRO-2
+    runs its train step on rank 0's shards, and a kv_seq cache is this
+    rank's shard of the ring."""
     mesh = ProcessMesh.meta((2, 2))
     for a in ("rwkv6_1p6b", "zamba2_1p2b", "seamless_m4t_large_v2",
               "qwen3_4b", "hstu_gr"):
         cfg = get_config(a, smoke=True)
-        with logical_rules(mesh, fsdp=True), pytest.raises(
-                ValueError, match="fsdp.*item 10.3"):
-            build_model(cfg, device="meta")
-        with logical_rules(mesh):
-            build_model(cfg, device="meta")
+        for fsdp in (True, False):
+            with logical_rules(mesh, fsdp=fsdp):
+                build_model(cfg, device="meta")
     q = get_config("qwen3_4b", smoke=True)
     with logical_rules(mesh):
         model = build_model(q, device="meta")
-        with pytest.raises(ValueError, match="ZeRO-2"):
-            make_step(model, InputShape("t", 16, 4, "train"), zero2=True)
+        shape = InputShape("t", 16, 4, "train")
+        fn, arg_specs, arg_axes = make_step(model, shape, zero2=True)
+        fn(*step_inputs(shape, local_inputs(arg_specs, arg_axes), "meta"))
         with pytest.raises(ValueError, match="graph"):
             make_serve_step(model, graphs=True)
     with logical_rules(ProcessMesh.meta((4, 1)), {"kv_seq": "data"}):

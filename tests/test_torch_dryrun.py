@@ -31,10 +31,12 @@ from repro_torch.launch import dryrun, mesh as pmesh
 from repro_torch.launch.steps import (cache_specs_and_axes, input_specs,
                                       make_step, step_inputs)
 from repro_torch.models import ARCH_IDS, INPUT_SHAPES, build_model, get_config
+from repro_torch.models.arch import flat_specs
 from repro_torch.models.config import InputShape
+from repro_torch.models.layers import DTYPES
 from repro_torch.models.partitioning import (DEFAULT_RULES, MeshShape, Rules,
                                              device_bytes, is_spec, make_mesh,
-                                             map_specs, tree_specs)
+                                             map_specs, spec_tree)
 from repro_torch.training import optimizer as popt
 from repro_torch.tree import flatten
 
@@ -128,7 +130,7 @@ def test_rules_spec_matches_reference_for_every_parameter(multi_pod, fsdp):
     for arch in ARCH_IDS:
         rm, pm = _models(arch)
         axes, specs = pm.param_axes(), pm.abstract_params()
-        got = tree_specs(mesh, axes, specs, fsdp=fsdp)
+        got = spec_tree(Rules(mesh, fsdp=fsdp), axes, specs)
 
         def check(ax, sd):
             want = tuple(rrules.spec(ax, shape=sd[0]))
@@ -286,7 +288,7 @@ def _kinds(**counts):
     return out
 
 
-def _closed_form(cfg, shape, mesh_name):
+def _closed_form(cfg, shape, mesh_name, fsdp=False, zero2=False):
     """rank 0's collectives of one step of hstu-gr or qwen3_4b (full
     configs) on a (data, model) or (pod, data, model) mesh, fsdp off:
 
@@ -306,7 +308,32 @@ def _closed_form(cfg, shape, mesh_name):
       logit) forward, (max, sum) in its recompute, and the gradient of
       its normed input; then the CE metric over the batch axes, one
       all-reduce of the gradients a type over them, and the global norm
-      over "model"."""
+      over "model".
+
+    fsdp on ("embed" on "data": d 256 and 2560 split 16 ways), beside
+    those: every weight with an "embed" dimension is gathered whole
+    (its model shard) where it is read, one all-gather each: the top
+    level's three (tok, final_norm, unembed) once a step, a layer's
+    (hstu-gr: ln, uvqk, wo; qwen3: ln1, ln2, wq, wk, wv, wo and the
+    FFN's wi, wg, wo) in its forward and, in a train step, again in
+    its recompute; the backward reduce-scatters each one's gradient
+    over "data" once (the top level's three and each layer's).  Serve
+    bytes: those weights' bytes on one model shard, once
+    (``_fsdp_bytes``).  The train step's tail changes with the specs:
+    the gradients are summed over the batch axes their weight does not
+    shard, one all-reduce a (type, axes) (hstu-gr: ln_attn over the
+    batch axes, and on two pods the others over "pod": 1 / 2; qwen3:
+    q_norm and k_norm, float32, over the batch axes, and on two pods
+    the bf16 weights and the float32 norms over "pod": 1 / 3), and the
+    global norm sums once over each set of axes a weight is sharded on
+    (hstu-gr: {model} ln_attn, {data} ln, uvqk, wo and final_norm (its
+    4 heads stay whole), {data, model} tok and unembed: 3; qwen3:
+    {data} the norms, wk and wv (8 kv heads stay whole), {data, model}
+    the rest: 2).
+
+    ZeRO-2 adds to the plain train step the parameters' all-gather over
+    "data" after the update, one a type (hstu-gr float32: 1; qwen3 bf16
+    weights and float32 norms: 2)."""
     sizes = [int(x) for x in mesh_name.split("x")]
     if sizes[-1] == 1:
         rec = _kinds()
@@ -317,24 +344,63 @@ def _closed_form(cfg, shape, mesh_name):
     S = 1 if shape.kind == "decode" else shape.seq_len
     act = shape.global_batch // n_batch * S * d * isz
     hstu = cfg.hstu
+    two_pods = len(sizes) == 3
+    n_g = (3 if hstu else 9) if fsdp else 0    # a layer's gathered weights
+    top = 3 if fsdp else 0
     if shape.kind != "train":
+        W = _fsdp_bytes(cfg, mesh_name) if fsdp else 0
         if hstu:
-            return _kinds(all_reduce=(1, act),
-                          all_gather=(L, L * cfg.n_heads * cfg.head_dim * 4))
-        return _kinds(all_reduce=(1 + 2 * L, (1 + 2 * L) * act))
+            return _kinds(all_reduce=(1, act), all_gather=(
+                L + top + n_g * L, L * cfg.n_heads * cfg.head_dim * 4 + W))
+        return _kinds(all_reduce=(1 + 2 * L, (1 + 2 * L) * act),
+                      all_gather=(top + n_g * L, W))
     chunks = shape.seq_len // 512
-    tail = 1 + (1 if hstu else 2) + 1   # CE metric, gradients, norm
+    if not fsdp:
+        grads, norm = (1 if hstu else 2), 1
+    elif hstu:
+        grads, norm = (2 if two_pods else 1), 3
+    else:
+        grads, norm = (3 if two_pods else 1), 2
+    tail = 1 + grads + norm             # CE metric, gradients, norm
+    gathers = top + 2 * n_g * L + (1 if hstu else 2) * zero2
+    rs = (top + n_g * L, None)
     if hstu:
         return _closed_counts(_kinds(all_reduce=(1 + 6 * chunks + tail, None),
-                                     all_gather=(2 * L, None)))
+                                     all_gather=(2 * L + gathers, None),
+                                     reduce_scatter=rs))
     per_layer = 2 + 1 + 2 + 2 * cfg.qk_norm + 2
     return _closed_counts(_kinds(all_reduce=(
-        1 + per_layer * L + 6 * chunks + tail, None)))
+        1 + per_layer * L + 6 * chunks + tail, None),
+        all_gather=(gathers, None), reduce_scatter=rs))
+
+
+def _fsdp_bytes(cfg, mesh_name):
+    """The bytes, on one model shard, of every weight a serve step reads
+    with an "embed" dimension (HSTU's task tower is not read): what
+    fsdp's all-gathers of one prefill or decode step carry."""
+    mesh = pmesh.make_production_mesh(multi_pod=mesh_name.count("x") == 2)
+    rules = Rules(mesh)
+    model = build_model(cfg, device="meta")
+    return sum(device_bytes(s.shape, DTYPES[s.dtype],
+                            rules.spec(s.axes, s.shape), mesh)
+               for k, s in flat_specs(model.param_specs()).items()
+               if "embed" in s.axes and not k.startswith("task_tower"))
 
 
 def _closed_counts(rec):
     """A closed form that fixes the counts only (bytes None)."""
     return {k: v["count"] for k, v in rec.items() if isinstance(v, dict)}
+
+
+def _check_closed_form(arch, shape, **kw):
+    cfg = get_config(arch)
+    for mesh in (pmesh.make_production_mesh(),
+                 pmesh.make_production_mesh(multi_pod=True)):
+        got = dryrun.trace_collectives(cfg, shape, mesh, **kw)
+        want = _closed_form(cfg, INPUT_SHAPES[shape], mesh.name, **kw)
+        if INPUT_SHAPES[shape].kind == "train":
+            got = _closed_counts(got)
+        assert got == want, (arch, shape, mesh.name, kw)
 
 
 @pytest.mark.parametrize("arch", ["hstu_gr", "qwen3_4b"])
@@ -343,28 +409,44 @@ def test_collectives_equal_a_closed_form(arch, shape):
     """rank 0's tally on the meta device (``dryrun.trace_collectives``)
     on 16 x 16 and 2 x 16 x 16 against ``_closed_form``: counts and
     bytes of the serve steps, counts of the train step."""
-    cfg = get_config(arch)
-    for mesh in (pmesh.make_production_mesh(),
-                 pmesh.make_production_mesh(multi_pod=True)):
-        got = dryrun.trace_collectives(cfg, shape, mesh)
-        want = _closed_form(cfg, INPUT_SHAPES[shape], mesh.name)
-        if INPUT_SHAPES[shape].kind == "train":
-            got = _closed_counts(got)
-        assert got == want, (arch, shape, mesh.name)
+    _check_closed_form(arch, shape)
+
+
+@pytest.mark.parametrize("mode", ["fsdp", "zero2"])
+@pytest.mark.parametrize("arch", ["hstu_gr", "qwen3_4b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_fsdp_and_zero2_collectives_equal_a_closed_form(arch, shape, mode):
+    """The same under fsdp (``trace_collectives(..., fsdp=True)``) and
+    under ZeRO-2 (``zero2=True``): ``_closed_form``'s gathers,
+    reduce-scatters and parameter all-gathers."""
+    _check_closed_form(arch, shape, fsdp=mode == "fsdp",
+                       zero2=mode == "zero2")
 
 
 def test_records_outside_the_mesh_port_keep_null_collectives():
-    """fsdp, the one step the port does not run under a mesh:
-    ``collectives`` null and a reason naming ROADMAP Queue 1, item 10.3;
-    the SSM family and a kv_seq decode carry theirs; a 1 x 1 record
-    counts nothing."""
+    """No record is left without its collectives: fsdp "on" and "zero2"
+    records carry theirs, traced under their own rules and step, with a
+    null ``collectives_reason``, as the SSM family and a kv_seq decode
+    do; a zero2 train record's equal ``trace_collectives(...,
+    zero2=True)`` and differ from the plain step's (the parameters'
+    all-gather); a 1 x 1 record counts nothing."""
     rec = dryrun.run_combo("rwkv6_1p6b", "decode_32k", ["single"])[0]
     assert rec["collectives_reason"] is None
     assert rec["collectives"]["all-reduce"]["count"] > 0
+    mesh = pmesh.make_production_mesh()
     rec = dryrun.run_combo("qwen3_4b", "decode_32k", ["single", "card"],
                            fsdp="on")
-    assert rec[0]["collectives"] is None and "FSDP" in rec[0][
-        "collectives_reason"] and "item 10.3" in rec[0]["collectives_reason"]
+    assert rec[0]["fsdp"] is True and rec[0]["collectives_reason"] is None
+    assert rec[0]["collectives"] == dryrun.trace_collectives(
+        "qwen3_4b", "decode_32k", mesh, fsdp=True)
+    assert rec[0]["collectives"]["all-gather"]["count"] > 0
+    assert rec[1]["collectives"]["total_bytes"] == 0
+    shape = InputShape("t", 4096, 32, "train")
+    rec = dryrun.run_combo("hstu_gr", shape, ["single"], fsdp="zero2")[0]
+    assert rec["fsdp"] == "zero2" and rec["collectives_reason"] is None
+    want = dryrun.trace_collectives("hstu_gr", shape, mesh, zero2=True)
+    assert rec["collectives"] == want
+    assert want != dryrun.trace_collectives("hstu_gr", shape, mesh)
     rec = dryrun.run_combo("starcoder2_7b", "long_500k", ["single"])[0]
     assert rec["collectives_reason"] is None
     assert rec["collectives"]["all-reduce"]["count"] > 0
