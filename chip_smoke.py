@@ -10,13 +10,24 @@ Phases, each fatal on failure (nothing is caught):
      SM clocks (now and at most) beside them;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
      cached in ``build/kernels/`` by a hash of the sources);
-  3. hold each kernel against its plain-PyTorch version on the card at
-     the live shapes (B in {1, 8}, H=4, D=64, 2048-token psi, 16 incr +
-     64 items), at the paper's ranking shape (64 incr + 512 items over
-     2048 tokens) and, for the paged kernel, with 64-token pages and
-     ragged per-row lengths; assert the bitwise properties (a row's
+  3. print the registers, spill bytes and shared memory of the paged
+     loader's variants (the TMA-loaded paged and segment
+     launches, rows 3-4); hold each kernel against its plain-PyTorch
+     version on the card at the live shapes (B in {1, 8}, H=4, D=64,
+     2048-token psi, 16 incr + 64 items), at the paper's ranking shape
+     (64 incr + 512 items over 2048 tokens) and, for the paged kernel,
+     with 64-token pages and ragged per-row lengths (the main shape), at
+     full rows (every row 2048 tokens: the dense launch's work; row 4 as
+     one span a row) and at B 1; assert the bitwise properties (a row's
      result does not depend on its batch; paged == dense at equal padded
-     length; the segment kernel with one span == the paged kernel); the
+     length; the segment kernel with one span == the paged kernel; a
+     graph replay == the eager launch), the paged and segment launches
+     within 1e-5 of the largest |out| of their twins in float64 and
+     within 1e-4 of their twins on the CPU; with every pool key that no
+     launch holds set to NaN (page tails past prefix_lens or
+     page_valid, pages no table names), the paged and segment outputs
+     finite and equal to the clean pool's bit for bit (float32 and bf16,
+     16- and 64-token pages, B 1 and 8); the
      segment kernel at B in {1, 8} over a 2048-token prefix span and
      interior spans of 96 and 160 tokens, fresh tokens 8 | 8 | 64 (the
      64 the items), and proof that its limit fails an all-zero output
@@ -28,7 +39,8 @@ Phases, each fatal on failure (nothing is caught):
      (``ms``) and per launch by CUDA-graph replay (``graph_ms``), beside
      its FP32 and 3xTF32 bounds, and the plain version per call, with
      CUDA events; then rows 1-4 with bf16 inputs at their main shapes
-     (B 8): each bf16 launch equal bit for bit to the float32 launch on
+     (B 8), rows 2-4 also at full rows and B 1: each bf16 launch equal
+     bit for bit to the float32 launch on
      the widened inputs, rounded to bf16; that float32 launch within
      1e-5 of the largest |out| of float64 on the widened inputs, the
      bf16 output within its rounding (2**-8 of |out|) plus 1e-5; within
@@ -317,6 +329,7 @@ from repro_torch.launch.mesh import (HBM_BW,       # noqa: E402
 TOL = 3e-4          # f32 kernel vs plain: the repo's kernel tolerance
 BF16_REL = 2 ** -6  # bf16 decode vs plain: of the largest |plain|, ~2 bf16 ulps
 F64_REL = 1e-5      # rank kernels vs float64: of the largest |out|
+CPU_REL = 1e-4      # rank kernels on the card vs their twins on the CPU
 GRAPH_REL = 1e-6    # graph replay vs eager, of the largest |value|
 H, D = 4, 64
 PSI, N_INCR, N_ITEMS = 2048, 16, 64
@@ -324,6 +337,9 @@ PAGE = 64
 RAGGED = [2048, 1500, 933, 103, 2048, 640, 1, 1777]   # per-row psi tokens
 # per row: ('c', n) a cached span, ('f', n) fresh tokens (the last 64 items)
 SEG_PATTERN = [("c", PSI), ("f", 8), ("c", 96), ("f", 8), ("c", 160),
+               ("f", N_ITEMS)]
+# spans that end mid-page at 16- and 64-token pages (the NaN-pool check)
+NAN_PATTERN = [("c", PSI - 40), ("f", 8), ("c", 90), ("f", 8), ("c", 150),
                ("f", N_ITEMS)]
 
 # bf16 inputs (rows 1-4 and 6-7 widen on load, as the Pallas kernels do)
@@ -383,10 +399,11 @@ def _time_ms(torch, fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(torch, fn, n=20, reps=5):
+def _graph_ms(torch, fn, n=20, reps=5, want=None):
     """The card's time per launch of ``fn``: n launches captured in a
     CUDA graph, replayed ``reps`` times between CUDA events, the least of
-    3 samples.  No host time is in it (the wrapper runs at capture)."""
+    3 samples.  No host time is in it (the wrapper runs at capture).
+    With ``want``, a replay's output must equal it bit for bit."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -396,9 +413,11 @@ def _graph_ms(torch, fn, n=20, reps=5):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(n):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
+    if want is not None:
+        assert torch.equal(out, want), "graph replay != eager bitwise"
     samples = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
@@ -424,13 +443,15 @@ def _bound_tf32(flops, nbytes):
     return max(3 * flops / TF32_PEAK, nbytes / HBM_BW) * 1e3
 
 
-def _rank_times(torch, fn, plain, flops, nbytes):
+def _rank_times(torch, fn, plain, flops, nbytes, want=None):
     """A rank kernel's times at one shape: ``ms`` back-to-back wrapper
     calls (host included, as every kernel here is timed), ``graph_ms``
-    the card's time per launch (CUDA-graph replay, no host), the plain
-    twin per call, and both bounds."""
+    the card's time per launch (CUDA-graph replay, no host; with
+    ``want``, the replay's bits checked against it), the plain twin per
+    call, and both bounds."""
     bound_ms, by = _bound(flops, nbytes)
-    return dict(ms=_time_ms(torch, fn), graph_ms=_graph_ms(torch, fn),
+    return dict(ms=_time_ms(torch, fn),
+                graph_ms=_graph_ms(torch, fn, want=want),
                 plain_ms=_time_ms(torch, plain, 5), bound_ms=bound_ms,
                 bound_by=by, bound_tf32_ms=_bound_tf32(flops, nbytes))
 
@@ -442,11 +463,153 @@ def _visible_new(Sq, n_incr):
     return incr + items
 
 
+def paged_build_report(torch):
+    """The paged loader's variants (PAGED: the paged and segment launches)
+    as ptxas built them: registers, spill bytes and static shared memory
+    from ``cuda_lib.BUILD_LOG``, the dynamic shared memory from the
+    library; one line each."""
+    import ctypes
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    lib.hstu_rank_attn_paged_smem.argtypes = [ctypes.c_int] * 3
+    lib.hstu_rank_attn_paged_smem.restype = ctypes.c_int
+    kind = re.compile(r"hstu_rank_attn_kernelILi(\d+)ELb([01])ELb([01])E"
+                      r"(f|13__nv_bfloat16)E")
+    found, name = {}, None
+    for line in cuda_lib.BUILD_LOG.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        k = kind.search(name or "")
+        if not k or k.group(2) != "1":
+            continue
+        key = (int(k.group(1)), k.group(3) == "1",
+               "bf16" if k.group(4) != "f" else "f32")
+        r = found.setdefault(key, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            r["spill_stores"], r["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            r["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            r["static_smem"] = int(m.group(1)) if m else 0
+    assert found, "no paged variant of hstu_rank_attn_kernel in the build log"
+    rows = []
+    for (d, seg, t), r in sorted(found.items()):
+        r["dynamic_smem"] = lib.hstu_rank_attn_paged_smem(
+            d, int(seg), int(t == "bf16"))
+        rows.append(dict(D=d, segment=seg, dtype=t, **r))
+        log(f"paged variant D={d} {'SEG' if seg else 'paged'} {t}: "
+            f"{r.get('registers')} registers, {r.get('spill_stores')} / "
+            f"{r.get('spill_loads')} bytes spilled (stores / loads), shared "
+            f"memory {r['dynamic_smem']} B dynamic + {r.get('static_smem')} B "
+            f"static")
+    return rows
+
+
+def _f64_and_cpu(torch, got, plain, args):
+    """``got`` (a rank kernel's float32 output) against ``plain`` on
+    ``args`` in float64 on the card and in float32 on the CPU, each of
+    the largest |out|; asserts F64_REL and CPU_REL."""
+    wide = tuple(a.double() if a.is_floating_point() else a for a in args)
+    ref64 = plain(*wide)
+    f64 = ((got.double() - ref64).abs().max() / ref64.abs().max()).item()
+    cpu = plain(*(a.cpu() for a in args))
+    rel = ((got.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    assert f64 <= F64_REL, f"|kernel - float64| {f64:.2e} of max |out|"
+    assert rel <= CPU_REL, f"|card - CPU| {rel:.2e} of max |out|"
+    return f64, rel
+
+
+def _held(torch, n_pool, pt, tables, held_tokens):
+    """(n_pool, pt) bool: the pool keys some launch row holds, slot s of
+    row b holding its page's first ``held_tokens[b, s]`` keys."""
+    j = torch.arange(pt, device=held_tokens.device)
+    rows = (j[None, None, :] < held_tokens[:, :, None]).int()
+    count = torch.zeros(n_pool, pt, dtype=torch.int32,
+                        device=held_tokens.device)
+    for table in tables:
+        count.index_put_((table.reshape(-1).long(),), rows.reshape(-1, pt),
+                         accumulate=True)
+    return count > 0
+
+
+def unheld_nan_checks(torch, results):
+    """TMA loads whole pages, so the keys a launch does not hold reach
+    shared memory: the tail of a row's last page past prefix_lens, a
+    segment page's keys past page_valid, pages no table names.  With all
+    of them NaN, the paged and segment outputs are finite and equal the
+    clean pool's (those keys 0) bit for bit: float32 and bf16, 16- and
+    64-token pages, B 1 and 8 (ragged rows, the segment pattern)."""
+    from repro_torch.kernels import paged_prefix_attn as pk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    nan = torch.tensor(float("nan"), device=dev)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for pt in (16, 64):
+            for B in (1, 8):
+                lens = RAGGED[:B] if B > 1 else [PSI - 48]
+                n_pages = PSI // pt
+                n_pool = 2 * B * n_pages
+                pool = torch.randn(n_pool + 1, pt, H, D, generator=gen,
+                                   device=dev)
+                perm = torch.randperm(n_pool, generator=gen, device=dev).int()
+                kt = torch.full((B, n_pages), n_pool, dtype=torch.int32,
+                                device=dev)
+                vt = kt.clone()
+                for b, ln in enumerate(lens):
+                    used = -(-ln // pt)
+                    kt[b, :used] = perm[2 * b * n_pages:2 * b * n_pages + used]
+                    vt[b, :used] = perm[(2 * b + 1) * n_pages:
+                                        (2 * b + 1) * n_pages + used]
+                plens = torch.tensor(lens, dtype=torch.int32, device=dev)
+                slot = torch.arange(n_pages, device=dev) * pt
+                keep = _held(torch, n_pool + 1, pt, (kt, vt),
+                             (plens[:, None] - slot).clamp(0, pt))
+                q, kn, vn = (torch.randn(B, H, N_INCR + N_ITEMS, D,
+                                         generator=gen, device=dev).to(dtype)
+                             for _ in range(3))
+                clean = torch.where(keep[..., None, None], pool, 0).to(dtype)
+                bad = torch.where(keep[..., None, None], pool, nan).to(dtype)
+                call = lambda p: pk.paged_prefix_rank_attn(
+                    q, p, p, kt, vt, plens, kn, vn, n_incr=N_INCR)
+                got, want = call(bad), call(clean)
+                assert torch.isfinite(got).all(), "paged: NaN from unheld keys"
+                assert torch.equal(got, want), "paged: unheld keys changed bits"
+                a = _segment_inputs(torch, gen, B, page=pt,
+                                    pattern=NAN_PATTERN, pad=1)
+                n_items = a.pop("n_items")
+                keep = _held(torch, a["k_pages"].shape[0], pt,
+                             (a["k_table"], a["v_table"]), a["page_valid"])
+                spool = a.pop("k_pages")
+                a.pop("v_pages")
+                a = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in a.items()}
+                clean = torch.where(keep[..., None, None], spool, 0).to(dtype)
+                bad = torch.where(keep[..., None, None], spool, nan).to(dtype)
+                seg = lambda p: pk.segment_rank_attn(
+                    k_pages=p, v_pages=p, **a, n_items=n_items)
+                got, want = seg(bad), seg(clean)
+                assert torch.isfinite(got).all(), "segment: NaN from unheld keys"
+                assert torch.equal(got, want), "segment: unheld keys changed bits"
+                cases += 1
+    results["paged_prefix_rank_attn"]["unheld_nan_cases"] = cases
+    results["segment_rank_attn"]["unheld_nan_cases"] = cases
+    log(f"unheld pool keys NaN: paged and segment outputs finite and equal "
+        f"to the clean pool's bit for bit in {cases} cases (float32 / bf16, "
+        f"16- / 64-token pages, B 1 / 8)")
+
+
 def kernel_phase(torch, results):
     from repro_torch.kernels import hstu_attn as hk
     from repro_torch.kernels import paged_prefix_attn as pk
     from repro_torch.kernels import prefix_rank_attn as rk
     from repro_torch.kernels import ref
+
+    results["_paged_build"] = paged_build_report(torch)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -486,11 +649,16 @@ def kernel_phase(torch, results):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 "
             f"{t['bound_tf32_ms']:.4f} ms")
 
-    # prefix_rank_attn + paged: live shapes and the paper's ranking shape
-    for B, n_incr, n_items in ((1, N_INCR, N_ITEMS), (8, N_INCR, N_ITEMS),
-                               (1, 64, 512)):
+    # prefix_rank_attn + paged (and the one-span segment): the live rank
+    # of one hit (B 1, 2048 psi), the ragged batch (main), the same batch
+    # at full rows (the dense launch's work), the paper's ranking shape
+    for B, n_incr, n_items, rows in ((1, N_INCR, N_ITEMS, "full"),
+                                     (8, N_INCR, N_ITEMS, "ragged"),
+                                     (8, N_INCR, N_ITEMS, "full"),
+                                     (1, 64, 512, "full")):
         Sq = n_incr + n_items
-        lens = RAGGED[:B] if B > 1 else [PSI]
+        lens = RAGGED[:B] if rows == "ragged" else [PSI] * B
+        main = (B, n_incr, rows) == (8, N_INCR, "ragged")
         q, kn, vn = randn(B, H, Sq, D), randn(B, H, Sq, D), randn(B, H, Sq, D)
         n_pages = PSI // PAGE
         # a pool whose K and V pages are distinct and shuffled, null last
@@ -530,8 +698,9 @@ def kernel_phase(torch, results):
         pval = (plens[:, None] - ppos).clamp(0, PAGE).int()
         qpos = (PSI + torch.arange(Sq, dtype=torch.int32, device=dev)
                 ).expand(B, Sq)
-        seg = pk.segment_rank_attn(q, pool, pool, kt, vt, ppos, pval, qpos,
-                                   kn, vn, n_items=n_items)
+        seg_call = lambda: pk.segment_rank_attn(
+            q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn, n_items=n_items)
+        seg = seg_call()
         assert torch.equal(seg, paged), (
             f"segment (one span) != paged bitwise "
             f"(max {(seg - paged).abs().max():.3e})")
@@ -541,9 +710,7 @@ def kernel_phase(torch, results):
                     q, kp, vp, kn, vn, n_incr=n_incr), dense),
                 ("paged", lambda: pk.paged_prefix_rank_attn(
                     q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr), paged),
-                ("segment", lambda: pk.segment_rank_attn(
-                    q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn,
-                    n_items=n_items), seg)):
+                ("segment", seg_call, seg)):
             assert torch.equal(again(), first), f"{mode}: two calls differ"
         if B > 1:
             for b in range(B):
@@ -555,36 +722,53 @@ def kernel_phase(torch, results):
                     n_incr=n_incr)
                 assert torch.equal(one_d[0], dense[b]), "dense: batch-dependent row"
                 assert torch.equal(one_p[0], paged[b]), "paged: batch-dependent row"
+        # the paged launch against its twin in float64 on the card and in
+        # float32 on the CPU, of the largest |out|
+        f64, cpu = _f64_and_cpu(torch, paged, lambda *a: (
+            pk.paged_prefix_rank_attn_plain(*a, n_incr=n_incr)),
+            (q, pool, pool, kt, vt, plens, kn, vn))
+        results["paged_prefix_rank_attn"].setdefault("probes", []).append(
+            dict(B=B, rows=rows, Sq=Sq, f64_rel=f64, cpu_rel=cpu))
         new_pairs = B * H * _visible_new(Sq, n_incr)
-        for name, fn, plain, e, pre_keys in (
-                ("prefix_rank_attn",
-                 lambda: rk.prefix_rank_attn_split(q, kp, vp, kn, vn,
-                                                   n_incr=n_incr),
-                 lambda: rk.prefix_rank_attn_plain(
-                     q, torch.cat([kp, kn], 2), torch.cat([vp, vn], 2),
-                     n_prefix=PSI, n_incr=n_incr),
-                 e_d, B * PSI),
-                ("paged_prefix_rank_attn",
-                 lambda: pk.paged_prefix_rank_attn(q, pool, pool, kt, vt,
-                                                   plens, kn, vn,
-                                                   n_incr=n_incr),
-                 lambda: pk.paged_prefix_rank_attn_plain(
-                     q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr),
-                 e_p, sum(lens))):
+        held = sum(lens)
+        timed = [("prefix_rank_attn",
+                  lambda: rk.prefix_rank_attn_split(q, kp, vp, kn, vn,
+                                                    n_incr=n_incr),
+                  lambda: rk.prefix_rank_attn_plain(
+                      q, torch.cat([kp, kn], 2), torch.cat([vp, vn], 2),
+                      n_prefix=PSI, n_incr=n_incr),
+                  e_d, B * PSI, dense, 0),
+                 ("paged_prefix_rank_attn",
+                  lambda: pk.paged_prefix_rank_attn(q, pool, pool, kt, vt,
+                                                    plens, kn, vn,
+                                                    n_incr=n_incr),
+                  lambda: pk.paged_prefix_rank_attn_plain(
+                      q, pool, pool, kt, vt, plens, kn, vn, n_incr=n_incr),
+                  e_p, held, paged, 4 * (2 * B * n_pages + B))]
+        if (B, rows, n_incr) == (8, "full", N_INCR):   # row 4 at full rows
+            timed.append(("segment_rank_attn", seg_call, lambda: (
+                pk.segment_rank_attn_plain(q, pool, pool, kt, vt, ppos, pval,
+                                           qpos, kn, vn, n_items=n_items)),
+                e_p, held, seg, 4 * (4 * B * n_pages + B * Sq)))
+        for name, fn, plain, e, pre_keys, out, tables in timed:
             pairs = new_pairs + H * Sq * pre_keys
             flops = 4 * D * pairs
-            nbytes = 4 * (4 * B * H * Sq * D + 2 * pre_keys * H * D)
-            if name == "paged_prefix_rank_attn":
-                nbytes += 4 * (2 * B * n_pages + B)     # tables + lengths
-            t = _rank_times(torch, fn, plain, flops, nbytes)
+            nbytes = 4 * (4 * B * H * Sq * D + 2 * pre_keys * H * D) + tables
+            t = _rank_times(torch, fn, plain, flops, nbytes, want=out)
+            spans = {"spans": [PSI]} if name == "segment_rank_attn" else {}
             results[name]["shapes"].append(dict(
-                B=B, P=PSI, n_incr=n_incr, n_items=n_items,
-                main=(B, n_incr) == (8, N_INCR), max_abs_err=e,
-                prefix_tokens=pre_keys, **t))
-            log(f"{name} B={B} P={PSI} Sq={Sq}: err {e:.2e} kernel "
-                f"{t['ms']:.4f} ms (graph {t['graph_ms']:.4f}) plain "
+                B=B, P=PSI, n_incr=n_incr, n_items=n_items, rows=rows,
+                main=main and name != "segment_rank_attn", max_abs_err=e,
+                prefix_tokens=pre_keys, **spans, **t))
+            log(f"{name} B={B} P={PSI} ({rows} rows) Sq={Sq}: err {e:.2e} "
+                f"kernel {t['ms']:.4f} ms (graph {t['graph_ms']:.4f}) plain "
                 f"{t['plain_ms']:.4f} ms bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}), 3xTF32 {t['bound_tf32_ms']:.4f} ms")
+        log(f"paged B={B} ({rows} rows) Sq={Sq}: == dense, one-span segment "
+            f"== paged, repeat calls and graph replays bit for bit; float64 "
+            f"{f64:.2e}, CPU {cpu:.2e} of max |out| (limits {F64_REL}, "
+            f"{CPU_REL})")
+    unheld_nan_checks(torch, results)
     segment_checks(torch, results, gen, check)
     f32_accuracy(torch, results)
     log("kernels agree with their plain versions; bitwise properties hold")
@@ -638,7 +822,8 @@ def _bf16_case(torch, results, name, shape, call, plain, args, flops,
             f"{name} bf16: |kernel - float64| over its rounding + {F64_REL} "
             f"of max |out| by {(err - lim).max().item():.3e}")
         f64_rel = err.max().item() / top64
-    t = _rank_times(torch, lambda: call(bf), lambda: plain(bf), flops, nbytes)
+    t = _rank_times(torch, lambda: call(bf), lambda: plain(bf), flops, nbytes,
+                    want=got)
     r = dict(shape, dtype="bfloat16", twin_rel=twin, f64_rel=f64_rel,
              f64_rel_before_rounding=f32_rel, **t)
     results[name].setdefault("bf16", []).append(r)
@@ -653,10 +838,11 @@ def _bf16_case(torch, results, name, shape, call, plain, args, flops,
 
 def bf16_rank_checks(torch, results):
     """Rows 1-4 with bf16 inputs at their main shapes (B 8; psi 2048, 16
-    incr + 64 items, ragged rows at 64-token pages; the segment pattern):
-    ``_bf16_case`` each, and the bitwise properties in bf16 -- paged ==
-    dense at equal padded length, one-span segment == paged, and a row's
-    bits do not depend on its batch."""
+    incr + 64 items, ragged rows at 64-token pages; the segment pattern),
+    rows 2-4 also at full rows (B 8, every row 2048; row 4 one span) and
+    at B 1: ``_bf16_case`` each, and the bitwise properties in bf16 --
+    paged == dense at equal padded length, one-span segment == paged, and
+    a row's bits do not depend on its batch."""
     from repro_torch.kernels import hstu_attn as hk
     from repro_torch.kernels import paged_prefix_attn as pk
     from repro_torch.kernels import prefix_rank_attn as rk
@@ -680,90 +866,113 @@ def bf16_rank_checks(torch, results):
         assert torch.equal(one[0], got[b]), "hstu_attn bf16: batch-dependent row"
 
     # prefix_rank_attn and paged: one pool of distinct, shuffled K and V
-    # pages, ragged rows; the dense prefix gathered from it
+    # pages; the ragged batch (main), the batch at full rows, one hit at
+    # 2048 psi; the dense prefix gathered from it
     n_pages = PSI // PAGE
-    n_pool = 2 * B * n_pages
-    pool = act(n_pool + 1, PAGE, H, D)
-    pool[n_pool] = 0
-    perm = torch.randperm(n_pool, generator=gen, device=dev).int()
-    kt = torch.full((B, n_pages), n_pool, dtype=torch.int32, device=dev)
-    vt = kt.clone()
-    lens = RAGGED[:B]
-    for b, ln in enumerate(lens):
-        used = -(-ln // PAGE)
-        kt[b, :used] = perm[2 * b * n_pages:2 * b * n_pages + used]
-        vt[b, :used] = perm[(2 * b + 1) * n_pages:(2 * b + 1) * n_pages + used]
-    plens = torch.tensor(lens, dtype=torch.int32, device=dev)
-    new = dict(q=act(B, H, Sq, D), kn=act(B, H, Sq, D), vn=act(B, H, Sq, D))
-    pb = pool.bfloat16()
-    dense_args = dict(new, kp=ref.gather_pages(pb, kt, plens).float(),
-                      vp=ref.gather_pages(pb, vt, plens).float())
-    dense_call = lambda x: rk.prefix_rank_attn_split(
-        x["q"], x["kp"], x["vp"], x["kn"], x["vn"], n_incr=N_INCR)
-    dense_plain = lambda x: rk.prefix_rank_attn_plain(
-        x["q"], torch.cat([x["kp"], x["kn"]], 2),
-        torch.cat([x["vp"], x["vn"]], 2), n_prefix=PSI, n_incr=N_INCR)
-    pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * B * PSI
-    dense = case("prefix_rank_attn", dict(B=B, P=PSI, n_incr=N_INCR,
-                                          n_items=N_ITEMS, main=True),
-                 dense_call, dense_plain, dense_args, 4 * D * pairs,
-                 2 * (4 * B * H * Sq * D + 2 * B * PSI * H * D))
-    paged_args = dict(new, pool=pool)
-    paged_call = lambda x: pk.paged_prefix_rank_attn(
-        x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
-        n_incr=N_INCR)
-    paged_plain = lambda x: pk.paged_prefix_rank_attn_plain(
-        x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
-        n_incr=N_INCR)
-    held = sum(lens)
-    pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * held
-    paged = case("paged_prefix_rank_attn", dict(
-        B=B, P=PSI, n_incr=N_INCR, n_items=N_ITEMS, prefix_tokens=held,
-        main=True), paged_call, paged_plain, paged_args, 4 * D * pairs,
-        2 * (4 * B * H * Sq * D + 2 * held * H * D) + 4 * (2 * kt.numel() + B))
-    assert torch.equal(paged, dense), "bf16: paged != dense bitwise"
-    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * PAGE
-            ).expand(B, n_pages).contiguous()
-    pval = (plens[:, None] - ppos).clamp(0, PAGE).int()
-    qpos = (PSI + torch.arange(Sq, dtype=torch.int32, device=dev)).expand(B, Sq)
-    nb = _floats(new, lambda t: t.bfloat16())
-    one_span = pk.segment_rank_attn(nb["q"], pb, pb, kt, vt, ppos, pval, qpos,
-                                    nb["kn"], nb["vn"], n_items=N_ITEMS)
-    assert torch.equal(one_span, paged), "bf16: one-span segment != paged bitwise"
-    db = _floats(dense_args, lambda t: t.bfloat16())
-    for b in range(B):
-        s = slice(b, b + 1)
-        one_d = rk.prefix_rank_attn_split(db["q"][s], db["kp"][s], db["vp"][s],
-                                          db["kn"][s], db["vn"][s],
-                                          n_incr=N_INCR)
-        one_p = pk.paged_prefix_rank_attn(nb["q"][s], pb, pb, kt[s], vt[s],
-                                          plens[s], nb["kn"][s], nb["vn"][s],
-                                          n_incr=N_INCR)
-        assert torch.equal(one_d[0], dense[b]), "bf16 dense: batch-dependent row"
-        assert torch.equal(one_p[0], paged[b]), "bf16 paged: batch-dependent row"
+    for B, rows in ((8, "ragged"), (8, "full"), (1, "full")):
+        main = rows == "ragged"
+        n_pool = 2 * B * n_pages
+        pool = act(n_pool + 1, PAGE, H, D)
+        pool[n_pool] = 0
+        perm = torch.randperm(n_pool, generator=gen, device=dev).int()
+        kt = torch.full((B, n_pages), n_pool, dtype=torch.int32, device=dev)
+        vt = kt.clone()
+        lens = RAGGED[:B] if main else [PSI] * B
+        for b, ln in enumerate(lens):
+            used = -(-ln // PAGE)
+            kt[b, :used] = perm[2 * b * n_pages:2 * b * n_pages + used]
+            vt[b, :used] = perm[(2 * b + 1) * n_pages:
+                                (2 * b + 1) * n_pages + used]
+        plens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        new = dict(q=act(B, H, Sq, D), kn=act(B, H, Sq, D), vn=act(B, H, Sq, D))
+        pb = pool.bfloat16()
+        dense_args = dict(new, kp=ref.gather_pages(pb, kt, plens).float(),
+                          vp=ref.gather_pages(pb, vt, plens).float())
+        dense_call = lambda x: rk.prefix_rank_attn_split(
+            x["q"], x["kp"], x["vp"], x["kn"], x["vn"], n_incr=N_INCR)
+        dense_plain = lambda x: rk.prefix_rank_attn_plain(
+            x["q"], torch.cat([x["kp"], x["kn"]], 2),
+            torch.cat([x["vp"], x["vn"]], 2), n_prefix=PSI, n_incr=N_INCR)
+        shape = dict(B=B, P=PSI, n_incr=N_INCR, n_items=N_ITEMS, rows=rows,
+                     main=main)
+        pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * B * PSI
+        dense = case("prefix_rank_attn", shape, dense_call, dense_plain,
+                     dense_args, 4 * D * pairs,
+                     2 * (4 * B * H * Sq * D + 2 * B * PSI * H * D))
+        paged_args = dict(new, pool=pool)
+        paged_call = lambda x: pk.paged_prefix_rank_attn(
+            x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
+            n_incr=N_INCR)
+        paged_plain = lambda x: pk.paged_prefix_rank_attn_plain(
+            x["q"], x["pool"], x["pool"], kt, vt, plens, x["kn"], x["vn"],
+            n_incr=N_INCR)
+        held = sum(lens)
+        pairs = B * H * _visible_new(Sq, N_INCR) + H * Sq * held
+        paged = case("paged_prefix_rank_attn", dict(shape, prefix_tokens=held),
+                     paged_call, paged_plain, paged_args, 4 * D * pairs,
+                     2 * (4 * B * H * Sq * D + 2 * held * H * D)
+                     + 4 * (2 * kt.numel() + B))
+        assert torch.equal(paged, dense), "bf16: paged != dense bitwise"
+        ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * PAGE
+                ).expand(B, n_pages).contiguous()
+        pval = (plens[:, None] - ppos).clamp(0, PAGE).int()
+        qpos = (PSI + torch.arange(Sq, dtype=torch.int32, device=dev)
+                ).expand(B, Sq)
+        span_call = lambda x: pk.segment_rank_attn(
+            x["q"], x["pool"], x["pool"], kt, vt, ppos, pval, qpos, x["kn"],
+            x["vn"], n_items=N_ITEMS)
+        nb = _floats(new, lambda t: t.bfloat16())
+        if (B, rows) == (8, "full"):     # row 4 at full rows: one span each
+            span_plain = lambda x: pk.segment_rank_attn_plain(
+                x["q"], x["pool"], x["pool"], kt, vt, ppos, pval, qpos,
+                x["kn"], x["vn"], n_items=N_ITEMS)
+            one_span = case("segment_rank_attn", dict(
+                shape, main=False, spans=[PSI]), span_call, span_plain,
+                paged_args, 4 * D * pairs,
+                2 * (4 * B * H * Sq * D + 2 * held * H * D)
+                + 4 * (4 * kt.numel() + B * Sq))
+        else:
+            one_span = span_call(dict(nb, pool=pb))
+        assert torch.equal(one_span, paged), \
+            "bf16: one-span segment != paged bitwise"
+        db = _floats(dense_args, lambda t: t.bfloat16())
+        for b in range(B if B > 1 else 0):
+            s = slice(b, b + 1)
+            one_d = rk.prefix_rank_attn_split(db["q"][s], db["kp"][s],
+                                              db["vp"][s], db["kn"][s],
+                                              db["vn"][s], n_incr=N_INCR)
+            one_p = pk.paged_prefix_rank_attn(nb["q"][s], pb, pb, kt[s],
+                                              vt[s], plens[s], nb["kn"][s],
+                                              nb["vn"][s], n_incr=N_INCR)
+            assert torch.equal(one_d[0], dense[b]), \
+                "bf16 dense: batch-dependent row"
+            assert torch.equal(one_p[0], paged[b]), \
+                "bf16 paged: batch-dependent row"
 
-    # segment_rank_attn: the segment pattern in every row
-    seg = _segment_inputs(torch, gen, B)
-    n_items = seg.pop("n_items")
-    seg_call = lambda x: pk.segment_rank_attn(**x, n_items=n_items)
-    seg_plain = lambda x: pk.segment_rank_attn_plain(**x, n_items=n_items)
-    kpos = ref.span_key_positions(seg["page_pos"], seg["page_valid"], PAGE)
-    Sq = seg["q"].shape[2]
-    cached = (kpos[:, None, :] <= seg["q_pos"][:, :, None]).sum().item()
-    held = (kpos != ref.HIDDEN).sum().item()
-    pairs = H * (cached + B * _visible_new(Sq, Sq - N_ITEMS))
-    got = case("segment_rank_attn", dict(
-        B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS,
-        spans=[n for kind, n in SEG_PATTERN if kind == "c"], main=True),
-        seg_call, seg_plain, seg, 4 * D * pairs,
-        2 * (4 * B * H * Sq * D + 2 * held * H * D)
-        + 4 * (4 * seg["k_table"].numel() + B * Sq))
-    sb = _floats(seg, lambda t: t.bfloat16())
-    for b in range(B):
-        one = pk.segment_rank_attn(**{
-            k: v[b:b + 1] if k not in ("k_pages", "v_pages") else v
-            for k, v in sb.items()}, n_items=n_items)
-        assert torch.equal(one[0], got[b]), "bf16 segment: batch-dependent row"
+    # segment_rank_attn: the segment pattern in every row, B 8 and 1
+    for B in (8, 1):
+        seg = _segment_inputs(torch, gen, B)
+        n_items = seg.pop("n_items")
+        seg_call = lambda x: pk.segment_rank_attn(**x, n_items=n_items)
+        seg_plain = lambda x: pk.segment_rank_attn_plain(**x, n_items=n_items)
+        kpos = ref.span_key_positions(seg["page_pos"], seg["page_valid"], PAGE)
+        Sq = seg["q"].shape[2]
+        cached = (kpos[:, None, :] <= seg["q_pos"][:, :, None]).sum().item()
+        held = (kpos != ref.HIDDEN).sum().item()
+        pairs = H * (cached + B * _visible_new(Sq, Sq - N_ITEMS))
+        got = case("segment_rank_attn", dict(
+            B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS, rows="spans",
+            spans=[n for kind, n in SEG_PATTERN if kind == "c"], main=B == 8),
+            seg_call, seg_plain, seg, 4 * D * pairs,
+            2 * (4 * B * H * Sq * D + 2 * held * H * D)
+            + 4 * (4 * seg["k_table"].numel() + B * Sq))
+        sb = _floats(seg, lambda t: t.bfloat16())
+        for b in range(B if B > 1 else 0):
+            one = pk.segment_rank_attn(**{
+                k: v[b:b + 1] if k not in ("k_pages", "v_pages") else v
+                for k, v in sb.items()}, n_items=n_items)
+            assert torch.equal(one[0], got[b]), \
+                "bf16 segment: batch-dependent row"
     log("bf16 rank kernels: each == the float32 launch on widened inputs "
         "(rounded) bit for bit; paged == dense, one-span segment == paged, "
         "rows independent of the batch, in bf16")
@@ -811,18 +1020,19 @@ def f32_accuracy(torch, results):
                 f"TF32 {tf32:.2e} of max |out| (limit {F64_REL})")
 
 
-def _segment_inputs(torch, gen, B):
-    """SEG_PATTERN in every row of B, at 64-token pages of one pool
-    whose K and V pages are distinct and shuffled (the null page last,
-    zero).  Values are SiLU-shaped, silu(2 N(0, 1)), as the model's own
-    q, k and v are (HSTU passes them through SiLU), so the cached spans
-    move the output well past the limit; the tail of a partly held page
-    is data too, which the kernel must not read."""
+def _segment_inputs(torch, gen, B, page=PAGE, pattern=SEG_PATTERN, pad=0):
+    """``pattern`` (SEG_PATTERN) in every row of B, at ``page``-token
+    pages of one pool whose K and V pages are distinct and shuffled (the
+    null page last, zero), the table ``pad`` null slots wider.  Values
+    are SiLU-shaped, silu(2 N(0, 1)), as the model's own q, k and v are
+    (HSTU passes them through SiLU), so the cached spans move the output
+    well past the limit; the tail of a partly held page is data too,
+    which the kernel must not read."""
     dev = torch.device("cuda")
     act = lambda *shape: torch.nn.functional.silu(
         2 * torch.randn(shape, generator=gen, device=dev))
     spans, fresh, pos = [], [], 0
-    for kind, n in SEG_PATTERN:
+    for kind, n in pattern:
         if kind == "c":
             spans.append((pos, n))
         else:
@@ -830,19 +1040,21 @@ def _segment_inputs(torch, gen, B):
         pos += n
     pp, pv = [], []
     for start, n in spans:
-        for lo in range(0, n, PAGE):
+        for lo in range(0, n, page):
             pp.append(start + lo)
-            pv.append(min(PAGE, n - lo))
-    n_pages, Sq = len(pp), len(fresh)
-    n_pool = 2 * B * n_pages
-    pool = act(n_pool + 1, PAGE, H, D)
+            pv.append(min(page, n - lo))
+    n_held, Sq = len(pp), len(fresh)
+    n_pool = 2 * B * n_held
+    pool = act(n_pool + 1, page, H, D)
     pool[n_pool] = 0
     perm = torch.randperm(n_pool, generator=gen, device=dev).int()
+    null = torch.full((B, pad), n_pool, dtype=torch.int32, device=dev)
     rows = lambda a: torch.tensor([a] * B, dtype=torch.int32, device=dev)
     return dict(q=act(B, H, Sq, D), k_pages=pool, v_pages=pool,
-                k_table=perm[:B * n_pages].view(B, n_pages),
-                v_table=perm[B * n_pages:].view(B, n_pages),
-                page_pos=rows(pp), page_valid=rows(pv), q_pos=rows(fresh),
+                k_table=torch.cat([perm[:B * n_held].view(B, n_held), null], 1),
+                v_table=torch.cat([perm[B * n_held:].view(B, n_held), null], 1),
+                page_pos=rows(pp + [0] * pad), page_valid=rows(pv + [0] * pad),
+                q_pos=rows(fresh),
                 k_new=act(B, H, Sq, D), v_new=act(B, H, Sq, D),
                 n_items=N_ITEMS)
 
@@ -891,19 +1103,27 @@ def segment_checks(torch, results, gen, check):
         nbytes = 4 * (4 * B * H * Sq * D + 2 * held * H * D
                       + 4 * a["k_table"].numel() + B * Sq)
         t = _rank_times(torch, lambda: pk.segment_rank_attn(**a), plain,
-                        flops, nbytes)
+                        flops, nbytes, want=got)
         assert torch.equal(pk.segment_rank_attn(**a), got), \
             f"{name}: two calls differ"
+        f64, cpu = _f64_and_cpu(torch, got, lambda *x: (
+            pk.segment_rank_attn_plain(*x, n_items=N_ITEMS)), tuple(
+            a[k] for k in ("q", "k_pages", "v_pages", "k_table", "v_table",
+                           "page_pos", "page_valid", "q_pos", "k_new",
+                           "v_new")))
+        results[name].setdefault("probes", []).append(
+            dict(B=B, rows="spans", Sq=Sq, f64_rel=f64, cpu_rel=cpu))
         results[name]["shapes"].append(dict(
             B=B, P=PSI, n_incr=Sq - N_ITEMS, n_items=N_ITEMS,
             spans=[n for kind, n in SEG_PATTERN if kind == "c"],
             main=B == 8, max_abs_err=e, zero_fails=zero,
-            wrong_mask_margins=margins, **t))
+            wrong_mask_margins=margins, f64_rel=f64, cpu_rel=cpu, **t))
         log(f"{name} B={B} spans {results[name]['shapes'][-1]['spans']} "
             f"Sq={Sq}: err {e:.2e} kernel {t['ms']:.4f} ms (graph "
             f"{t['graph_ms']:.4f}) plain {t['plain_ms']:.4f} ms bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), 3xTF32 "
-            f"{t['bound_tf32_ms']:.4f} ms; all-zero fails {zero:.3f}, "
+            f"{t['bound_tf32_ms']:.4f} ms; float64 {f64:.2e}, CPU {cpu:.2e} "
+            f"of max |out|; all-zero fails {zero:.3f}, "
             f"wrong-mask margins (x limit) " + ", ".join(
                 f"{k} {v:.1f}" for k, v in margins.items()))
 

@@ -131,6 +131,14 @@ class PageLayout:
                 f"bucket grid (1, 2, 4, 8, 16, 32 or 64) so paged and "
                 f"dense launches share shape buckets and normalizers")
         itemsize = 4 if cfg.dtype == "float32" else 2
+        # and the paged rank kernel loads a page of a head as one TMA box
+        # into shared memory, which refuses some small pages (bf16 at
+        # head dim 32 with one token a page): fail here, not at the first
+        # rank
+        from repro_torch.kernels.cuda_lib import tma_page_box
+        tma_page_box(page_tokens, cfg.head_dim,
+                     torch.float32 if itemsize == 4 else torch.bfloat16,
+                     f"page_tokens={page_tokens}")
         return cls(page_tokens=int(page_tokens),
                    slabs=2 * cfg.n_layers,
                    token_bytes=cfg.n_heads * cfg.head_dim * itemsize)

@@ -120,6 +120,8 @@ class RankAttnParams(ctypes.Structure):
         ("q_pos", ctypes.c_void_p), ("qp_stride", ctypes.c_longlong),
         ("segment", ctypes.c_int),
         ("q_rows", ctypes.c_int), ("cluster", ctypes.c_int),
+        ("kpool_stride", _Strides), ("vpool_stride", _Strides),
+        ("kpool_pages", ctypes.c_longlong), ("vpool_pages", ctypes.c_longlong),
     ]
 
 
@@ -204,7 +206,7 @@ def _launch(fn: str, params, device):
     with torch.cuda.device(device):
         err = getattr(lib, fn)(ctypes.byref(params), ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(f"{fn} launch failed: "
+        raise RuntimeError(f"{fn} launch failed ({err}): "
                            f"{lib.hstu_rank_attn_error(err).decode()}")
 
 
@@ -282,6 +284,101 @@ def _strides(t):
     return RankAttnParams._Strides(*t.stride()[:3])
 
 
+# TMA's rules for a tensor map and its box (cuTensorMapEncodeTiled) as the
+# paged loader uses them: dims (D, H, page_tokens, N + 1) innermost first,
+# one box (IN, 1, page_tokens, 1) per page and column block, written
+# through a W-byte swizzle, W = min(128, D x the value's bytes)
+TMA_MAX_BOX = 256            # each box dimension
+TMA_MAX_DIM = 1 << 32        # each tensor dimension
+TMA_MAX_STRIDE = 1 << 40     # each stride, in bytes
+TMA_SMEM_ALIGN = 128         # a box's destination in shared memory
+
+
+def tma_pool_geometry(shape, strides, dtype, data_ptr: int,
+                      name: str = "pool") -> dict:
+    """The TMA boxes through which the paged rank kernel loads a page
+    pool of ``shape`` (N + 1, page_tokens, H, D), ``strides`` in values,
+    ``dtype`` float32 or bfloat16, starting at ``data_ptr``: a dict of
+    ``swizzle`` (W, the bytes of a box row), ``inner`` (the values of a
+    box row), ``boxes`` (column blocks a page, for K or V), ``box`` (the
+    box dims, innermost first) and ``page_bytes`` (one page's bytes of
+    one head, K or V).  A pool that TMA cannot take raises a ValueError
+    that names the rule it breaks."""
+    if data_ptr % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte aligned global "
+                         f"address, got one {data_ptr % 16} bytes past it")
+    return dict(_pool_geometry(tuple(shape), tuple(strides), dtype, name))
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_geometry(shape, strides, dtype, name):
+    """``tma_pool_geometry`` but the address, once per pool layout."""
+    if len(shape) != 4 or len(strides) != 4:
+        raise ValueError(f"{name}: need a 4-d (N + 1, page_tokens, H, D) "
+                         f"pool, got shape {tuple(shape)}")
+    n1, pt, H, D = (int(x) for x in shape)
+    tma_strides(shape, strides, dtype, name, ("page", "token", "head"))
+    if not 1 <= n1 <= TMA_MAX_DIM:
+        raise ValueError(f"{name}: TMA dimensions must lie in [1, 2**32], "
+                         f"the pool has {n1} pages")
+    return tma_page_box(pt, D, dtype, name)
+
+
+@functools.lru_cache(maxsize=64)
+def tma_strides(shape, strides, dtype, name: str, dims) -> None:
+    """TMA's rules for the strides of a tensor map over a 4-d view of
+    ``shape`` whose innermost dim (D) is read: that dim contiguous, and
+    each outer stride (``dims`` names them, outermost first) a multiple
+    of 16 bytes below 2**40, and not 0 where its dim holds more than one
+    row (a size-1 dim's stride is never used).  A ValueError names the
+    rule a view breaks (every argument hashable: checked once a layout).
+    """
+    esz = torch.finfo(dtype).bits // 8
+    if strides[3] != 1:
+        raise ValueError(f"{name}: TMA reads the innermost dimension (D) "
+                         f"contiguously, need stride 1, got {strides[3]}")
+    for dim, n, st in zip(dims, shape[:3], strides[:3]):
+        if st * esz % 16 or st < 0:
+            raise ValueError(f"{name}: TMA strides must be multiples of 16 "
+                             f"bytes, the {dim} stride is {st * esz} bytes "
+                             f"(strides {tuple(strides)})")
+        if st * esz >= TMA_MAX_STRIDE:
+            raise ValueError(f"{name}: TMA strides must be below 2**40 "
+                             f"bytes, the {dim} stride is {st * esz}")
+        if st == 0 and n > 1:
+            raise ValueError(f"{name}: TMA strides must be positive, the "
+                             f"{dim} stride is 0 over {n} rows (an "
+                             f"expanded view; strides {tuple(strides)})")
+
+
+def tma_page_box(page_tokens: int, head_dim: int, dtype,
+                 name: str = "pool") -> dict:
+    """The TMA box of one page of one head (``page_tokens`` rows of
+    ``head_dim`` values of ``dtype``) as the paged loader writes it to
+    shared memory; the geometry part of ``tma_pool_geometry``, which
+    ``core.paging.PageLayout`` asks when a page size is chosen.  A page
+    size the loader cannot take raises a ValueError naming the rule."""
+    esz = torch.finfo(dtype).bits // 8
+    pt, D = int(page_tokens), int(head_dim)
+    if pt < 1 or RANK_KEY_TILE % pt:
+        raise ValueError(f"{name}: page_tokens {pt} must divide the "
+                         f"{RANK_KEY_TILE}-key tile (1, 2, 4, 8, 16, 32 "
+                         f"or 64): the tile is whole pages")
+    w = min(128, D * esz)
+    inner = w // esz
+    box = (inner, 1, pt, 1)
+    if max(box) > TMA_MAX_BOX:
+        raise ValueError(f"{name}: each TMA box dimension must be <= "
+                         f"{TMA_MAX_BOX}, got box {box}")
+    if pt * w % TMA_SMEM_ALIGN:
+        raise ValueError(f"{name}: a TMA box's shared-memory destination "
+                         f"must be {TMA_SMEM_ALIGN}-byte aligned: "
+                         f"page_tokens x {w}-byte rows = {pt * w} bytes "
+                         f"per page box is not a multiple of it")
+    return dict(swizzle=w, inner=inner, boxes=D * esz // w, box=box,
+                page_bytes=pt * D * esz)
+
+
 def _int_rows(t, name: str, shape, device):
     """An int32 (rows, n) table on ``device`` with a unit column stride
     (any row stride); anything else is refused."""
@@ -303,7 +400,9 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
             K/V input (prefix, pools) has q's type.
     prefix: optional dense (k_pre, v_pre), each (B, H, P, D).
     pages:  optional (k_pool, v_pool, k_table, v_table, prefix_lens) with
-            pools (N + 1, page_tokens, H, D), tables (B, n_pages) int32
+            pools (N + 1, page_tokens, H, D) that TMA can read
+            (``tma_pool_geometry``; page_tokens divides 64), tables
+            (B, n_pages) int32
             (any row stride, unit column stride), prefix_lens (B,) int32,
             or None with ``spans``.
     spans:  with pages, the segment mode: (page_pos, page_valid, q_pos),
@@ -355,12 +454,17 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
         for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
             if t.dtype != dtype:
                 raise TypeError(f"{name}: need {dtype} as q, got {t.dtype}")
-            if t.device != device or not t.is_contiguous() or t.dim() != 4 \
-                    or tuple(t.shape[2:]) != (H, D) or t.data_ptr() % 16:
-                raise ValueError(f"{name}: need a contiguous {dtype} "
+            if t.device != device or t.dim() != 4 \
+                    or tuple(t.shape[2:]) != (H, D):
+                raise ValueError(f"{name}: need a {dtype} "
                                  f"(N + 1, page_tokens, {H}, {D}) pool on "
                                  f"{device}, got {tuple(t.shape)} {t.dtype} "
                                  f"on {t.device}")
+            tma_pool_geometry(t.shape, t.stride(), dtype, t.data_ptr(), name)
+        # the new K and V are read through tensor maps of their own
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            tma_strides(tuple(t.shape), t.stride(), dtype, name,
+                        ("batch", "head", "token"))
         if k_pool.shape[1] != v_pool.shape[1]:
             raise ValueError("K and V pools differ in page_tokens")
         if k_table.dim() != 2 or k_table.shape[0] != B:
@@ -371,6 +475,8 @@ def rank_attn(q, k_new, v_new, *, n_incr: int, n_total: float,
             _int_rows(t, name, rows, device)
         pt = k_pool.shape[1]
         p.k_pool, p.v_pool = k_pool.data_ptr(), v_pool.data_ptr()
+        p.kpool_stride, p.vpool_stride = _strides(k_pool), _strides(v_pool)
+        p.kpool_pages, p.vpool_pages = k_pool.shape[0], v_pool.shape[0]
         p.k_table, p.kt_stride = k_table.data_ptr(), k_table.stride(0)
         p.v_table, p.vt_stride = v_table.data_ptr(), v_table.stride(0)
         p.n_prefix, p.page_tokens, p.paged = k_table.shape[1] * pt, pt, 1

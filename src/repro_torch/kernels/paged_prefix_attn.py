@@ -19,7 +19,12 @@ window stores a layer's K and V as distinct pages of one pool, addressed
 by a ``(B, L, 2, n_pages)`` launch table (``core/executors.py``); equal
 tables give the reference interface.  On Hopper the kernel is one pass —
 the block walks its pages, then the new-token tiles, in one f32
-accumulator — so no partial sum reaches device memory.
+accumulator — so no partial sum reaches device memory.  Its pages come
+in by TMA: each block stages its page-table entries once, and one TMA
+box per page and column block is issued from the pool's tensor map, so
+the pool must meet TMA's rules (``cuda_lib.tma_pool_geometry``; a pool
+that breaks one raises a ValueError naming it), and ``page_tokens``
+divides the 64-key tile.
 
 On CUDA tensors it launches ``csrc/hstu_rank_attn.cu``; on CPU tensors it
 runs the plain version (gather through the tables, then the dense

@@ -456,6 +456,197 @@ def test_segment_wrapper_refuses_what_the_kernel_does_not_take(dev):
         call(v_table=vt[:, :-1])
 
 
+# --- the TMA loader of the paged and segment launches ------------------------------
+
+NAN_LENS = [256, 200, 1, 65, 130, 64, 255, 17]    # ragged psi rows (B 8)
+
+
+def _held_pool(pool, tables, held_tokens):
+    """(N + 1, page_tokens) bool: the pool keys that some launch row holds,
+    ``held_tokens[b, s]`` the keys of slot s of row b (a prefix: the page's
+    first ones); a page named by several tables counts every naming."""
+    n1, pt = pool.shape[:2]
+    held = torch.zeros(n1, pt, dtype=torch.bool, device=pool.device)
+    j = torch.arange(pt, device=pool.device)
+    for table in tables:
+        rows = (j[None, None, :] < held_tokens[:, :, None])      # (B, np, pt)
+        for page, mask in zip(table.reshape(-1).tolist(),
+                              rows.reshape(-1, pt)):
+            held[page] |= mask
+    return held
+
+
+def _poisoned(pool, held):
+    """The pool with every key no launch holds set to NaN, and the same
+    pool with those keys 0."""
+    keep = held[:, :, None, None]
+    return (torch.where(keep, pool, torch.nan),
+            torch.where(keep, pool, torch.zeros((), dtype=pool.dtype,
+                                                device=pool.device)))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("pt", [2, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_and_segment_ignore_what_the_pool_does_not_hold(dev, dtype, pt,
+                                                                B):
+    """TMA copies whole pages, so the keys a launch does not hold reach
+    shared memory: the tail of a row's last page past prefix_lens, a
+    segment page's keys past page_valid, and pages no table names.  With
+    all of them NaN, the paged and segment outputs are finite and equal
+    the clean pool's bit for bit (the loader zeroes those rows)."""
+    lens = NAN_LENS[:B] if B > 1 else [200]
+    n_pages, Sq, n_incr = 256 // pt, 80, 16
+    q, kn, vn, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq)
+    q, kn, vn, pool = (t.to(dtype) for t in (q, kn, vn, pool))
+    slot = torch.arange(n_pages, device=dev) * pt
+    held_tokens = (plens[:, None] - slot).clamp(0, pt)
+    bad, clean = _poisoned(pool, _held_pool(pool, (kt, vt), held_tokens))
+    paged = lambda p: pk.paged_prefix_rank_attn(q, p, p, kt, vt, plens, kn,
+                                                vn, n_incr=n_incr)
+    got, want = paged(bad), paged(clean)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    # segments: spans with partly held pages, keys past page_valid NaN
+    sq, skn, svn, spool, skt, svt, ppos, pval, qpos = _segments(dev, pt)
+    if B == 1:
+        sq, skn, svn, skt, svt, ppos, pval, qpos = (
+            t[:1] for t in (sq, skn, svn, skt, svt, ppos, pval, qpos))
+    sq, skn, svn, spool = (t.to(dtype) for t in (sq, skn, svn, spool))
+    sbad, sclean = _poisoned(spool, _held_pool(spool, (skt, svt), pval))
+    seg = lambda p: pk.segment_rank_attn(sq, p, p, skt, svt, ppos, pval, qpos,
+                                         skn, svn, n_items=64)
+    got, want = seg(sbad), seg(sclean)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    # and the clean pool against the plain twins
+    tol = dict(atol=3e-4, rtol=3e-4) if dtype == torch.float32 else \
+        dict(atol=2 ** -6 * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(want.float(), pk.segment_rank_attn_plain(
+        sq, sclean, sclean, skt, svt, ppos, pval, qpos, skn, svn,
+        n_items=64).float(), **tol)
+
+
+@pytest.mark.parametrize("pt", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_pages_load_through_the_swizzle(dev, dtype, D, pt):
+    """Pages smaller than the swizzle's 1024-byte pattern (a box lands
+    mid-pattern): paged == dense and one-span segment == paged, bit for
+    bit; where a page's box cannot start on 128 bytes (bf16 at D 32, one
+    token a page) the wrapper names the rule."""
+    lens, Sq, n_incr = [100, 37], 80, 16
+    n_pages = 128 // pt
+    q, kn, vn, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq, 2, D)
+    q, kn, vn, pool = (t.to(dtype) for t in (q, kn, vn, pool))
+    call = lambda: pk.paged_prefix_rank_attn(q, pool, pool, kt, vt, plens,
+                                             kn, vn, n_incr=n_incr)
+    if pt * min(128, D * pool.element_size()) % 128:
+        with pytest.raises(ValueError, match="128-byte aligned"):
+            call()
+        return
+    paged = call()
+    kg, vg = ref.gather_pages(pool, kt, plens), ref.gather_pages(pool, vt, plens)
+    assert torch.equal(rk.prefix_rank_attn_split(q, kg, vg, kn, vn,
+                                                 n_incr=n_incr), paged)
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * pt
+            ).expand(2, n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, pt).int()
+    qpos = (n_pages * pt + torch.arange(Sq, dtype=torch.int32, device=dev)
+            ).expand(2, Sq)
+    assert torch.equal(pk.segment_rank_attn(
+        q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn, n_items=Sq - n_incr),
+        paged)
+
+
+def test_pool_address_follows_the_launch_and_the_graph(dev):
+    """A tensor map holds its pool's address, and a CUDA graph holds the
+    map by value: a graph captured on one pool replays that pool's
+    result after an eager launch on another pool of the same shape, and
+    the eager launch gives the other pool's own result."""
+    lens, Sq, n_incr = [256, 130], 80, 16
+    q, kn, vn, pool_a, kt, vt, plens = _paged(dev, lens, 64, 4, Sq)
+    pool_b = _randn(dev, *pool_a.shape, seed=77)
+    call = lambda pool: pk.paged_prefix_rank_attn(q, pool, pool, kt, vt,
+                                                  plens, kn, vn, n_incr=n_incr)
+    want_a, want_b = call(pool_a), call(pool_b)
+    assert not torch.equal(want_a, want_b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(pool_a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_a = call(pool_a)
+    graph.replay()
+    eager_b = call(pool_b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, want_a)
+    assert torch.equal(eager_b, want_b)
+    _close(eager_b, pk.paged_prefix_rank_attn_plain(
+        q, pool_b, pool_b, kt, vt, plens, kn, vn, n_incr=n_incr))
+
+
+def test_wrapper_names_the_tma_rule_a_pool_breaks(dev):
+    """A pool that TMA cannot read raises a ValueError naming the rule,
+    and nothing falls back: a misaligned pool, one whose strides are not
+    multiples of 16 bytes, pages that do not tile the 64-key tile, an
+    expanded pool or new-token view (stride 0 over its rows)."""
+    lens, Sq, n_incr = [100, 37], 80, 16
+    q, kn, vn, pool, kt, vt, plens = _paged(dev, lens, 64, 2, Sq)
+    call = lambda p: pk.paged_prefix_rank_attn(q, p, p, kt, vt, plens, kn,
+                                               vn, n_incr=n_incr)
+    before = pk.launches
+    flat = torch.zeros(pool.numel() + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned global address"):
+        call(flat[1:].view(pool.shape))
+    wide = torch.zeros(*pool.shape[:3], 66, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        call(wide[..., :64])
+    q3, kn3, vn3, pool3, kt3, vt3, plens3 = _paged(dev, lens, 48, 3, Sq)
+    with pytest.raises(ValueError, match="divide the 64-key tile"):
+        pk.paged_prefix_rank_attn(q3, pool3, pool3, kt3, vt3, plens3, kn3,
+                                  vn3, n_incr=n_incr)
+    # the new K and V take tensor maps too: an expanded view is refused
+    with pytest.raises(ValueError, match="k_new: TMA strides must be positive"):
+        pk.paged_prefix_rank_attn(q, pool, pool, kt, vt, plens,
+                                  kn[:1].expand_as(kn), vn, n_incr=n_incr)
+    with pytest.raises(ValueError, match="k_pool: TMA strides must be positive"):
+        call(pool[:1].expand_as(pool))
+    assert pk.launches == before
+    # a strided pool whose strides TMA takes is read through them
+    roomy = _randn(dev, *pool.shape[:3], 128, seed=5)
+    roomy[..., :64] = pool
+    assert torch.equal(call(roomy[..., :64]), call(pool))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_prefix_refills_the_staged_table(dev, dtype):
+    """One-token pages over a 4096-token psi: a block walks about ten
+    prefix tiles of 64 pages each, more than its staged table holds, so
+    it refills the table as it goes; paged == dense and one-span
+    segment == paged, bit for bit."""
+    lens, Sq, n_incr, pt = [4096, 3001], 80, 16, 1
+    n_pages = 4096
+    q, kn, vn, pool, kt, vt, plens = _paged(dev, lens, pt, n_pages, Sq, 2)
+    q, kn, vn, pool = (t.to(dtype) for t in (q, kn, vn, pool))
+    paged = pk.paged_prefix_rank_attn(q, pool, pool, kt, vt, plens, kn, vn,
+                                      n_incr=n_incr)
+    kg, vg = ref.gather_pages(pool, kt, plens), ref.gather_pages(pool, vt, plens)
+    assert torch.equal(rk.prefix_rank_attn_split(q, kg, vg, kn, vn,
+                                                 n_incr=n_incr), paged)
+    ppos = (torch.arange(n_pages, dtype=torch.int32, device=dev) * pt
+            ).expand(2, n_pages).contiguous()
+    pval = (plens[:, None] - ppos).clamp(0, pt).int()
+    qpos = (n_pages * pt + torch.arange(Sq, dtype=torch.int32, device=dev)
+            ).expand(2, Sq)
+    assert torch.equal(pk.segment_rank_attn(
+        q, pool, pool, kt, vt, ppos, pval, qpos, kn, vn, n_items=Sq - n_incr),
+        paged)
+
+
 def test_model_on_card_matches_cpu(dev):
     from repro_torch.models import build_model, get_config
     cfg = get_config("hstu-gr", smoke=True)

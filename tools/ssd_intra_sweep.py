@@ -45,12 +45,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     sys.path.insert(0, HERE)
     import chip_smoke as cs          # this tree's timers and inputs
-    sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
+    from rank_plan_sweep import load_tree
     import torch
     if not torch.cuda.is_available():
         print("ssd_intra_sweep: needs a CUDA card", file=sys.stderr)
         return 1
-    from repro_torch.kernels import cuda_lib     # the timed tree's kernel
+    cuda_lib = load_tree(args.root)  # the timed tree's kernel
     from repro_torch.kernels import ssd_chunk as sk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
